@@ -11,3 +11,8 @@ process) fakes 512 devices.
 import jax
 
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none")
