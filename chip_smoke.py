@@ -25,9 +25,34 @@ Phases, each printing one JSON line and raising on failure:
                same spec and key on the torch-ref backend on the card,
                whose sd_max trace must agree (rtol 1e-4, atol 1e-5);
   5. profile — torch.profiler over 20 outer iterations: device time by
-               kernel and the device's busy share.
+               kernel and the device's busy share;
+  6. slice kernels — node_task_grad_tiles against its plain version at
+               the sample-split fold of Experiment 1 (n = 15), Experiment
+               2 and the ragged shape, f32 and bf16 (the tolerances
+               above), f64 through ops.altgdmin_node_gradient;
+               compress_topk and dequant against theirs BIT FOR BIT at
+               (20, 600, 4), (100, 100, 10) and (3, 97, 3), tied rows
+               included; times as in phase 3, with torch.mul(q, scale) as
+               dequant's library call;
+  7. path A — the same preset sample-split into two folds (n_folds=2),
+               T_GD=500, cuda: launches node_task_gram 501,
+               node_task_grad_tiles 500, mix_rows 500, node_fused_iter 0;
+               sd_max against torch-ref on the card (rtol 1e-4, atol
+               1e-5); convergence; a profile of 20 iterations;
+  8. path B — dif_topk (compression_k=150, and =d), dif_quantized
+               (int8) and dif_event (event_threshold=0.02) on the same
+               preset, T_GD=500, T_con=10, cuda: compress_topk / dequant
+               / mix_rows at 10·T_GD launches; finite outputs; sd_max
+               below 0.65 / 0.5 / 0.6 of its first value (the
+               reference's bounds); against torch-ref on the card over
+               the whole trajectory (top-k at k=d, int8, event), or, for
+               top-k at k=150, whose row selection round-off can flip
+               (see PATH_B), reported over the first 50 iterations with
+               the first parting iteration and held at the final sd_max
+               (within 10 %); a profile of 20 iterations each.
 
-Then the kernels line, the card line, and the result line.  Exits non-
+Then the kernels line (each kernel's launches from its own path's run),
+the card line, and the result line.  Exits non-
 zero, printing no result, without a CUDA device or outside the repo.
 """
 from __future__ import annotations
@@ -61,10 +86,25 @@ SHAPES = {"exp1": (20, 30, 30, 600, 4), "exp2": (100, 1, 50, 100, 10),
 
 SOURCES = {"node_fused_iter": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
            "node_task_gram": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
-           "mix_rows": "src/repro_torch/kernels/csrc/gossip_axpy.cu"}
+           "mix_rows": "src/repro_torch/kernels/csrc/gossip_axpy.cu",
+           "node_task_grad_tiles":
+               "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
+           "compress_topk": "src/repro_torch/kernels/csrc/compress.cu",
+           "dequant": "src/repro_torch/kernels/csrc/compress.cu"}
 REPLACES = {"node_fused_iter": "src/repro/kernels/altgdmin_ls.py:244",
             "node_task_gram": "src/repro/kernels/altgdmin_ls.py:306",
-            "mix_rows": "src/repro/kernels/gossip_axpy.py:45"}
+            "mix_rows": "src/repro/kernels/gossip_axpy.py:45",
+            "node_task_grad_tiles": "src/repro/kernels/altgdmin_ls.py:375",
+            "compress_topk": "src/repro/kernels/compress.py:64",
+            "dequant": "src/repro/kernels/compress.py:89"}
+
+# The sample-split fold of Experiment 1 (n = 30 split in two), and the
+# (N, d, r, k) blocks of compress_topk: the dif_topk path's (k = d/4),
+# Experiment 2's, and a ragged one at the two ends of k.
+GRAD_SHAPES = {"exp1_fold": (20, 30, 15, 600, 4), "exp2": SHAPES["exp2"],
+               "ragged": SHAPES["ragged"]}
+TOPK_SHAPES = {"exp1": (20, 600, 4, 150), "exp2": (100, 100, 10, 25),
+               "ragged_k1": (3, 97, 3, 1), "ragged_kd": (3, 97, 3, 97)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -105,8 +145,14 @@ def device_ms(torch, fn, *, reps: int = 15, batch: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def nbytes(*ts) -> int:
+    """Bytes of the tensors: each input read once, each output written
+    once."""
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: int, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -187,6 +233,17 @@ def check_kernels(torch):
     return rows
 
 
+def timing(torch, kernel, plain, args, n_bytes, flops, library=None):
+    """Kernel, plain and library ms of one call on ``args``, and the
+    card's bound for its bytes and operations."""
+    b, by = bound(n_bytes, flops)
+    return dict(ms=device_ms(torch, lambda: kernel(*args)),
+                plain_ms=device_ms(torch, lambda: plain(*args)),
+                library_ms=(device_ms(torch, lambda: library(*args))
+                            if library else None),
+                bound_ms=b, bound_by=by)
+
+
 def timings(torch, X, U, y, Wp, Z, B, tiles, G, c, out):
     """Kernel, plain and library ms, and the bound, at one f32 shape.
     Bytes count each input read once and each output written once."""
@@ -194,31 +251,20 @@ def timings(torch, X, U, y, Wp, Z, B, tiles, G, c, out):
     L, tpn, n, d = X.shape
     r = U.shape[2]
     tasks = L * tpn
-
-    def nb(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
     flops_gram = tasks * (2 * n * d * r + 2 * n * r * r + 2 * n * r)
     flops_fused = flops_gram + tasks * (r ** 3 / 3 + 2 * r * r + 2 * n * r
                                         + 2 * n * d + d * r)
-    res = {}
-    b, by = bound(nb(X, U, y, B, tiles), flops_fused)
-    res["node_fused_iter"] = dict(
-        ms=device_ms(torch, lambda: altgdmin_ls.node_fused_iter(X, U, y)),
-        plain_ms=device_ms(torch, lambda: ref.ref_fused_iter(X, U, y)),
-        library_ms=None, bound_ms=b, bound_by=by)
-    b, by = bound(nb(X, U, y, G, c), flops_gram)
-    res["node_task_gram"] = dict(
-        ms=device_ms(torch, lambda: altgdmin_ls.node_task_gram(X, U, y)),
-        plain_ms=device_ms(torch, lambda: ref.ref_task_gram(X, U, y)),
-        library_ms=None, bound_ms=b, bound_by=by)
-    b, by = bound(nb(Wp, Z, out), 2 * Z.shape[0] ** 2 * Z.shape[1])
-    res["mix_rows"] = dict(
-        ms=device_ms(torch, lambda: gossip_axpy.mix_rows(Wp, Z)),
-        plain_ms=device_ms(torch, lambda: ref.ref_mix_rows(Wp, Z)),
-        library_ms=device_ms(torch, lambda: torch.matmul(Wp, Z)),
-        bound_ms=b, bound_by=by)
-    return res
+    return {
+        "node_fused_iter": timing(
+            torch, altgdmin_ls.node_fused_iter, ref.ref_fused_iter,
+            (X, U, y), nbytes(X, U, y, B, tiles), flops_fused),
+        "node_task_gram": timing(
+            torch, altgdmin_ls.node_task_gram, ref.ref_task_gram, (X, U, y),
+            nbytes(X, U, y, G, c), flops_gram),
+        "mix_rows": timing(
+            torch, gossip_axpy.mix_rows, ref.ref_mix_rows, (Wp, Z),
+            nbytes(Wp, Z, out), 2 * Z.shape[0] ** 2 * Z.shape[1],
+            library=torch.matmul)}
 
 
 def main_path(torch):
@@ -279,7 +325,7 @@ def main_path(torch):
     return spec, mat, launches
 
 
-def profile(torch, spec, mat):
+def profile(torch, spec, mat, *, label="profile"):
     from repro_torch.api import run_experiment
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -301,9 +347,243 @@ def profile(torch, spec, mat):
                                 + ev.time_range.elapsed_us() / 1e3)
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
-    emit("profile", iterations=iters, wall_ms=wall_ms, device_busy_ms=busy_ms,
+    emit("profile", path=label, iterations=iters, wall_ms=wall_ms,
+         device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms if wall_ms else None,
          top_kernels_ms=[[name[:90], ms] for name, ms in top])
+
+
+def check_slice_kernels(torch):
+    """Phase 6: this slice's three kernels against their plain versions,
+    with the times of each at the shape its path gives it."""
+    from repro_torch.kernels import altgdmin_ls, compress, ops, ref
+
+    errs = {"node_task_grad_tiles": 0.0, "compress_topk": 0.0,
+            "dequant": 0.0}
+    times = {}
+    for sname, shape in GRAD_SHAPES.items():
+        L, tpn, n, d, r = shape
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            X, U, y = instance(torch, shape, dtype, seed=7)
+            B = torch.randn((L, tpn, r), device="cuda")
+            tiles = altgdmin_ls.node_task_grad_tiles(X, U, B, y)
+            want = ref.ref_node_grad_tiles(X, U, B, y)
+            e = max_err(torch, tiles, want, TOL[dname],
+                        f"node_task_grad_tiles {sname} {dname}")
+            if dname == "float32":
+                errs["node_task_grad_tiles"] = max(
+                    errs["node_task_grad_tiles"], e)
+            emit("slice_kernels", kernel="node_task_grad_tiles",
+                 shape=sname, dtype=dname, max_abs_err=e)
+            if sname == "exp1_fold" and dname == "float32":
+                times["node_task_grad_tiles"] = timing(
+                    torch, altgdmin_ls.node_task_grad_tiles,
+                    ref.ref_node_grad_tiles, (X, U, B, y),
+                    nbytes(X, U, B, y, tiles),
+                    L * tpn * (2 * n * d * r + 2 * n * r + 2 * n * d
+                               + d * r))
+        X, U, y = instance(torch, shape, torch.float64, seed=8)
+        B = torch.randn((L, tpn, r), device="cuda", dtype=torch.float64)
+        e64 = max_err(
+            torch, ops.altgdmin_node_gradient(X, U, B, y, backend="cuda"),
+            ops.altgdmin_node_gradient(X, U, B, y, backend="torch-ref"),
+            TOL["float64"], f"altgdmin_node_gradient {sname} float64")
+        emit("slice_kernels", kernel="altgdmin_node_gradient", shape=sname,
+             dtype="float64", max_abs_err=e64)
+
+    for sname, (N, d, r, k) in TOPK_SHAPES.items():
+        for dname in ("float32", "bfloat16"):
+            g = torch.Generator(device="cuda").manual_seed(d + k)
+            M = torch.randn((N, d, r), generator=g, device="cuda").to(
+                getattr(torch, dname))
+            M[:, d // 2] = M[:, 0]           # exact ties: index order
+            M[:, d - 1] = M[:, 0]
+            vals, idx = compress.compress_topk(M, k)
+            v_ref, i_ref = ref.ref_compress_topk(M, k)
+            torch.cuda.synchronize()
+            require(torch.equal(idx, i_ref) and torch.equal(vals, v_ref),
+                    f"compress_topk {sname} {dname} differs from its plain "
+                    f"version")
+            emit("slice_kernels", kernel="compress_topk", shape=sname,
+                 dtype=dname, bitwise_equal=True)
+            if sname == "exp1" and dname == "float32":
+                times["compress_topk"] = timing(
+                    torch, compress.compress_topk, ref.ref_compress_topk,
+                    (M, k), nbytes(M, vals, idx), 2 * N * d * r + N * d)
+        for dname in ("float32", "bfloat16"):
+            g = torch.Generator(device="cuda").manual_seed(N)
+            q = torch.randint(-127, 128, (N, d, r), generator=g,
+                              device="cuda", dtype=torch.int8)
+            scale = (torch.rand((N, 1, 1), generator=g, device="cuda")
+                     + 1e-3).to(getattr(torch, dname))
+            out = compress.dequant(q, scale)
+            want = ref.ref_dequant(q, scale)
+            torch.cuda.synchronize()
+            require(out.dtype == want.dtype and torch.equal(out, want),
+                    f"dequant {sname} {dname} differs from its plain "
+                    f"version")
+            emit("slice_kernels", kernel="dequant", shape=sname,
+                 dtype=dname, bitwise_equal=True)
+            if sname == "exp1" and dname == "float32":
+                times["dequant"] = timing(
+                    torch, compress.dequant, ref.ref_dequant, (q, scale),
+                    nbytes(q, scale, out), q.numel(), library=torch.mul)
+    emit("slice_kernels", timing=times)
+    return errs, times
+
+
+def run_path(torch, spec, mat, want, *, name):
+    """Drive ``run_experiment`` on the cuda backend with the launch
+    counts set to 0 just before and read just after; check the counts
+    against ``want``, the outputs' shapes and finiteness; then the same
+    spec and materialization on torch-ref.  → (trace, torch-ref trace,
+    launches, seconds per run of each)."""
+    from repro_torch.api import EngineSpec, run_experiment
+    from repro_torch.kernels import _build
+
+    T_GD, p = spec.solver.T_GD, spec.problem
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    trace = run_experiment(spec, key=0, materialized=mat)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(_build.LAUNCHES)
+    require(all(launches.get(k, 0) == v for k, v in want.items()),
+            f"{name}: launch counts {launches}, want {want}")
+    for field, arr, shape in (
+            ("sd_max", trace.sd_max, (T_GD,)),
+            ("spread", trace.spread, (T_GD,)),
+            ("time_axis", trace.time_axis, (T_GD,)),
+            ("U_nodes", trace.U_nodes.cpu().numpy(), (p.L, p.d, p.r)),
+            ("B_nodes", trace.B_nodes.cpu().numpy(),
+             (p.L, p.T // p.L, p.r))):
+        require(tuple(arr.shape) == shape and bool(np.isfinite(arr).all()),
+                f"{name} {field}: shape {tuple(arr.shape)} (want {shape}) "
+                f"or not finite")
+    spec_ref = dataclasses.replace(spec,
+                                   engine=EngineSpec(backend="torch-ref"))
+    t2 = time.perf_counter()
+    trace_ref = run_experiment(spec_ref, key=0, materialized=mat)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return trace, trace_ref, launches, t1 - t0, t3 - t2
+
+
+def agree_upto(a, b, upto=None) -> tuple[bool, float, int | None]:
+    """Whether two sd_max traces agree (rtol 1e-4, atol 1e-5) over their
+    first ``upto`` iterations, the max abs difference there, and the
+    first iteration where they part (None if they never do)."""
+    ok = np.abs(a - b) <= 1e-5 + 1e-4 * np.abs(b)
+    parts = np.flatnonzero(~ok)
+    first = int(parts[0]) if parts.size else None
+    return bool(ok[:upto].all()), float(np.abs(a - b)[:upto].max()), first
+
+
+def path_a(torch):
+    """Phase 7: sample-split Dif-AltGDmin at Experiment 1."""
+    from repro_torch.api import materialize
+    from repro_torch.configs.paper import EXPERIMENT1, to_spec
+
+    cfg = EXPERIMENT1[0]
+    spec = to_spec(cfg, dtype="float32", backend="cuda")
+    spec = dataclasses.replace(spec, problem=dataclasses.replace(
+        spec.problem, n_folds=2))
+    T_GD = cfg.T_GD
+    mat = materialize(spec, key=0, device="cuda")
+    want = {"node_task_gram": T_GD + 1, "node_task_grad_tiles": T_GD,
+            "mix_rows": T_GD, "node_fused_iter": 0}
+    trace, trace_ref, launches, run_s, ref_s = run_path(
+        torch, spec, mat, want, name="path A")
+    ok, diff, first = agree_upto(trace.sd_max, trace_ref.sd_max)
+    emit("path_a", preset=cfg.name, n_folds=2, dtype="float32", T_GD=T_GD,
+         launches=launches, first_sd_max=float(trace.sd_max[0]),
+         final_sd_max=trace.final_sd_max,
+         final_spread=float(trace.spread[-1]),
+         sd_max_vs_torch_ref_max_abs_diff=diff, run_s=run_s,
+         ms_per_iter=run_s / T_GD * 1e3, torch_ref_run_s=ref_s,
+         torch_ref_ms_per_iter=ref_s / T_GD * 1e3,
+         first_parting_iteration=first)
+    require(ok, f"path A: sd_max disagrees with torch-ref (max abs diff "
+                f"{diff:.3e}, first at iteration {first})")
+    require(trace.final_sd_max < 1e-2 * trace.sd_max[0],
+            f"path A did not converge: sd_max {trace.sd_max[0]:.3e} → "
+            f"{trace.final_sd_max:.3e}")
+    profile(torch, spec, mat, label="path_a")
+    return launches
+
+
+# (solver, knobs, kernel counted per round, the reference's convergence
+# bound, whether the whole sd_max trajectory is held to torch-ref).  Row
+# selection at k < d is discontinuous: once the f32 round-off of
+# mix_rows (against the plain product's) reorders two nearly equal row
+# norms of Z − x̂ — a difference of nearly equal numbers — the two runs
+# select different rows and part.  At k = 150 that happens within the
+# first 50 iterations, so that run reports its agreement over them and
+# its first parting iteration and is held to its final value (within
+# 10 %); the same path at k = d, whose selection cannot flip, is held
+# over the whole trajectory.
+PATH_B = (("dif_topk", {"compression_k": 150}, "compress_topk", 0.65, False),
+          ("dif_topk", {"compression_k": 600}, "compress_topk", 0.65, True),
+          ("dif_quantized", {"compression": "int8"}, "dequant", 0.5, True),
+          ("dif_event", {"event_threshold": 0.02}, None, 0.6, True))
+
+
+def path_b(torch, spec, mat):
+    """Phase 8: the compressed trio at Experiment 1, on the dense path's
+    materialization."""
+    T_GD, T_con = spec.solver.T_GD, spec.solver.T_con
+    p_d = spec.problem.d
+    launches_by_kernel, failures = {}, []
+    for name, kw, kernel, shrink, held in PATH_B:
+        upto = None if held else 50
+        s = dataclasses.replace(spec, solver=dataclasses.replace(
+            spec.solver, name=name, **kw))
+        want = {"mix_rows": T_con * T_GD, "node_fused_iter": T_GD,
+                "node_task_gram": 1, "node_task_grad_tiles": 0,
+                "compress_topk": 0, "dequant": 0}
+        if kernel:
+            want[kernel] = T_con * T_GD
+        trace, trace_ref, launches, run_s, ref_s = run_path(
+            torch, s, mat, want, name=name)
+        if kernel:
+            launches_by_kernel.setdefault(kernel, launches.get(kernel, 0))
+        ok, diff, first = agree_upto(trace.sd_max, trace_ref.sd_max, upto)
+        final_rel = (abs(trace.final_sd_max - trace_ref.final_sd_max)
+                     / trace_ref.final_sd_max)
+        emit("path_b", solver=name, knobs=kw, dtype="float32", T_GD=T_GD,
+             T_con=T_con, launches=launches,
+             first_sd_max=float(trace.sd_max[0]),
+             final_sd_max=trace.final_sd_max,
+             torch_ref_final_sd_max=trace_ref.final_sd_max,
+             final_rel_diff_vs_torch_ref=final_rel,
+             compared_iterations=upto or T_GD, trajectory_held=held,
+             agrees_over_compared=ok,
+             sd_max_vs_torch_ref_max_abs_diff=diff,
+             first_parting_iteration=first,
+             mean_send_frac=(float(np.mean(trace.send_frac))
+                             if trace.send_frac is not None else None),
+             run_s=run_s, ms_per_iter=run_s / T_GD * 1e3,
+             torch_ref_run_s=ref_s,
+             torch_ref_ms_per_iter=ref_s / T_GD * 1e3)
+        # every solver runs before a failed check raises, so one run
+        # reports all three
+        if held and not ok:
+            failures.append(
+                f"{name} {kw}: sd_max disagrees with torch-ref (max abs "
+                f"diff {diff:.3e}, first at iteration {first})")
+        if not held and final_rel > 0.1:
+            failures.append(f"{name}: final sd_max {trace.final_sd_max:.3e}"
+                            f" vs torch-ref {trace_ref.final_sd_max:.3e}")
+        if not trace.final_sd_max < shrink * trace.sd_max[0]:
+            failures.append(
+                f"{name} did not converge: sd_max {trace.sd_max[0]:.3e} → "
+                f"{trace.final_sd_max:.3e} (bound {shrink})")
+        if kw.get("compression_k") != p_d:       # k = d: no own profile
+            profile(torch, s, mat, label=f"path_b_{name}")
+    require(not failures, "; ".join(failures))
+    return launches_by_kernel
+
 
 
 def main() -> int:
@@ -341,7 +621,10 @@ def main() -> int:
 
     rows = check_kernels(torch)
     spec, mat, launches = main_path(torch)
-    profile(torch, spec, mat)
+    profile(torch, spec, mat, label="main")
+    slice_errs, slice_timing = check_slice_kernels(torch)
+    launches_a = path_a(torch)
+    launches_b = path_b(torch, spec, mat)
 
     main_row = rows[("exp1", "float32")]
     kernels = []
@@ -353,6 +636,14 @@ def main() -> int:
                         "launches": launches[name],
                         "max_abs_err": max(errs),
                         **main_row["timing"][name]})
+    slice_launches = {"node_task_grad_tiles":
+                      launches_a["node_task_grad_tiles"], **launches_b}
+    for name in ("node_task_grad_tiles", "compress_topk", "dequant"):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCES[name], "replaces": REPLACES[name],
+                        "launches": slice_launches[name],
+                        "max_abs_err": slice_errs[name],
+                        **slice_timing[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

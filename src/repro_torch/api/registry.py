@@ -4,9 +4,11 @@ convention.
 Port of ``src/repro/api/registry.py``.  Every registered solver is
 derived from a :class:`~repro_torch.core.program.SolverProgram`: its
 simulator entry point is the program's simulator lowering, and the
-combine rule that prices its communication comes off the program.  The JAX package's
-other eleven solvers raise NotImplementedError until a later slice of
-the port registers them.
+combine rule that prices its communication comes off the program.
+Registered: ``dif_altgdmin`` and the compressed trio ``dif_topk`` /
+``dif_quantized`` / ``dif_event``.  The JAX package's other eight
+solvers raise NotImplementedError until a later slice of the port
+registers them.
 """
 from __future__ import annotations
 
@@ -21,7 +23,6 @@ from repro_torch.distributed.consensus import CommSignature, get_rule
 # The JAX package's solvers that later slices of the port bring.
 LATER_SLICE_SOLVERS = ("dec_altgdmin", "centralized_altgdmin",
                        "dgd_altgdmin", "exact_diffusion", "beyond_central",
-                       "dif_topk", "dif_quantized", "dif_event",
                        "dif_partial", "dif_stale", "dif_pushsum")
 
 
@@ -39,16 +40,21 @@ class SolverDef:
     spec_kwargs: tuple = ()
 
     def signature(self, T_con: int, **params) -> CommSignature:
-        """The solver's per-iteration communication signature."""
+        """The solver's per-iteration communication signature.
+        ``params`` optionally carries the payload context (problem dims
+        ``d``/``r`` + the SolverSpec compression knobs) so compressed
+        rules can report their actual wire format; the others ignore
+        it."""
         return get_rule(self.combine).signature(T_con, **params)
 
     def call(self, U0_nodes, Xg, yg, W, adj, *, eta: float, T_GD: int,
-             T_con: int, U_star=None, engine=None) -> RunResult:
+             T_con: int, U_star=None, engine=None, **extra) -> RunResult:
         """Uniform convention: stacked node-major inputs, the mixing
         matrix ``W`` and the adjacency ``adj`` (which the solvers that
-        average neighbours will take)."""
+        average neighbours will take).  ``extra`` forwards the fields
+        named in ``spec_kwargs``."""
         return self.fn(U0_nodes, Xg, yg, W, T_con=T_con, eta=eta,
-                       T_GD=T_GD, U_star=U_star, engine=engine)
+                       T_GD=T_GD, U_star=U_star, engine=engine, **extra)
 
 
 SOLVERS: dict[str, SolverDef] = {}

@@ -59,7 +59,9 @@ class Trace:
     ``sd_max``/``sd_mean``/``spread`` are per-iteration numpy arrays
     (length T_GD); ``U_nodes`` (L, d, r) and ``B_nodes`` (L, tpn, r)
     stay tensors on the run's device; ``time_axis`` is the cumulative
-    emulated wall-clock under the spec's comm model."""
+    emulated wall-clock under the spec's comm model; ``send_frac`` the
+    event rule's measured per-iteration send rate (None for the other
+    solvers)."""
     spec: ExperimentSpec
     U_nodes: torch.Tensor
     B_nodes: torch.Tensor
@@ -70,6 +72,7 @@ class Trace:
     time_axis: np.ndarray
     materialized: Materialized
     time_axis_source: str = "closed_form"
+    send_frac: np.ndarray | None = None
 
     @property
     def final_sd_max(self) -> float:
@@ -192,9 +195,15 @@ def comm_time_axis(spec: ExperimentSpec, solver: SolverDef,
                    graph: Graph | SparseGraph) -> np.ndarray:
     """Cumulative emulated wall-clock per outer iteration, priced from
     the solver's combine-rule comm signature under the spec's network
-    model (one d×r exchange per neighbour per round)."""
+    model (one message per neighbour per round: the dense d×r iterate,
+    or the compressed rules' payload)."""
     p, c = spec.problem, spec.comm
-    sig = solver.signature(spec.solver.T_con, d=p.d, r=p.r)
+    # payload context: compressed rules fill entries_per_round /
+    # bytes_per_entry from these, the others ignore them
+    sig = solver.signature(spec.solver.T_con, d=p.d, r=p.r,
+                           compression=spec.solver.compression,
+                           compression_k=spec.solver.compression_k,
+                           event_threshold=spec.solver.event_threshold)
     return _cm.time_axis_from_signature(
         sig, spec.solver.T_GD, p.d, p.r,
         p.L, graph.max_degree, c.compute_s_per_iter,
@@ -243,14 +252,19 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
                              f"state lives on {mat.Xg.device}")
     eta = _resolve_spec_eta(spec, mat.init)
     eng = resolve_engine(engine, spec.engine.backend, device=mat.Xg.device)
+    extra = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
     result = solver.call(mat.init.U0, mat.Xg, mat.yg, mat.W, mat.adj,
                          eta=eta, T_GD=spec.solver.T_GD,
                          T_con=spec.solver.T_con,
-                         U_star=mat.problem.U_star, engine=eng)
-    sd = torch.stack([result.sd_max, result.sd_mean, result.spread])
-    sd_max, sd_mean, spread = sd.cpu().numpy()       # the one host sync
+                         U_star=mat.problem.U_star, engine=eng, **extra)
+    rows = [result.sd_max, result.sd_mean, result.spread]
+    if result.send_frac is not None:
+        rows.append(result.send_frac.to(result.sd_max.dtype))
+    host = torch.stack(rows).cpu().numpy()            # the one host sync
     return Trace(spec=spec, U_nodes=result.U_nodes, B_nodes=result.B_nodes,
-                 sd_max=sd_max, sd_mean=sd_mean, spread=spread,
+                 sd_max=host[0], sd_mean=host[1], spread=host[2],
                  eta=result.eta,
                  time_axis=comm_time_axis(spec, solver, mat.graph),
-                 materialized=mat)
+                 materialized=mat,
+                 send_frac=(host[3].astype(np.float32)
+                            if result.send_frac is not None else None))

@@ -19,7 +19,8 @@ The sub-specs mirror the run's stages:
 What the port does not run yet is still described, so specs keep their
 meaning, and raises NotImplementedError when run: ``system`` (the
 fault-injection layer), ``substrate="mesh"``, the sparse representation,
-and every solver but ``dif_altgdmin``.
+and every solver but ``dif_altgdmin`` and the compressed trio
+(``dif_topk``, ``dif_quantized``, ``dif_event``).
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ rule.  The solver loop itself is the ``dif_altgdmin`` program of
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,6 +21,9 @@ class RunResult(NamedTuple):
     sd_mean: torch.Tensor    # (T_GD,)
     spread: torch.Tensor     # (T_GD,) max_{g,g'} ||U_g − U_g'||_F
     eta: float
+    # (T_GD,) measured per-iteration send rate (event-triggered rule
+    # only); None for every other solver
+    send_frac: Optional[torch.Tensor] = None
 
 
 def _select(Xg, yg, fold):

@@ -12,15 +12,16 @@ AGREE combine.  This module binds those phases to a backend:
                     per iteration (A = X_t U built once per task), the
                     final B through the ``node_task_gram`` kernel, and
                     AGREE as one ``mix_rows`` launch on the precomputed
-                    ``W^{T_con}``.  The kernels compute in f32 at any
+                    ``W^{T_con}``.  On sample-split data (``n_folds >
+                    1``) min-B and the gradient see different folds, so
+                    an iteration is two launches: ``node_task_gram`` on
+                    the min fold, ``node_task_grad_tiles`` on the
+                    gradient fold.  The kernels compute in f32 at any
                     input dtype; their outputs are cast back to U's.
 
 Backend selection: explicit argument → ``backend_scope`` →
 ``REPRO_TORCH_ENGINE_BACKEND`` → ``REPRO_TORCH_KERNEL_BACKEND`` → the
 device: ``cuda`` for CUDA tensors, ``torch-ref`` for CPU tensors.
-
-Not ported yet: the gradient kernel of the sample-split path
-(``node_task_grad_tiles``), so ``cuda`` with ``n_folds > 1`` raises.
 """
 from __future__ import annotations
 
@@ -89,16 +90,16 @@ class AltgdminEngine:
         """(L, d, r) local gradients for a given B (sample-split path)."""
         if not self.fused:
             return ref_grad_U(U_nodes, B_nodes, Xg, yg)
-        raise NotImplementedError(
-            "the gradient for a given B (sample-split path, n_folds > 1) "
-            "needs the node_task_grad_tiles kernel, which the next slice "
-            "of the port brings; use backend='torch-ref'")
+        G = ops.altgdmin_node_gradient(Xg, U_nodes, B_nodes, yg,
+                                       backend=self.backend)
+        return G.to(U_nodes.dtype)
 
     def min_grad(self, U_nodes, X_min, y_min, X_grad, y_grad, *,
                  same_data: bool):
         """Min-B on (X_min, y_min) then ∇f on (X_grad, y_grad).  When both
         halves see the same data (the paper's simulations) the cuda
-        backend does both in ONE kernel launch."""
+        backend does both in ONE kernel launch; otherwise A must be
+        rebuilt on the gradient fold and the two-launch path runs."""
         if self.fused and same_data:
             B, G = ops.altgdmin_fused_step(X_min, U_nodes, y_min,
                                            backend=self.backend)
@@ -113,6 +114,16 @@ class AltgdminEngine:
         named combine rule (torch-ref: the exact sequential product;
         cuda: one mix_rows launch on W^{T_con}, float64 kept exact)."""
         return get_rule(rule).make_sim_mixer(W, T_con, backend=self.backend)
+
+    def make_state_mixer(self, W, T_con: int, *, rule: str, **rule_kw):
+        """Stateful combine for the compressed/event-triggered rules:
+        ``(Z, state) ↦ (Z', state')``.  ``rule_kw`` carries the rule's
+        spec knobs (``compression_k``, ``compression``,
+        ``event_threshold``, ``consensus_gamma``); the state itself
+        comes from the rule's ``init_state`` and rides the solver
+        loop."""
+        return get_rule(rule).make_sim_state_mixer(
+            W, T_con, backend=self.backend, **rule_kw)
 
 
 def resolve_engine(engine=None, backend: str | None = None, *,

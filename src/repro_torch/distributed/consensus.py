@@ -1,24 +1,30 @@
 """The consensus layer — every simulator ``Z ← W Z`` in one place.
 
 Port of the simulator half of ``src/repro/distributed/consensus.py`` for
-the paper's ``gossip`` rule.  Node variables are stacked on a leading
-axis, ``Z: (L, ...)``.  The ``torch-ref`` lowering is the exact
-sequential product (T_con rounds of ``W @ Z``, dtype-preserving, the
-numerics anchor); the ``cuda`` lowering hoists the T_con rounds onto a
-precomputed ``W^{T_con}`` applied by the ``mix_rows`` kernel in one
-launch.
+the paper's ``gossip`` rule and the compressed wire rules
+``topk_gossip`` / ``quantized_gossip`` / ``event_gossip``.  Node
+variables are stacked on a leading axis, ``Z: (L, ...)``.  The
+``torch-ref`` lowering is the exact sequential product (T_con rounds of
+``W @ Z``, dtype-preserving, the numerics anchor); the ``cuda`` lowering
+hoists the T_con rounds of ``gossip`` onto a precomputed ``W^{T_con}``
+applied by the ``mix_rows`` kernel in one launch.  The compressed rules
+mix round by round (their refresh depends on the data), one
+``mix_rows`` launch per round, with the ``compress_topk`` /
+``dequant`` kernels as the encode and decode.
 
-Precision policy: the kernel accumulates in f32, so float64 operands
-always take the exact sequential product, on every backend.
+Precision policy: the kernels accumulate in f32, so float64 operands
+always take the exact sequential product and the plain encoders, on
+every backend.
 
 Not ported yet, and raising NotImplementedError where a caller would
 reach them: the sparse tier (padded-COO segment-sum rounds above
-``SPARSE_MIN_NODES``), the mesh lowerings, and every combine rule other
-than ``gossip``.
+``SPARSE_MIN_NODES``), the mesh lowerings, and the combine rules other
+than these four.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -135,15 +141,339 @@ class GossipCombine:
 
 
 # ----------------------------------------------------------------------
+# compressed / event-triggered wire rules
+# ----------------------------------------------------------------------
+
+def _scatter_replace_rows(xhat, vals, idx):
+    """Replace rows ``idx`` of each (d, r) block with ``vals`` (top-k
+    refresh).  Indices from top-k are unique, so the scatter does not
+    depend on order, and a FULL index set makes the result exactly
+    ``vals``'s source — the bit-identity anchor of ``k = d``."""
+    index = idx.long()[..., None].expand(-1, -1, xhat.shape[2])
+    return xhat.scatter(1, index, vals)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash (xor-shift / multiply rounds) of values in
+    [0, 2³²), on Python ints or int64 tensors alike.  The multiplier is
+    below 2³¹, so every product fits in int64."""
+    for _ in range(2):
+        x = x ^ (x >> 16)
+        x = (x * 0x45D9F3B) & _M32
+    return x ^ (x >> 16)
+
+
+def _mantissa_bits(dtype) -> int:
+    """Significand bits of a floating dtype (24 for float32)."""
+    eps = torch.finfo(dtype).eps
+    return 1 - int(round(math.log2(eps)))
+
+
+def stochastic_dither(count: int, node_ids, shape, dtype):
+    """The uniform [0, 1) dither of the stochastic int8 wire for round
+    ``count``: one draw per (count, node id, entry) of a counter-based
+    hash, on ``node_ids``' device, in ``dtype`` with as many random bits
+    as its significand holds (32 at most).  A node's draws depend on
+    nothing but its id and the count — not on N, nor on which other
+    nodes are drawn with it — so a per-node lowering can reproduce
+    them.  These are not the JAX package's ``jax.random`` draws."""
+    seed = _mix32((count * 0x9E3779B1 + 0x7F4A7C15) & _M32)   # host int
+    n_entries = math.prod(shape)
+    entries = torch.arange(n_entries, dtype=torch.int64,
+                           device=node_ids.device)
+    key = _mix32(seed ^ _mix32(node_ids.to(torch.int64)))
+    h = _mix32(key[:, None] ^ _mix32(entries)[None, :])
+    bits = min(32, _mantissa_bits(dtype))
+    u = (h >> (32 - bits)).to(dtype) * 2.0 ** -bits
+    return u.reshape((node_ids.shape[0],) + tuple(shape))
+
+
+class CompressedGossipCombine(GossipCombine):
+    """Base of the compressed-communication gossip rules.
+
+    Every node keeps a PUBLIC COPY ``x̂_g`` of its iterate — the value
+    the network believes — and each round refreshes the copy's stalest
+    content with a compact payload (the reference-copy error-feedback
+    scheme of CHOCO-SGD / EF21):
+
+        payload, x̂_g' = refresh(Z_g, x̂_g)      # what crosses the wire
+        x̂_j'          = apply(payload_j, x̂_j)  # neighbours' copies
+        Z_g'           = W_gg·Z_g + Σ_{j≠g} W_gj·x̂_j'
+
+    ``Z − x̂`` is exactly the accumulated compression error, re-injected
+    into every later payload.  The SELF term never crosses a wire, so the
+    simulator computes ``W @ X̂' + diag(W)·(Z − X̂')``: one dense combine
+    on the refreshed copies (the ``mix_rows`` kernel on cuda, one launch
+    per round) plus the exact-self correction.  A lossless refresh
+    (k = d, θ = 0) makes ``X̂' = Z`` exactly, and the round IS the dense
+    ``W @ Z`` product bit for bit on the exact (torch-ref / float64)
+    lowering.  The cuda lowering agrees with dense gossip to f32
+    round-off only: dense gossip hoists its T_con rounds onto one
+    ``W^{T_con}``, a compressed rule mixes round by round.
+
+    Precision policy (the shared ``_fused_wanted`` gate): float64
+    operands take the plain encoder AND the exact dense product.
+
+    The stateless ``make_sim_mixer`` raises (it would silently drop the
+    state); callers use ``make_sim_state_mixer`` and seed the state with
+    ``init_state``.  Only the dense lowering is ported: a mixing matrix
+    of the sparse tier raises in ``maybe_sparsify``.
+    """
+
+    # ------------------------------------------------- rule interface
+
+    def resolve_params(self, d: int, r: int, **kw) -> dict:
+        """Static per-run parameters from the spec knobs + problem dims."""
+        raise NotImplementedError
+
+    def refresh(self, Z, xhat, node_ids, count, *, backend, **params):
+        """One round's wire encode for stacked blocks ``Z (N, d, r)``:
+        returns ``(payload, xhat_new)`` — the compact payload that
+        crosses the wire and the node's refreshed public copy."""
+        raise NotImplementedError
+
+    def apply(self, payload, xhat, *, backend, **params):
+        """A receiver's side of ``refresh``: update a stored neighbour
+        copy from a received payload; reproduces ``refresh``'s
+        ``xhat_new`` bit for bit given the same payload and copy."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------- state
+
+    def init_state(self, Z_nodes, **kw):
+        """The stacked public copies ``x̂`` (zero — the network starts
+        with no beliefs), plus the round counter, a Python int, for the
+        stochastic rules."""
+        xhat = torch.zeros_like(Z_nodes)
+        return (xhat, 0) if self._stochastic(**kw) else xhat
+
+    def _stochastic(self, **kw) -> bool:
+        return False
+
+    # ----------------------------------------------------- lowerings
+
+    def make_sim_mixer(self, W, T_con, *, backend="torch-ref"):
+        raise TypeError(f"combine rule {self.name!r} is stateful; use "
+                        f"make_sim_state_mixer / init_state")
+
+    def make_sim_state_mixer(self, W, T_con: int, *,
+                             backend: str = "torch-ref", **kw) -> Callable:
+        """Simulator closure ``(Z (L, d, r), state) ↦ (Z', state')``:
+        T_con rounds of refresh + dense combine on the public copies +
+        exact-self correction.  ``consensus_gamma`` (CHOCO step size,
+        default 1) relaxes each round toward the combined value,
+        ``Z ← Z + γ(combined − Z)``; γ = 1 is skipped, so default
+        trajectories stay bit-identical."""
+        gamma = float(kw.pop("consensus_gamma", 1.0))
+        stochastic = self._stochastic(**kw)
+        W = maybe_sparsify(W)
+        if T_con == 0:
+            return lambda Z, state: (Z, state)
+
+        def mix(Z, state):
+            N = Z.shape[0]
+            params = self.resolve_params(Z.shape[1], Z.shape[2], **kw)
+            ids = torch.arange(N, device=Z.device)
+            fused = _fused_wanted(backend, Z.dtype)
+            Wz = W.to(torch.float32 if fused else Z.dtype)
+            w_diag = torch.diagonal(W).to(Z.dtype)[:, None, None]
+            for _ in range(T_con):
+                xhat, count = state if stochastic else (state, None)
+                _, xhat2 = self.refresh(Z, xhat, ids, count,
+                                        backend=backend, **params)
+                if fused:
+                    Z2 = stacked_dense_mix(xhat2, Wz, backend=backend)
+                else:
+                    # the dense product on the refreshed copies,
+                    # arithmetic-identical to stacked_product's round
+                    Z2 = (Wz @ xhat2.reshape(N, -1)).reshape(Z.shape)
+                # exact-self correction: the node's own block never
+                # crosses a wire; a lossless refresh makes Z − xhat2
+                # exactly zero, so the round stays W @ Z bit for bit
+                Z2 = Z2 + w_diag * (Z - xhat2)
+                if gamma != 1.0:
+                    Z2 = Z + gamma * (Z2 - Z)      # CHOCO relaxation
+                Z = Z2
+                state = (xhat2, count + 1) if stochastic else xhat2
+            return Z, state
+        return mix
+
+
+class TopkGossipCombine(CompressedGossipCombine):
+    """``topk_gossip`` — top-k ROW refresh: per round each node
+    re-broadcasts the ``compression_k`` rows of its iterate whose public
+    copy drifted the most (largest ``‖Z − x̂‖`` row norms — the
+    ``compress_topk`` kernel selects them; the wire carries the ABSOLUTE
+    ``Z`` rows + int32 indices; receivers replace those copy rows).
+    ``compression_k = 0`` defaults to d/4; ``compression_k = d``
+    recovers dense gossip bit-identically on the exact path.
+
+    Wire pricing: k·r f32 payload values plus k int32 row indices, 4
+    bytes each."""
+
+    name = "topk_gossip"
+
+    def resolve_params(self, d, r, compression_k: int = 0, **_):
+        k = int(compression_k) or max(1, d // 4)
+        if not 1 <= k <= d:
+            raise ValueError(f"topk_gossip needs 1 <= compression_k <= d, "
+                             f"got k={k} for d={d}")
+        return {"k": k}
+
+    def refresh(self, Z, xhat, node_ids, count, *, backend, k):
+        delta = Z - xhat                     # accumulated compression error
+        cb = backend if _fused_wanted(backend, Z.dtype) else "torch-ref"
+        _, idx = ops.compress_topk(delta, k, backend=cb)   # stalest rows
+        vals = torch.gather(Z, 1, idx.long()[..., None].expand(
+            -1, -1, Z.shape[2]))
+        return (vals, idx), _scatter_replace_rows(xhat, vals, idx)
+
+    def apply(self, payload, xhat, *, backend, k):
+        vals, idx = payload
+        return _scatter_replace_rows(xhat, vals, idx)
+
+    def signature(self, T_con: int, *, d=None, r=None, compression_k=0,
+                  **_) -> CommSignature:
+        if d is None or r is None:
+            return CommSignature("gossip", T_con)
+        k = self.resolve_params(d, r, compression_k)["k"]
+        # f32 wire values (k·r) + int32 row indices (k): 4 bytes each
+        return CommSignature("gossip", T_con,
+                             entries_per_round=k * (r + 1),
+                             bytes_per_entry=4)
+
+
+class QuantizedGossipCombine(CompressedGossipCombine):
+    """``quantized_gossip`` — low-precision wire with full-precision
+    accumulation: the DIFFERENCE ``Z − x̂`` is quantized and added onto
+    the public copies, so the quantization error contracts with
+    consensus.  Wire formats (``compression``):
+
+      * ``"bf16"`` (default) — round-to-nearest-even bfloat16 cast;
+      * ``"int8"`` — per-message max-abs scale, round-half-to-even int8
+        (decoded by the ``dequant`` kernel on cuda);
+      * ``"int8_stochastic"`` — int8 with stochastic rounding, dithered
+        by :func:`stochastic_dither` (a counter-based draw per round
+        count and node id; not the JAX package's ``jax.random`` bits).
+    """
+
+    name = "quantized_gossip"
+
+    WIRES = ("bf16", "int8", "int8_stochastic")
+
+    def resolve_params(self, d, r, compression=None, **_):
+        wire = compression or "bf16"
+        if wire not in self.WIRES:
+            raise ValueError(f"unknown quantized_gossip wire format "
+                             f"{wire!r}; expected one of {self.WIRES}")
+        return {"wire": wire}
+
+    def _stochastic(self, compression=None, **_):
+        return (compression or "bf16") == "int8_stochastic"
+
+    @staticmethod
+    def _int8_scale(delta):
+        scale = torch.amax(torch.abs(delta), dim=(-2, -1),
+                           keepdim=True) / 127.0
+        return torch.clamp(scale, min=torch.finfo(delta.dtype).tiny)
+
+    @staticmethod
+    def _dequant(q, scale, *, backend):
+        cb = backend if _fused_wanted(backend, scale.dtype) else "torch-ref"
+        return ops.dequant(q, scale, backend=cb)
+
+    def refresh(self, Z, xhat, node_ids, count, *, backend, wire):
+        delta = Z - xhat                     # accumulated compression error
+        if wire == "bf16":
+            q = delta.to(torch.bfloat16)
+            payload = (q,)
+            inc = q.to(Z.dtype)
+        else:
+            scale = self._int8_scale(delta)
+            if wire == "int8_stochastic":
+                u = stochastic_dither(count, node_ids, Z.shape[1:], Z.dtype)
+                qf = torch.floor(delta / scale + u)
+            else:
+                qf = torch.round(delta / scale)        # half to even
+            q = torch.clamp(qf, -127, 127).to(torch.int8)
+            payload = (q, scale)
+            inc = self._dequant(q, scale, backend=backend)
+        return payload, xhat + inc
+
+    def apply(self, payload, xhat, *, backend, wire):
+        if wire == "bf16":
+            return xhat + payload[0].to(xhat.dtype)
+        q, scale = payload
+        return xhat + self._dequant(q, scale, backend=backend)
+
+    def signature(self, T_con: int, *, d=None, r=None, compression=None,
+                  **_) -> CommSignature:
+        if d is None or r is None:
+            return CommSignature("gossip", T_con)
+        wire = self.resolve_params(d, r, compression)["wire"]
+        if wire == "bf16":
+            return CommSignature("gossip", T_con, entries_per_round=d * r,
+                                 bytes_per_entry=2)
+        # int8 payload + one f32 scale (4 one-byte entries)
+        return CommSignature("gossip", T_con, entries_per_round=d * r + 4,
+                             bytes_per_entry=1)
+
+
+class EventGossipCombine(CompressedGossipCombine):
+    """``event_gossip`` — event-triggered exchange: a node re-broadcasts
+    its full iterate only when its public copy went stale,
+    ``‖Z_g − x̂_g‖_F > θ·‖Z_g‖_F`` (θ = ``event_threshold``); otherwise
+    neighbours keep combining with the last-sent copy.  θ = 0 always
+    triggers and recovers dense gossip bit-identically on the exact
+    path.  The static signature prices the θ = 0 worst case; the
+    measured send fraction is :meth:`send_fraction`."""
+
+    name = "event_gossip"
+
+    def resolve_params(self, d, r, event_threshold: float = 0.0, **_):
+        if event_threshold < 0:
+            raise ValueError(f"event_threshold must be >= 0, got "
+                             f"{event_threshold}")
+        return {"threshold": float(event_threshold)}
+
+    @staticmethod
+    def _trigger(Z, xhat, threshold):
+        """Per-node send decision ``‖Z − x̂‖_F > θ·‖Z‖_F`` — one
+        definition shared by the round encode and the send fraction."""
+        moved = torch.sqrt(torch.sum((Z - xhat) ** 2, dim=(-2, -1)))
+        scale = torch.sqrt(torch.sum(Z ** 2, dim=(-2, -1)))
+        return moved > threshold * scale
+
+    def refresh(self, Z, xhat, node_ids, count, *, backend, threshold):
+        trig = self._trigger(Z, xhat, threshold)
+        S = torch.where(trig[:, None, None], Z, xhat)   # absolute resend
+        return (S,), S
+
+    def apply(self, payload, xhat, *, backend, threshold):
+        return payload[0]
+
+    def send_fraction(self, Z, xhat, threshold: float):
+        """Measured trigger rate of one round, a 0-d float32 tensor on
+        the device (no host sync)."""
+        return torch.mean(self._trigger(Z, xhat, threshold)
+                          .to(torch.float32))
+
+    def signature(self, T_con: int, **_) -> CommSignature:
+        # static pricing cannot see the trigger rate: θ = 0 worst case
+        return CommSignature("gossip", T_con)
+
+
+# ----------------------------------------------------------------------
 # registry
 # ----------------------------------------------------------------------
 
 # The JAX package's other combine rules, each brought by a later slice.
 LATER_SLICE_RULES = ("neighbor", "central", "none", "exact_diffusion",
-                     "beyond_central", "topk_gossip", "quantized_gossip",
-                     "event_gossip", "partial_gossip", "stale_gossip",
+                     "beyond_central", "partial_gossip", "stale_gossip",
                      "push_sum_gossip")
-
 COMBINE_RULES: dict[str, GossipCombine] = {}
 
 
@@ -167,3 +497,6 @@ def get_rule(name: str):
 
 
 register_rule(GossipCombine())
+register_rule(TopkGossipCombine())
+register_rule(QuantizedGossipCombine())
+register_rule(EventGossipCombine())

@@ -7,11 +7,16 @@
   the gradient tile, building A = X_t U_g once.
 * :func:`node_task_gram` replaces ``node_task_gram``
   (``_gram_kernel_nb``): the Gram pair (G, c) of every task.
+* :func:`node_task_grad_tiles` replaces ``node_task_grad_tiles``
+  (``_grad_kernel_nb``): the gradient tiles for a GIVEN B, the second
+  launch of the sample-split path; A = X_t U_g is rebuilt on the
+  gradient fold's data with the fused kernel's own device code.
 
-Both are bound by the bytes of X: one block per task streams its X_t
+All three are bound by the bytes of X: one block per task streams its X_t
 row by row (see the source for the design).  X, U and y are taken in
 float32 or bfloat16; float64 inputs are converted to float32 first,
 which is what the TPU kernel's ``astype(float32)`` does in its body.
+B is taken as float32 whatever its dtype, as the TPU body converts it.
 The plain versions are :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
@@ -26,8 +31,9 @@ R_MAX = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "altgdmin_node_fused_iter": (_I, [_P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
-    "altgdmin_node_task_gram": (_I, [_P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
+    "altgdmin_node_fused_iter": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "altgdmin_node_task_gram": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "altgdmin_node_grad_tiles": (_I, [_P] * 5 + [_I] * 7 + [_P]),
     "altgdmin_error_string": (ctypes.c_char_p, [_I]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,13 +75,13 @@ def _operands(X, U, y):
     return X, U, y, (L, tpn, n, d, r), _DTYPE_CODE[dt]
 
 
-def _launch(fn: str, X, U, y, o1, o2, dims, code):
+def _launch(fn: str, tensors, dims, code):
     lib = _build.load("altgdmin_ls", _SIGNATURES)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = getattr(lib, fn)(X.data_ptr(), U.data_ptr(), y.data_ptr(),
-                               o1.data_ptr(), o2.data_ptr(), *dims, code,
-                               X.device.index, stream)
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*(t.data_ptr() for t in tensors), *dims, code,
+                               device.index, stream)
     _build.check(lib, "altgdmin_error_string", err, fn)
 
 
@@ -88,7 +94,7 @@ def node_fused_iter(X, U, y):
     L, tpn, n, d, r = dims
     B = torch.empty((L, tpn, r), dtype=torch.float32, device=X.device)
     tiles = torch.empty((L, tpn, d, r), dtype=torch.float32, device=X.device)
-    _launch("altgdmin_node_fused_iter", X, U, y, B, tiles, dims, code)
+    _launch("altgdmin_node_fused_iter", (X, U, y, B, tiles), dims, code)
     _build.LAUNCHES["node_fused_iter"] += 1
     return B, tiles
 
@@ -100,6 +106,27 @@ def node_task_gram(X, U, y):
     L, tpn, n, d, r = dims
     G = torch.empty((L, tpn, r, r), dtype=torch.float32, device=X.device)
     c = torch.empty((L, tpn, r), dtype=torch.float32, device=X.device)
-    _launch("altgdmin_node_task_gram", X, U, y, G, c, dims, code)
+    _launch("altgdmin_node_task_gram", (X, U, y, G, c), dims, code)
     _build.LAUNCHES["node_task_gram"] += 1
     return G, c
+
+
+def node_task_grad_tiles(X, U, B, y):
+    """The gradient tiles of all tasks for a given B, one launch.  Same
+    X, U, y as :func:`node_fused_iter`, plus B (L, tpn, r) on the card →
+    tiles (L, tpn, d, r) float32, tiles[g, t] = X_tᵀ(X_t U_g b_t − y_t)
+    b_tᵀ."""
+    X, U, y, dims, code = _operands(X, U, y)
+    L, tpn, n, d, r = dims
+    if not B.is_cuda or B.device != X.device:
+        raise ValueError(f"B must be on {X.device} with X, got {B.device}")
+    if B.shape != (L, tpn, r):
+        raise ValueError(f"want B (L, tpn, r) = {(L, tpn, r)}, got "
+                         f"{tuple(B.shape)}")
+    if not B.is_floating_point():
+        raise ValueError(f"unsupported B dtype {B.dtype}")
+    B = B.to(torch.float32).contiguous()
+    tiles = torch.empty((L, tpn, d, r), dtype=torch.float32, device=X.device)
+    _launch("altgdmin_node_grad_tiles", (X, U, B, y, tiles), dims, code)
+    _build.LAUNCHES["node_task_grad_tiles"] += 1
+    return tiles

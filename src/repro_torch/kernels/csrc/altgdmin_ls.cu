@@ -7,10 +7,16 @@
 //     residual A b - y_t, then emit the gradient tile X_t^T resid b^T.
 //   * altgdmin_node_task_gram   <- node_task_gram (_gram_kernel_nb): the
 //     first half only, emitting (G, c); the r x r solve runs outside.
+//   * altgdmin_node_grad_tiles  <- node_task_grad_tiles (_grad_kernel_nb):
+//     the second half for a GIVEN B (the sample-split path, where B comes
+//     from another fold): A = X_t U_g is rebuilt, resid = A b_t - y_t, and
+//     the tile X_t^T resid b_t^T is emitted.  It shares the A build
+//     (load_task) and the tile pass (write_tiles) with the fused kernel.
 //
 // Layouts (row-major, contiguous): X (L, tpn, n, d), U (L, d, r),
 // y (L, tpn, n) in float32 or bfloat16 (converted to f32 in the load);
-// outputs B (L, tpn, r), tiles (L, tpn, d, r), G (L, tpn, r, r),
+// B (L, tpn, r) float32 as an input of the gradient kernel, as an output
+// of the fused one; outputs tiles (L, tpn, d, r), G (L, tpn, r, r),
 // c (L, tpn, r), all float32.
 //
 // Design.  The Pallas kernel carries A across sequential grid steps over
@@ -30,7 +36,10 @@
 // at the f32 peak.  It reads X twice, the second time largely from L2.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at its 700 W
 // limit: 0.066 ms per fused launch, 0.041 ms per Gram launch (bound
-// 0.0130 ms).
+// 0.0130 ms).  The gradient kernel at the sample-split fold of
+// Experiment 1 (n = 15 per fold) must move 27.4 MB (X once, the tiles
+// once; 0.0082 ms at 3.35 TB/s) and reads X twice, the second time from
+// L2 (a fold's X, 21.6 MB, fits the 50 MB L2).
 // r is bounded by a template capacity of 4, 8 or 16 (R_MAX = 16) so the
 // per-lane accumulators of A stay in registers.
 
@@ -149,6 +158,29 @@ __device__ void chol_solve(const float* G, const float* c, float* b, int r) {
   }
 }
 
+// resid = A b - y (A, b, y in shared memory).
+template <int RC>
+__device__ void form_resid(TaskSmem<RC>& s, int n, int r) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    float acc = 0.f;
+    for (int k = 0; k < r; ++k) acc += s.A[i * RC + k] * s.b[k];
+    s.resid[i] = acc - s.yv[i];
+  }
+}
+
+// The gradient tile X_t^T resid b^T (d x r): threads along d, so a warp
+// reads 32 neighbouring columns of a row of X_t (coalesced); the ragged
+// end of d is masked by the loop bound.
+template <typename T, int RC>
+__device__ void write_tiles(const T* __restrict__ x, TaskSmem<RC>& s,
+                            float* __restrict__ out, int n, int d, int r) {
+  for (int j = threadIdx.x; j < d; j += kThreads) {
+    float acc = 0.f;
+    for (int i = 0; i < n; ++i) acc += to_f32(x[(size_t)i * d + j]) * s.resid[i];
+    for (int k = 0; k < r; ++k) out[(size_t)j * r + k] = acc * s.b[k];
+  }
+}
+
 template <typename T, int RC>
 __global__ void __launch_bounds__(kThreads)
 fused_iter_kernel(const T* __restrict__ X, const T* __restrict__ U,
@@ -165,19 +197,10 @@ fused_iter_kernel(const T* __restrict__ X, const T* __restrict__ U,
   __syncthreads();
   if (threadIdx.x == 0) chol_solve<RC>(s.G, s.c, s.b, r);
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    float acc = 0.f;
-    for (int k = 0; k < r; ++k) acc += s.A[i * RC + k] * s.b[k];
-    s.resid[i] = acc - s.yv[i];
-  }
+  form_resid<RC>(s, n, r);
   if (threadIdx.x < r) B[task * r + threadIdx.x] = s.b[threadIdx.x];
   __syncthreads();
-  float* out = tiles + task * d * r;
-  for (int j = threadIdx.x; j < d; j += kThreads) {
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i) acc += to_f32(x[(size_t)i * d + j]) * s.resid[i];
-    for (int k = 0; k < r; ++k) out[(size_t)j * r + k] = acc * s.b[k];
-  }
+  write_tiles<T, RC>(x, s, tiles + task * d * r, n, d, r);
 }
 
 template <typename T, int RC>
@@ -198,57 +221,84 @@ task_gram_kernel(const T* __restrict__ X, const T* __restrict__ U,
 }
 
 template <typename T, int RC>
-cudaError_t run(bool fused, const void* X, const void* U, const void* Y,
-                void* o1, void* o2, int tasks, int tpn, int n, int d, int r,
-                cudaStream_t stream) {
-  const size_t smem = task_smem_bytes<RC>(n);
-  if (fused) {
-    auto kernel = fused_iter_kernel<T, RC>;
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-    }
-    kernel<<<tasks, kThreads, smem, stream>>>(
-        static_cast<const T*>(X), static_cast<const T*>(U),
-        static_cast<const T*>(Y), static_cast<float*>(o1),
-        static_cast<float*>(o2), tpn, n, d, r);
-  } else {
-    auto kernel = task_gram_kernel<T, RC>;
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-    }
-    kernel<<<tasks, kThreads, smem, stream>>>(
-        static_cast<const T*>(X), static_cast<const T*>(U),
-        static_cast<const T*>(Y), static_cast<float*>(o1),
-        static_cast<float*>(o2), tpn, n, d, r);
+__global__ void __launch_bounds__(kThreads)
+grad_tiles_kernel(const T* __restrict__ X, const T* __restrict__ U,
+                  const float* __restrict__ B, const T* __restrict__ Y,
+                  float* __restrict__ tiles, int tpn, int n, int d, int r) {
+  extern __shared__ float smem[];
+  TaskSmem<RC> s(smem, n);
+  const size_t task = blockIdx.x;
+  const size_t g = task / tpn;
+  const T* x = X + task * n * d;
+  load_task<T, RC>(x, U + g * d * r, Y + task * n, s, n, d, r);
+  if (threadIdx.x < r) s.b[threadIdx.x] = B[task * r + threadIdx.x];
+  __syncthreads();
+  form_resid<RC>(s, n, r);
+  __syncthreads();
+  write_tiles<T, RC>(x, s, tiles + task * d * r, n, d, r);
+}
+
+enum Kind { kFused, kGram, kGrad };
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int tasks, size_t smem, cudaStream_t stream,
+                   Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
+  kernel<<<tasks, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+template <typename T, int RC>
+cudaError_t run(Kind kind, const void* X, const void* U, const void* Bin,
+                const void* Y, void* o1, void* o2, int tasks, int tpn, int n,
+                int d, int r, cudaStream_t stream) {
+  const size_t smem = task_smem_bytes<RC>(n);
+  const T* x = static_cast<const T*>(X);
+  const T* u = static_cast<const T*>(U);
+  const T* y = static_cast<const T*>(Y);
+  float* out1 = static_cast<float*>(o1);
+  float* out2 = static_cast<float*>(o2);
+  if (kind == kFused)
+    return launch(fused_iter_kernel<T, RC>, tasks, smem, stream, x, u, y,
+                  out1, out2, tpn, n, d, r);
+  if (kind == kGram)
+    return launch(task_gram_kernel<T, RC>, tasks, smem, stream, x, u, y,
+                  out1, out2, tpn, n, d, r);
+  return launch(grad_tiles_kernel<T, RC>, tasks, smem, stream, x, u,
+                static_cast<const float*>(Bin), y, out1, tpn, n, d, r);
+}
+
 template <typename T>
-cudaError_t dispatch_r(bool fused, const void* X, const void* U, const void* Y,
-                       void* o1, void* o2, int tasks, int tpn, int n, int d,
-                       int r, cudaStream_t stream) {
-  if (r <= 4) return run<T, 4>(fused, X, U, Y, o1, o2, tasks, tpn, n, d, r, stream);
-  if (r <= 8) return run<T, 8>(fused, X, U, Y, o1, o2, tasks, tpn, n, d, r, stream);
-  if (r <= 16) return run<T, 16>(fused, X, U, Y, o1, o2, tasks, tpn, n, d, r, stream);
+cudaError_t dispatch_r(Kind kind, const void* X, const void* U,
+                       const void* Bin, const void* Y, void* o1, void* o2,
+                       int tasks, int tpn, int n, int d, int r,
+                       cudaStream_t stream) {
+  if (r <= 4)
+    return run<T, 4>(kind, X, U, Bin, Y, o1, o2, tasks, tpn, n, d, r, stream);
+  if (r <= 8)
+    return run<T, 8>(kind, X, U, Bin, Y, o1, o2, tasks, tpn, n, d, r, stream);
+  if (r <= 16)
+    return run<T, 16>(kind, X, U, Bin, Y, o1, o2, tasks, tpn, n, d, r, stream);
   return cudaErrorInvalidValue;
 }
 
-int entry(bool fused, const void* X, const void* U, const void* Y, void* o1,
-          void* o2, int L, int tpn, int n, int d, int r, int dtype, int device,
-          void* stream) {
+int entry(Kind kind, const void* X, const void* U, const void* Bin,
+          const void* Y, void* o1, void* o2, int L, int tpn, int n, int d,
+          int r, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int tasks = L * tpn;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_r<float>(fused, X, U, Y, o1, o2, tasks, tpn, n, d, r, s);
+    return (int)dispatch_r<float>(kind, X, U, Bin, Y, o1, o2, tasks, tpn, n,
+                                  d, r, s);
   if (dtype == 1)
-    return (int)dispatch_r<__nv_bfloat16>(fused, X, U, Y, o1, o2, tasks, tpn, n, d, r, s);
+    return (int)dispatch_r<__nv_bfloat16>(kind, X, U, Bin, Y, o1, o2, tasks,
+                                          tpn, n, d, r, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -262,13 +312,24 @@ int altgdmin_node_fused_iter(const void* X, const void* U, const void* Y,
                              void* B, void* tiles, int L, int tpn, int n,
                              int d, int r, int dtype, int device,
                              void* stream) {
-  return entry(true, X, U, Y, B, tiles, L, tpn, n, d, r, dtype, device, stream);
+  return entry(kFused, X, U, nullptr, Y, B, tiles, L, tpn, n, d, r, dtype,
+               device, stream);
 }
 
 int altgdmin_node_task_gram(const void* X, const void* U, const void* Y,
                             void* G, void* c, int L, int tpn, int n, int d,
                             int r, int dtype, int device, void* stream) {
-  return entry(false, X, U, Y, G, c, L, tpn, n, d, r, dtype, device, stream);
+  return entry(kGram, X, U, nullptr, Y, G, c, L, tpn, n, d, r, dtype, device,
+               stream);
+}
+
+// B is float32 whatever the dtype of X, U and y.
+int altgdmin_node_grad_tiles(const void* X, const void* U, const void* B,
+                             const void* Y, void* tiles, int L, int tpn,
+                             int n, int d, int r, int dtype, int device,
+                             void* stream) {
+  return entry(kGrad, X, U, B, Y, tiles, nullptr, L, tpn, n, d, r, dtype,
+               device, stream);
 }
 
 const char* altgdmin_error_string(int err) {

@@ -22,6 +22,7 @@ import contextlib
 import torch
 
 from repro_torch.kernels import altgdmin_ls as _ls
+from repro_torch.kernels import compress as _cp
 from repro_torch.kernels import gossip_axpy as _ga
 from repro_torch.kernels import ref as _ref
 from repro_torch.utils import env as env_registry
@@ -98,6 +99,16 @@ def altgdmin_node_minimize_B(X, U, y, *, backend=None):
     return _ref.solve_spd(G, c)
 
 
+def altgdmin_node_gradient(X, U, B, y, *, backend=None):
+    """Node-batched gradients for a given B (the sample-split path's
+    second launch).  X (L, tpn, n, d); U (L, d, r); B (L, tpn, r);
+    y (L, tpn, n) → (L, d, r) f32; the tiles are summed over tpn by
+    torch.sum."""
+    if _resolve_for(backend, X, U, B, y) == "torch-ref":
+        return _ref.ref_altgdmin_grad(X, U, B, y)
+    return torch.sum(_ls.node_task_grad_tiles(X, U, B, y), dim=1)
+
+
 def altgdmin_fused_step(X, U, y, *, backend=None):
     """The fused engine iteration (min-B + gradient, one A build, one
     launch).  X (L, tpn, n, d); U (L, d, r); y (L, tpn, n) →
@@ -108,6 +119,36 @@ def altgdmin_fused_step(X, U, y, *, backend=None):
         return B, _ref.ref_altgdmin_grad(X, U, B, y)
     B, tiles = _ls.node_fused_iter(X, U, y)
     return B, torch.sum(tiles, dim=1)
+
+
+# ------------------------------------------------------- compression
+
+def compress_topk(M, k, *, backend=None):
+    """Rank-preserving top-k ROW sparsification of node blocks: per
+    (d, r) block the k rows with the largest squared row norms.
+    M (N, d, r) → (vals (N, k, r) in M's dtype, descending row-norm
+    order; idx (N, k) int32), ties to the lowest index."""
+    k = int(k)
+    if M.ndim != 3:
+        raise ValueError(f"compress_topk wants node-batched (N, d, r) "
+                         f"blocks, got shape {tuple(M.shape)}")
+    if not 1 <= k <= M.shape[1]:
+        raise ValueError(f"compress_topk needs 1 <= k <= d, got k={k}, "
+                         f"d={M.shape[1]}")
+    if _resolve_for(backend, M) == "torch-ref":
+        return _ref.ref_compress_topk(M, k)
+    return _cp.compress_topk(M, k)
+
+
+def dequant(q, scale, *, backend=None):
+    """Decode an int8 wire payload: q · scale per node block.
+    q (N, d, r) int8; scale (N, 1, 1) → (N, d, r) in scale's dtype."""
+    if q.ndim != 3 or tuple(scale.shape) != (q.shape[0], 1, 1):
+        raise ValueError(f"dequant needs a per-node (N, 1, 1) scale, got "
+                         f"{tuple(scale.shape)} for q {tuple(q.shape)}")
+    if _resolve_for(backend, q, scale) == "torch-ref":
+        return _ref.ref_dequant(q, scale)
+    return _cp.dequant(q, scale)
 
 
 # ------------------------------------------------------------ gossip

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version on the same inputs, the dtype rules of the ops, and a
-small end-to-end run through the kernels against the torch-ref backend.
+PyTorch version on the same inputs (``compress_topk`` and ``dequant``
+bit for bit), the dtype rules of the ops, and small end-to-end runs
+through the kernels (the dense, the sample-split and the compressed
+paths) against the torch-ref backend, with their launch counts.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither jax nor the JAX package, so it runs on
@@ -137,3 +139,97 @@ def test_small_run_through_kernels_matches_torch_ref(cuda, dtype):
     np.testing.assert_allclose(got.sd_max, ref.sd_max, rtol=1e-4, atol=1e-5)
     assert got.U_nodes.dtype == getattr(torch, dtype)
     assert got.final_sd_max < 1e-2 * got.sd_max[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_grad_tiles_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels import altgdmin_ls, ref
+    X, U, y = _instance(shape, dtype, seed=1)
+    B = torch.randn((shape[0], shape[1], shape[4]), device="cuda")
+    tiles = altgdmin_ls.node_task_grad_tiles(X, U, B, y)
+    assert tiles.dtype == torch.float32
+    _close(tiles, ref.ref_node_grad_tiles(X, U, B, y), TOL[dtype])
+
+
+# (N, d, r, k): the dif_topk path's shape, Experiment 2's, ragged
+TOPK = [(20, 600, 4, 150), (100, 100, 10, 25), (3, 97, 3, 1), (3, 97, 3, 97)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d,r,k", TOPK)
+def test_compress_topk_kernel_equals_plain(cuda, N, d, r, k, dtype):
+    from repro_torch.kernels import compress, ref
+    g = torch.Generator(device="cuda").manual_seed(d + k)
+    M = torch.randn((N, d, r), generator=g, device="cuda").to(dtype)
+    M[:, d // 2] = M[:, 0]                       # exact ties
+    M[:, d - 1] = M[:, 0]
+    vals, idx = compress.compress_topk(M, k)
+    v_ref, i_ref = ref.ref_compress_topk(M, k)
+    assert idx.dtype == torch.int32 and vals.dtype == dtype
+    assert torch.equal(idx, i_ref)
+    assert torch.equal(vals, v_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d,r", [(20, 600, 4), (100, 100, 10), (3, 97, 3)])
+def test_dequant_kernel_equals_plain(cuda, N, d, r, dtype):
+    from repro_torch.kernels import compress, ref
+    g = torch.Generator(device="cuda").manual_seed(N)
+    q = torch.randint(-127, 128, (N, d, r), generator=g, device="cuda",
+                      dtype=torch.int8)
+    scale = (torch.rand((N, 1, 1), generator=g, device="cuda")
+             + 1e-3).to(dtype)
+    out = compress.dequant(q, scale)
+    assert out.dtype == dtype
+    assert torch.equal(out, ref.ref_dequant(q, scale))
+
+
+COMPRESSED = {"node_fused_iter": 40, "node_task_gram": 1,
+              "node_task_grad_tiles": 0, "mix_rows": 120}
+
+
+@pytest.mark.parametrize("name,kw,counts", [
+    ("dif_altgdmin", {}, {"node_fused_iter": 0, "node_task_gram": 41,
+                          "node_task_grad_tiles": 40, "mix_rows": 40}),
+    ("dif_topk", {"compression_k": 15}, {**COMPRESSED, "compress_topk": 120,
+                                         "dequant": 0}),
+    ("dif_quantized", {"compression": "int8"}, {**COMPRESSED,
+                                                "dequant": 120,
+                                                "compress_topk": 0}),
+    ("dif_event", {"event_threshold": 0.02}, COMPRESSED)])
+def test_slice_paths_through_kernels_match_torch_ref(cuda, name, kw, counts):
+    """The sample-split path (n_folds = 2) and the compressed trio end to
+    end on the card: the launches per run, and the trajectory against
+    torch-ref.  dif_topk and the int8 wire are held over their first 10
+    iterations only: row selection and rounding to int8 are
+    discontinuous, so once the f32 round-off of mix_rows (against the
+    plain product's) flips one row or one rounding, the two runs part
+    by a quantum; their final values stay within 10 %."""
+    from repro_torch.api import (EngineSpec, ExperimentSpec, InitSpec,
+                                 ProblemSpec, SolverSpec, TopologySpec,
+                                 materialize, run_experiment)
+    from repro_torch.kernels import _build
+    spec = ExperimentSpec(
+        problem=ProblemSpec(d=60, T=60, r=3, n=24, L=6, kappa=1.5,
+                            dtype="float32",
+                            n_folds=2 if name == "dif_altgdmin" else 0),
+        topology=TopologySpec(family="erdos_renyi", p=0.5, seed=3),
+        init=InitSpec(T_pm=20, T_con=8),
+        solver=SolverSpec(name=name, T_GD=40, T_con=3, **kw),
+        engine=EngineSpec(backend="cuda"))
+    mat = materialize(spec, key=1)
+    _build.LAUNCHES.clear()
+    got = run_experiment(spec, key=1, materialized=mat)
+    launches = dict(_build.LAUNCHES)
+    for kernel, n in counts.items():
+        assert launches.get(kernel, 0) == n, (kernel, launches)
+    ref = run_experiment(dataclasses.replace(
+        spec, engine=EngineSpec(backend="torch-ref")), key=1,
+        materialized=mat)
+    upto = 10 if name in ("dif_topk", "dif_quantized") else None
+    np.testing.assert_allclose(got.sd_max[:upto], ref.sd_max[:upto],
+                               rtol=1e-4, atol=1e-5)
+    assert abs(got.final_sd_max - ref.final_sd_max) <= 0.1 * ref.final_sd_max
+    assert np.all(np.isfinite(got.sd_max))
+    assert got.final_sd_max < got.sd_max[0]

@@ -202,7 +202,12 @@ def test_resolve_engine_rejects_conflicts():
 
 
 def test_cuda_engine_has_no_sample_split_gradient_yet():
+    """The sample-split gradient is ported (node_task_grad_tiles): the
+    cuda engine sends it to the kernel, so CPU tensors raise rather
+    than fall back to the plain version."""
     X, U, y = (torch.as_tensor(a) for a in _instance(*CASES[0]))
     B = torch.zeros(X.shape[0], X.shape[1], U.shape[2], dtype=X.dtype)
-    with pytest.raises(NotImplementedError, match="node_task_grad_tiles"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         AltgdminEngine("cuda").grad_U(U, B, X, y)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        AltgdminEngine("cuda").min_grad(U, X, y, X, y, same_data=False)

@@ -115,7 +115,7 @@ def test_specs_round_trip_between_packages():
 
 def test_later_slice_features_raise_not_implemented():
     spec = _port_spec(SPEC, None)
-    for name in ("dec_altgdmin", "dgd_altgdmin", "dif_topk",
+    for name in ("dec_altgdmin", "dgd_altgdmin", "dif_stale",
                  "centralized_altgdmin", "dif_pushsum"):
         bad = dataclasses.replace(spec, solver=dataclasses.replace(
             spec.solver, name=name))
