@@ -49,7 +49,27 @@ Phases, each printing one JSON line and raising on failure:
                top-k at k=150, whose row selection round-off can flip
                (see PATH_B), reported over the first 50 iterations with
                the first parting iteration and held at the final sd_max
-               (within 10 %); a profile of 20 iterations each.
+               (within 10 %); a profile of 20 iterations each;
+  9. gossip kernels — gossip_combine against ref_gossip_combine at the
+               mesh round's shape (n = d·r = 2400, K = 2 and K = 19), the
+               roll form's (n = 20·600·4, K = 2), a ragged n and bf16,
+               with the weights as Python floats and as a device tensor;
+               f32 rtol = atol = 1e-6 (the reference's kernel tolerance),
+               bf16 5e-2; times as in phase 3, with torch.addmv as the
+               library call;
+ 10. roll   — roll_gossip at Experiment 1 width (Z (20, 600, 4), ring
+               (−1, 1), T_con = 10) through the kernel, against torch-ref
+               on the card and against stacked_product with the circulant
+               W;
+ 11. mesh   — L = 20 ranks on the one card, spawned once over gloo
+               (staged through host memory), each running the EXPERIMENT1
+               preset through run_experiment(substrate="mesh") for the six
+               stateless programs (T_GD = MESH_T_GD); every sd_max trace
+               and rank 0's final U_nodes and B_nodes against the port's
+               simulator on the card (rtol 1e-4, atol 1e-5),
+               dif_altgdmin's geometric decay, each rank's launch
+               counts against the program's DispatchBudget, and ms per
+               iteration labelled with the transport.
 
 Then the kernels line (each kernel's launches from its own path's run),
 the card line, and the result line.  Exits non-
@@ -90,13 +110,15 @@ SOURCES = {"node_fused_iter": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
            "node_task_grad_tiles":
                "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
            "compress_topk": "src/repro_torch/kernels/csrc/compress.cu",
-           "dequant": "src/repro_torch/kernels/csrc/compress.cu"}
+           "dequant": "src/repro_torch/kernels/csrc/compress.cu",
+           "gossip_combine": "src/repro_torch/kernels/csrc/gossip_axpy.cu"}
 REPLACES = {"node_fused_iter": "src/repro/kernels/altgdmin_ls.py:244",
             "node_task_gram": "src/repro/kernels/altgdmin_ls.py:306",
             "mix_rows": "src/repro/kernels/gossip_axpy.py:45",
             "node_task_grad_tiles": "src/repro/kernels/altgdmin_ls.py:375",
             "compress_topk": "src/repro/kernels/compress.py:64",
-            "dequant": "src/repro/kernels/compress.py:89"}
+            "dequant": "src/repro/kernels/compress.py:89",
+            "gossip_combine": "src/repro/kernels/gossip_axpy.py:73"}
 
 # The sample-split fold of Experiment 1 (n = 30 split in two), and the
 # (N, d, r, k) blocks of compress_topk: the dif_topk path's (k = d/4),
@@ -105,6 +127,34 @@ GRAD_SHAPES = {"exp1_fold": (20, 30, 15, 600, 4), "exp2": SHAPES["exp2"],
                "ragged": SHAPES["ragged"]}
 TOPK_SHAPES = {"exp1": (20, 600, 4, 150), "exp2": (100, 100, 10, 25),
                "ragged_k1": (3, 97, 3, 1), "ragged_kd": (3, 97, 3, 97)}
+
+
+# gossip_combine's (name, n, K, dtype, weights): the mesh round at
+# Experiment 1 (n = d·r; K = 2 on a ring, 19 at ER p = 0.5), the roll
+# form's operand (n = L·d·r, a ring), a ragged n, bf16.
+COMBINE_CASES = (("mesh_K2", 2400, 2, "float32", "floats"),
+                 ("mesh_K19", 2400, 19, "float32", "tensor"),
+                 ("mesh_K19_floats", 2400, 19, "float32", "floats"),
+                 ("roll_K2", 48000, 2, "float32", "floats"),
+                 ("ragged_K19", 2401, 19, "float32", "tensor"),
+                 ("mesh_K19_bf16", 2400, 19, "bfloat16", "tensor"),
+                 ("ragged_K2_bf16", 2401, 2, "bfloat16", "floats"))
+COMBINE_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
+               "bfloat16": TOL["bfloat16"]}
+
+# The mesh phase: every stateless program, its outer iterations, and
+# the seconds the 20 ranks get to report.  T_GD is cut from the preset's
+# 500 to 120 (≥ 101, for dif_altgdmin's decay check at iteration 100):
+# 20 ranks time-sharing one card take 0.15-0.41 s an iteration, so 500
+# iterations of the six programs would not fit the script's time limit
+# (PERF.md).
+MESH_SOLVERS = ("dif_altgdmin", "dec_altgdmin", "dgd_altgdmin",
+                "exact_diffusion", "beyond_central", "centralized_altgdmin")
+MESH_T_GD = 120
+MESH_TIMEOUT = 600
+# rank 0's final U_nodes and B_nodes against the simulator's on the card:
+# the trajectory tolerance the sd_max traces are held to
+MESH_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def emit(phase: str, **fields) -> None:
@@ -586,6 +636,190 @@ def path_b(torch, spec, mat):
 
 
 
+def check_gossip_kernel(torch):
+    """Phase 9: gossip_combine against its plain version at the mesh and
+    roll shapes; the time of each f32 case (the kernel row's numbers are
+    the mesh round's at K = 19, the Experiment 1 graph's shift count)."""
+    from repro_torch.kernels import gossip_axpy, ops, ref
+
+    errs, times = [], {}
+    for name, n, K, dname, wkind in COMBINE_CASES:
+        g = torch.Generator(device="cuda").manual_seed(n + K)
+        dtype = getattr(torch, dname)
+        z = torch.randn(n, generator=g, device="cuda").to(dtype)
+        nbrs = torch.randn((K, n), generator=g, device="cuda").to(dtype)
+        wt = torch.rand(K + 1, generator=g, device="cuda")
+        wt = wt / wt.sum()
+        w_floats = tuple(wt.tolist())
+        # the op takes the case's own weights: a float tuple it uploads,
+        # or the device tensor as it is
+        weights = wt if wkind == "tensor" else w_floats
+        out = ops.gossip_combine(z, nbrs, weights, backend="cuda")
+        want = ref.ref_gossip_combine(z, nbrs, weights)
+        require(out.dtype == dtype, "gossip_combine must return z's dtype")
+        e = max_err(torch, out, want, COMBINE_TOL[dname],
+                    f"gossip_combine {name}")
+        bitwise = bool(torch.equal(out, want))
+        if dname == "float32":
+            errs.append(e)
+            w0, wk = float(w_floats[0]), wt[1:]
+            times[name] = timing(
+                torch, gossip_axpy.gossip_combine, ref.ref_gossip_combine,
+                (z, nbrs, wt), nbytes(z, nbrs, wt, out), 2 * (K + 1) * n,
+                library=lambda z_, nb, _w: torch.addmv(z_, nb.T, wk,
+                                                       beta=w0))
+        emit("gossip_kernels", case=name, n=n, K=K, dtype=dname,
+             weights=wkind, max_abs_err=e, bitwise_equal=bitwise,
+             timing=times.get(name))
+    return max(errs), times["mesh_K19"]
+
+
+def roll_form(torch):
+    """Phase 10: roll_gossip at Experiment 1 width through the kernel."""
+    from repro_torch.distributed import mixing
+    from repro_torch.distributed.consensus import stacked_product
+    from repro_torch.distributed.gossip import roll_gossip
+    from repro_torch.kernels import _build
+
+    L, d, r, T_con = 20, 600, 4, 10
+    g = torch.Generator(device="cuda").manual_seed(20)
+    Z = torch.randn((L, d, r), generator=g, device="cuda")
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = roll_gossip(Z, T_con, (-1, 1), backend="cuda")
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    require(launches == {"gossip_combine": T_con},
+            f"roll form launches {launches}, want {T_con} gossip_combine")
+    plain = roll_gossip(Z, T_con, (-1, 1), backend="torch-ref")
+    W = torch.as_tensor(mixing.circulant_weights(L, (-1, 1)),
+                        dtype=torch.float32, device="cuda")
+    dense = stacked_product(Z, W, T_con)
+    e_plain = max_err(torch, out, plain, COMBINE_TOL["float32"],
+                      "roll_gossip vs torch-ref")
+    # against cuBLAS's products the sums run in another order: f32
+    # round-off over ten rounds
+    e_dense = max_err(torch, out, dense, dict(rtol=1e-5, atol=1e-5),
+                      "roll_gossip vs stacked_product")
+    emit("roll", shape=[L, d, r], shifts=[-1, 1], T_con=T_con,
+         launches=launches, max_abs_err_vs_torch_ref=e_plain,
+         bitwise_equal_torch_ref=bool(torch.equal(out, plain)),
+         max_abs_err_vs_stacked_product=e_dense, first_call_ms=run_ms)
+    return launches["gossip_combine"]
+
+
+def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD, L=20,
+               timeout=MESH_TIMEOUT):
+    """Phase 11: the six stateless programs on an L-rank gloo mesh on the
+    one card, each rank running its node through run_experiment(
+    substrate="mesh"); held against the port's simulator on the card.
+    The kernels are built already (phase 2), so ranks only load them."""
+    from repro_torch.api import run_experiment
+    from repro_torch.api.runner import run_on_mesh
+    from repro_torch.core.program import get_program
+    from repro_torch.distributed.consensus import (get_rule,
+                                                   mesh_weights_from_matrix)
+    from repro_torch.distributed.mesh import spawn
+
+    require(spec.problem.L == L, f"the preset has L={spec.problem.L}")
+    device = mat.Xg.device.type
+    specs = [dataclasses.replace(spec, substrate="mesh",
+                                 solver=dataclasses.replace(
+                                     spec.solver, name=name, T_GD=T_GD))
+             for name in MESH_SOLVERS]
+    t0 = time.perf_counter()
+    ranks = spawn(run_on_mesh, L, args=(device, [s.to_dict() for s in specs],
+                                        0),
+                  backend="gloo", device=device, timeout=timeout)
+    spawn_s = time.perf_counter() - t0
+    K = {"W": len(mesh_weights_from_matrix(mat.W)[0]),
+         "adj": len(mesh_weights_from_matrix(mat.adj)[0]), "none": 0}
+    failures, launches_combine = [], 0
+    for i, s in enumerate(specs):
+        name = s.solver.name
+        hw = ranks[0][i]
+        for g in range(1, L):
+            require(np.array_equal(ranks[g][i]["U_nodes"], hw["U_nodes"])
+                    and np.array_equal(ranks[g][i]["sd_max"], hw["sd_max"]),
+                    f"mesh {name}: rank {g}'s result differs from rank 0's")
+        prog = get_program(name)
+        rounds = get_rule(prog.combine).signature(s.solver.T_con).rounds_per_iter
+        per_iter = prog.dispatch_budget.per_iter("mesh", rounds,
+                                                 K[prog.topology], 1)
+        n_combine = T_GD * rounds if prog.mixer != "central" else 0
+        want = {"node_fused_iter": T_GD, "node_task_gram": 1,
+                "gossip_combine": n_combine}
+        for g in range(L):
+            got = ranks[g][i]["launches"]
+            require(all(got.get(k, 0) == v for k, v in want.items())
+                    and got.get("node_fused_iter", 0)
+                    + got.get("gossip_combine", 0) == per_iter * T_GD,
+                    f"mesh {name} rank {g}: launches {got}, want {want} "
+                    f"({per_iter} a iteration by the DispatchBudget)")
+        if name == "dif_altgdmin":
+            launches_combine = hw["launches"].get("gossip_combine", 0)
+        sim = run_experiment(dataclasses.replace(s, substrate="simulator"),
+                             key=0, materialized=mat)
+        sd, sd_sim = hw["sd_max"], sim.sd_max
+        ok, diff, first = agree_upto(sd, sd_sim)
+        # the iterates themselves, not only their worst subspace distance
+        mats = {}
+        for field in ("U_nodes", "B_nodes"):
+            got_f = hw[field]
+            want_f = getattr(sim, field).cpu().numpy()
+            if field == "U_nodes" and not prog.stacked:
+                # the fusion center's simulator carries one (d, r) iterate
+                want_f = np.broadcast_to(want_f, got_f.shape)
+            mats[field] = (
+                got_f.shape == want_f.shape
+                and bool(np.allclose(got_f, want_f, **MESH_TOL)),
+                float(np.abs(got_f - want_f).max())
+                if got_f.shape == want_f.shape else float("inf"))
+        require(sd.shape == (T_GD,) and bool(np.isfinite(sd).all())
+                and hw["U_nodes"].shape == tuple(mat.init.U0.shape)
+                and bool(np.isfinite(hw["U_nodes"]).all()),
+                f"mesh {name}: outputs of the wrong shape or not finite")
+        emit("mesh", solver=name, L=L, T_GD=T_GD, T_con=s.solver.T_con,
+             preset_T_GD=spec.solver.T_GD,
+             T_GD_cut=(f"from the preset's {spec.solver.T_GD} to fit the "
+                       f"script's time limit" if T_GD != spec.solver.T_GD
+                       else None),
+             transport=hw["transport"],
+             ms_per_iter=hw["seconds"] / T_GD * 1e3,
+             ms_per_iter_label=f"rank 0, {hw['transport']}",
+             stage_ms_per_iter=hw["transport_s"].get("stage_s", 0.0)
+             / T_GD * 1e3,
+             wire_ms_per_iter=hw["transport_s"].get("wire_s", 0.0)
+             / T_GD * 1e3,
+             launches_rank0=hw["launches"],
+             first_sd_max=float(sd[0]), final_sd_max=float(sd[-1]),
+             sim_final_sd_max=float(sd_sim[-1]),
+             sd_max_vs_simulator_max_abs_diff=diff,
+             first_parting_iteration=first,
+             U_nodes_vs_simulator_max_abs_diff=mats["U_nodes"][1],
+             B_nodes_vs_simulator_max_abs_diff=mats["B_nodes"][1],
+             spawn_s=spawn_s)
+        if not ok:
+            failures.append(f"{name}: sd_max disagrees with the simulator "
+                            f"(max abs diff {diff:.3e}, first at {first})")
+        for field, (close, err) in mats.items():
+            if not close:
+                failures.append(f"{name}: {field} disagrees with the "
+                                f"simulator (max abs diff {err:.3e})")
+        if name == "dif_altgdmin":
+            if not (T_GD > 100 and sd[50] < 0.5 * sd[0]
+                    and sd[100] < 0.5 * sd[50]):
+                failures.append(f"dif_altgdmin: no geometric decay, sd_max "
+                                f"{sd[0]:.3e} / {sd[min(50, T_GD - 1)]:.3e} "
+                                f"/ {sd[min(100, T_GD - 1)]:.3e}")
+            if T_GD == 500 and not sd[-1] < 1e-3 * sd[0]:
+                failures.append(f"dif_altgdmin did not converge: {sd[0]:.3e}"
+                                f" → {sd[-1]:.3e}")
+    require(not failures, "; ".join(failures))
+    return launches_combine
+
+
 def main() -> int:
     try:
         import torch
@@ -625,6 +859,9 @@ def main() -> int:
     slice_errs, slice_timing = check_slice_kernels(torch)
     launches_a = path_a(torch)
     launches_b = path_b(torch, spec, mat)
+    combine_err, combine_timing = check_gossip_kernel(torch)
+    roll_form(torch)
+    launches_mesh = mesh_phase(torch, spec, mat)
 
     main_row = rows[("exp1", "float32")]
     kernels = []
@@ -644,6 +881,11 @@ def main() -> int:
                         "launches": slice_launches[name],
                         "max_abs_err": slice_errs[name],
                         **slice_timing[name]})
+    kernels.append({"name": "gossip_combine", "route": "cuda",
+                    "source": SOURCES["gossip_combine"],
+                    "replaces": REPLACES["gossip_combine"],
+                    "launches": launches_mesh, "max_abs_err": combine_err,
+                    **combine_timing})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

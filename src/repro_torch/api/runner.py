@@ -1,10 +1,24 @@
 """``run_experiment(spec, key) -> Trace`` — the one entry point.
 
-Port of ``src/repro/api/runner.py`` for the simulator substrate.
-Materializes the spec (problem → node view → graph/weights → spectral
-init → η), runs the registered solver, and returns a :class:`Trace`
-with the per-iteration metrics, the final iterates, the resolved η and
-the comm-model wall-clock axis.
+Port of ``src/repro/api/runner.py``.  Materializes the spec (problem →
+node view → graph/weights → spectral init → η), runs the registered
+solver on the spec's substrate, and returns a :class:`Trace` with the
+per-iteration metrics, the final iterates, the resolved η and the
+comm-model wall-clock axis.
+
+Substrates:
+
+  * ``"simulator"`` — the single-process node-batched simulator;
+  * ``"mesh"`` — one node per rank of an initialized
+    ``torch.distributed`` process group whose size is L: every rank
+    calls :func:`run_experiment` with the same spec and key,
+    materializes the same problem and runs its own node, the combine
+    crossing the wire by ``ppermute`` (any weight scheme: circulant
+    weights as shared scalars, any other W decomposed into per-shift,
+    per-node weights).  Every rank returns the same :class:`Trace`.
+    :func:`run_on_mesh` is the rank function that
+    :func:`repro_torch.distributed.mesh.spawn` runs for a batch of
+    specs.
 
 Device: :func:`materialize` and :func:`run_experiment` run on ``cuda``
 unless the caller passes ``device="cpu"``; with no card present and no
@@ -20,6 +34,7 @@ that package's materialized state across instead.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -32,7 +47,11 @@ from repro_torch.core.engine import resolve_engine
 from repro_torch.core.problem import (MTRLProblem, generate_problem,
                                       node_view, split_samples)
 from repro_torch.core.spectral import SpectralInit, decentralized_spectral_init
+from repro_torch.distributed import consensus as _consensus
 from repro_torch.distributed.graphs import Graph, SparseGraph
+from repro_torch.distributed import mesh as _mesh
+from repro_torch.distributed.mesh import NodeMesh
+from repro_torch.kernels import _build
 
 _COMM_MODELS = {"ethernet-1gbps": _cm.ETHERNET_1GBPS,
                 "tpu-ici": _cm.TPU_ICI}
@@ -198,6 +217,11 @@ def comm_time_axis(spec: ExperimentSpec, solver: SolverDef,
     model (one message per neighbour per round: the dense d×r iterate,
     or the compressed rules' payload)."""
     p, c = spec.problem, spec.comm
+    compute = c.compute_s_per_iter
+    if "local_steps" in solver.spec_kwargs:
+        # beyond_central pays its local epoch: the comm savings are not
+        # free local work
+        compute *= spec.solver.local_steps
     # payload context: compressed rules fill entries_per_round /
     # bytes_per_entry from these, the others ignore them
     sig = solver.signature(spec.solver.T_con, d=p.d, r=p.r,
@@ -206,7 +230,7 @@ def comm_time_axis(spec: ExperimentSpec, solver: SolverDef,
                            event_threshold=spec.solver.event_threshold)
     return _cm.time_axis_from_signature(
         sig, spec.solver.T_GD, p.d, p.r,
-        p.L, graph.max_degree, c.compute_s_per_iter,
+        p.L, graph.max_degree, compute,
         model=_COMM_MODELS[c.model], rng=c.rng())
 
 
@@ -221,13 +245,11 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
     ``spec.engine.backend`` if both are given).  ``materialized`` reuses
     an earlier :func:`materialize` (or :func:`materialized_from_arrays`)
     result of a spec sharing this spec's problem/topology/init sub-specs
-    and key; the run then takes place on its device.  Checkpoint
+    and key; the run then takes place on its device.  With
+    ``substrate="mesh"`` every rank of the process group calls this with
+    the same spec and key (see the module docstring).  Checkpoint
     publishing is not ported yet and raises."""
     solver = get_solver(spec.solver.name)
-    if spec.substrate != "simulator":
-        raise NotImplementedError(
-            f"substrate={spec.substrate!r} (the multi-device lowering over "
-            f"torch.distributed) comes with a later slice of the port")
     if checkpoint_every is not None or checkpoint_dir is not None:
         raise NotImplementedError(
             "checkpoint publishing comes with the serving slice of the port")
@@ -252,11 +274,14 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
                              f"state lives on {mat.Xg.device}")
     eta = _resolve_spec_eta(spec, mat.init)
     eng = resolve_engine(engine, spec.engine.backend, device=mat.Xg.device)
-    extra = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
-    result = solver.call(mat.init.U0, mat.Xg, mat.yg, mat.W, mat.adj,
-                         eta=eta, T_GD=spec.solver.T_GD,
-                         T_con=spec.solver.T_con,
-                         U_star=mat.problem.U_star, engine=eng, **extra)
+    if spec.substrate == "mesh":
+        result = _run_mesh(spec, solver, mat, eng, eta)
+    else:
+        extra = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
+        result = solver.call(mat.init.U0, mat.Xg, mat.yg, mat.W, mat.adj,
+                             eta=eta, T_GD=spec.solver.T_GD,
+                             T_con=spec.solver.T_con,
+                             U_star=mat.problem.U_star, engine=eng, **extra)
     rows = [result.sd_max, result.sd_mean, result.spread]
     if result.send_frac is not None:
         rows.append(result.send_frac.to(result.sd_max.dtype))
@@ -268,3 +293,82 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
                  materialized=mat,
                  send_frac=(host[3].astype(np.float32)
                             if result.send_frac is not None else None))
+
+
+def _run_mesh(spec: ExperimentSpec, solver: SolverDef, mat: Materialized,
+              eng, eta: float):
+    """This rank's share of a mesh run: node ``rank`` of the default
+    process group, on the materialization's device."""
+    topo, p = spec.topology, spec.problem
+    if not solver.mesh_capable:
+        raise ValueError(f"solver {solver.name!r} has no mesh runtime; "
+                         f"use substrate='simulator'")
+    if p.n_folds > 1:
+        raise ValueError("substrate='mesh' does not support sample "
+                         "splitting (n_folds > 1)")
+    mesh = NodeMesh(mat.Xg.device)
+    if p.L != mesh.size:
+        raise NotImplementedError(
+            f"substrate='mesh' runs one node per rank: L={p.L} but the "
+            f"process group has {mesh.size} ranks; the virtual-node tier "
+            f"(L a multiple of the ranks) comes with a later slice of the "
+            f"port")
+    kw = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
+    if topo.weights == "circulant":
+        # mesh-native uniform weights: each shift one ppermute
+        kw.update(shifts=topo.shifts, self_weight=topo.self_weight)
+    elif solver.topology == "adj":
+        # the solver averages neighbours (excluding itself): the same
+        # row-stochastic adj/deg matrix the simulator builds
+        kw.update(W=_consensus.neighbor_average_matrix(mat.adj))
+    else:
+        # any weighted topology: decomposed into per-shift, per-node
+        # weights by the consensus layer
+        kw.update(W=mat.W)
+    return solver.mesh_fn(mat.init.U0, mat.Xg, mat.yg, mesh, eta=eta,
+                          T_GD=spec.solver.T_GD, T_con=spec.solver.T_con,
+                          engine=eng, U_star=mat.problem.U_star, **kw)
+
+
+def run_on_mesh(device, specs, key=0, arrays=None, dtype=None) -> list:
+    """One rank's share of a batch of mesh runs — the function
+    :func:`repro_torch.distributed.mesh.spawn` runs on every rank.
+
+    Materializes once, on ``device``: from the seed ``key`` and the
+    first spec, or from the host ``arrays`` of
+    :func:`materialized_from_arrays` (in ``dtype``).  Then runs every
+    spec (``ExperimentSpec.to_dict()`` dicts sharing the problem,
+    topology and init sub-specs) on substrate ``"mesh"``, each with the
+    kernel launch counts set to 0 just before and read just after.
+    Returns, per spec, a dict of host values: the traces (``sd_max``,
+    ``sd_mean``, ``spread``, ``time_axis``), ``U_nodes``, ``B_nodes``,
+    ``launches`` (this rank's), ``seconds`` (the run, ended by a device
+    synchronize), ``transport`` and ``transport_s`` (this rank's
+    :data:`~repro_torch.distributed.mesh.TRANSPORT` seconds of the
+    run)."""
+    specs = [ExperimentSpec.from_dict(s) for s in specs]
+    if arrays is None:
+        mat = materialize(specs[0], key, device=device)
+    else:
+        mat = materialized_from_arrays(arrays, device=device, dtype=dtype)
+    transport = NodeMesh(mat.Xg.device).transport
+    out = []
+    for spec in specs:
+        if spec.substrate != "mesh":
+            raise ValueError(f"run_on_mesh runs substrate='mesh' specs, "
+                             f"got {spec.substrate!r}")
+        _build.LAUNCHES.clear()
+        _mesh.TRANSPORT.clear()
+        t0 = time.perf_counter()
+        trace = run_experiment(spec, key, materialized=mat)
+        if mat.Xg.is_cuda:
+            torch.cuda.synchronize(mat.Xg.device)
+        seconds = time.perf_counter() - t0
+        out.append({
+            "sd_max": trace.sd_max, "sd_mean": trace.sd_mean,
+            "spread": trace.spread, "time_axis": trace.time_axis,
+            "U_nodes": trace.U_nodes.cpu().numpy(),
+            "B_nodes": trace.B_nodes.cpu().numpy(),
+            "launches": dict(_build.LAUNCHES), "seconds": seconds,
+            "transport": transport, "transport_s": dict(_mesh.TRANSPORT)})
+    return out

@@ -16,11 +16,13 @@ The sub-specs mirror the run's stages:
   * :class:`EngineSpec`   — backend for the iteration engine;
   * :class:`CommSpec`     — the emulated wall-clock axis.
 
-What the port does not run yet is still described, so specs keep their
-meaning, and raises NotImplementedError when run: ``system`` (the
-fault-injection layer), ``substrate="mesh"``, the sparse representation,
-and every solver but ``dif_altgdmin`` and the compressed trio
-(``dif_topk``, ``dif_quantized``, ``dif_event``).
+``substrate="mesh"`` runs one node per rank of a ``torch.distributed``
+process group (:mod:`repro_torch.api.runner`).  What the port does not
+run yet is still described, so specs keep their meaning, and raises
+NotImplementedError when run: ``system`` (the fault-injection layer),
+the sparse representation, the virtual-node mesh tier (L ≠ the number
+of ranks) and the masked solvers (``dif_partial``, ``dif_stale``,
+``dif_pushsum``).
 """
 from __future__ import annotations
 

@@ -115,6 +115,11 @@ class AltgdminEngine:
         cuda: one mix_rows launch on W^{T_con}, float64 kept exact)."""
         return get_rule(rule).make_sim_mixer(W, T_con, backend=self.backend)
 
+    def make_neighbor_mixer(self, M):
+        """DGD's row-stochastic neighbour average Z ↦ M Z (single round,
+        no self weight — M comes in precomputed)."""
+        return get_rule("neighbor").make_sim_mixer(M, backend=self.backend)
+
     def make_state_mixer(self, W, T_con: int, *, rule: str, **rule_kw):
         """Stateful combine for the compressed/event-triggered rules:
         ``(Z, state) ↦ (Z', state')``.  ``rule_kw`` carries the rule's

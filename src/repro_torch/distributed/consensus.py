@@ -1,25 +1,37 @@
-"""The consensus layer — every simulator ``Z ← W Z`` in one place.
+"""The consensus layer — every ``Z ← W Z`` in one place.
 
-Port of the simulator half of ``src/repro/distributed/consensus.py`` for
-the paper's ``gossip`` rule and the compressed wire rules
-``topk_gossip`` / ``quantized_gossip`` / ``event_gossip``.  Node
-variables are stacked on a leading axis, ``Z: (L, ...)``.  The
-``torch-ref`` lowering is the exact sequential product (T_con rounds of
-``W @ Z``, dtype-preserving, the numerics anchor); the ``cuda`` lowering
-hoists the T_con rounds of ``gossip`` onto a precomputed ``W^{T_con}``
-applied by the ``mix_rows`` kernel in one launch.  The compressed rules
-mix round by round (their refresh depends on the data), one
-``mix_rows`` launch per round, with the ``compress_topk`` /
-``dequant`` kernels as the encode and decode.
+Port of ``src/repro/distributed/consensus.py`` for the paper's
+``gossip`` rule, the stateless rules of the other programs
+(``neighbor``, ``central``, ``none``, ``exact_diffusion``,
+``beyond_central``) and the compressed wire rules ``topk_gossip`` /
+``quantized_gossip`` / ``event_gossip``.  A rule is lowered two ways:
+
+  * **simulator** — node variables stacked on a leading axis,
+    ``Z: (L, ...)``.  The ``torch-ref`` lowering is the exact sequential
+    product (T_con rounds of ``W @ Z``, dtype-preserving, the numerics
+    anchor); the ``cuda`` lowering hoists the T_con rounds of ``gossip``
+    onto a precomputed ``W^{T_con}`` applied by the ``mix_rows`` kernel
+    in one launch.  The compressed rules mix round by round (their
+    refresh depends on the data), one ``mix_rows`` launch per round,
+    with the ``compress_topk`` / ``dequant`` kernels as the encode and
+    decode.
+  * **mesh** — one node per rank of a
+    :class:`~repro_torch.distributed.mesh.NodeMesh`.  Each gossip round
+    fetches the neighbour blocks by ``ppermute`` (one per distinct
+    cyclic shift of W's sparsity pattern, :func:`mesh_weights_from_matrix`)
+    and combines them with the node's own W row in ONE (K+1)-way
+    :func:`combine_blocks`: the ``gossip_combine`` kernel on ``cuda``,
+    the sequential chain on ``torch-ref``.  :meth:`CombineRule.roll_round`
+    is the same round on the single-process form, the node axis leading.
 
 Precision policy: the kernels accumulate in f32, so float64 operands
-always take the exact sequential product and the plain encoders, on
-every backend.
+always take the exact sequential product, the exact chain and the plain
+encoders, on every backend.
 
-Not ported yet, and raising NotImplementedError where a caller would
-reach them: the sparse tier (padded-COO segment-sum rounds above
-``SPARSE_MIN_NODES``), the mesh lowerings, and the combine rules other
-than these four.
+Not ported yet, and raising where a caller would reach them: the sparse
+tier (padded-COO segment-sum rounds above ``SPARSE_MIN_NODES``), the
+virtual-node mesh tier (``VirtualTopology``), the compressed rules'
+mesh mixers, and the masked rules.
 """
 from __future__ import annotations
 
@@ -27,8 +39,10 @@ import dataclasses
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.distributed.graphs import Graph, SparseGraph
 from repro_torch.kernels import ops
 
 
@@ -52,6 +66,10 @@ class CommSignature:
 # ----------------------------------------------------------------------
 # the combine primitives
 # ----------------------------------------------------------------------
+
+def _acc_dtype(dtype):
+    return torch.promote_types(dtype, torch.float32)
+
 
 def _fused_wanted(backend: str, dtype) -> bool:
     """The mixing kernel accumulates in f32: take it only on the cuda
@@ -81,6 +99,27 @@ def stacked_dense_mix(Z, M, *, backend: str):
     return torch.einsum("gh,h...->g...", M.to(Z.dtype), Z)
 
 
+def combine_blocks(z, neighbors, weights, *, backend: str = "torch-ref"):
+    """ONE (K+1)-way weighted combine ``z ← w₀·z + Σ_k w_{k+1}·nbr_k`` —
+    the primitive under every mesh lowering (mesh gossip rounds, the
+    single-process roll rounds).  ``neighbors`` is a sequence of K
+    blocks or a (K, *z.shape) stack; ``weights`` a length-K+1 tuple of
+    Python floats (uniform circulant weights) or a (K+1,) tensor on z's
+    device (a device's own W row).  On the cuda backend one
+    ``gossip_combine`` launch (f32 accumulation); on torch-ref and for
+    float64 the sequential chain in the promoted accumulator dtype."""
+    if len(neighbors) and _fused_wanted(backend, z.dtype):
+        stack = (neighbors if torch.is_tensor(neighbors)
+                 else torch.stack(list(neighbors)))
+        return ops.gossip_combine(z, stack, weights, backend=backend)
+    acc_dt = _acc_dtype(z.dtype)
+    w = weights if isinstance(weights, tuple) else weights.to(acc_dt)
+    acc = w[0] * z.to(acc_dt)
+    for k, nbr in enumerate(neighbors):
+        acc = acc + w[k + 1] * nbr.to(acc_dt)
+    return acc.to(z.dtype)
+
+
 SPARSE_MIN_NODES = 512
 SPARSE_DENSITY_THRESHOLD = 0.25
 
@@ -106,14 +145,177 @@ def maybe_sparsify(W):
         f"the port brings")
 
 
+def node_mean(Z):
+    """Fusion-center combine: the exact mean over the node axis,
+    broadcast back."""
+    m = torch.mean(Z.to(_acc_dtype(Z.dtype)), dim=0, keepdim=True)
+    return torch.broadcast_to(m, Z.shape).to(Z.dtype)
+
+
+def neighbor_average_matrix(adj):
+    """DGD's row-stochastic neighbour average M = D⁻¹A (zero diagonal,
+    isolated nodes guarded to degree 1).  ONE derivation shared by the
+    simulator and the mesh lowering, whose agreement depends on both
+    using the same matrix.  ``adj`` an (L, L) tensor, or a dense
+    :class:`~repro_torch.distributed.graphs.Graph` (float64)."""
+    if isinstance(adj, SparseGraph):
+        raise NotImplementedError(
+            "the neighbour average of a SparseGraph belongs to the sparse "
+            "tier, which a later slice of the port brings")
+    if isinstance(adj, Graph):
+        adj = torch.as_tensor(adj.adj, dtype=torch.float64)
+    deg = torch.clamp(torch.sum(adj, dim=1), min=1.0)
+    return adj / deg[:, None]
+
+
+def mesh_weights_from_matrix(W) -> tuple[tuple[int, ...], np.ndarray]:
+    """Decompose a concrete (L, L) mixing matrix into cyclic-shift form:
+    ``(shifts, table)`` with ``table[i] = [W_ii, W_{i,(i+s1)%L}, ...]``.
+
+    Every entry of W lies on exactly one cyclic diagonal (edge (i, j) on
+    shift ``(j−i) mod L``), so ANY weighted graph lowers to one
+    ``ppermute`` per distinct shift plus one (K+1)-way weighted combine
+    — a circulant matrix needs exactly its own |shifts|, an irregular
+    graph up to L−1.  Shifts are signed representatives in
+    (−L/2, L/2], sorted, so a symmetric ring decomposes to (−1, 1).
+    Pure numpy on the host (a tensor is copied there first); the table
+    keeps W's dtype."""
+    Wn = W.detach().cpu().numpy() if torch.is_tensor(W) else np.asarray(W)
+    if Wn.ndim != 2 or Wn.shape[0] != Wn.shape[1]:
+        raise ValueError(f"mixing matrix must be square, got {Wn.shape}")
+    L = Wn.shape[0]
+    idx = np.arange(L)
+    shifts = sorted(
+        (s if s <= L // 2 else s - L)
+        for s in range(1, L) if np.any(Wn[idx, (idx + s) % L] != 0))
+    table = np.empty((L, len(shifts) + 1), dtype=Wn.dtype)
+    table[:, 0] = np.diag(Wn)
+    for k, s in enumerate(shifts):
+        table[:, k + 1] = Wn[idx, (idx + s) % L]
+    return tuple(shifts), table
+
+
+def place_weights(weights, device):
+    """A mesh or roll mixer's combine weights, put on ``device`` once when
+    the mixer is built: ``(exact, f32)``.  ``exact`` is what the
+    sequential chain multiplies by — the shared Python floats, or the
+    (L, K+1) table as a tensor — and ``f32`` the same in float32 on the
+    device, what the ``gossip_combine`` kernel reads (a (K+1,) vector,
+    or the table)."""
+    if isinstance(weights, tuple):
+        return weights, torch.tensor(weights, dtype=torch.float32,
+                                     device=device)
+    table = torch.as_tensor(weights, device=device)
+    return table, table.to(torch.float32)
+
+
 # ----------------------------------------------------------------------
 # combine rules
 # ----------------------------------------------------------------------
 
-class GossipCombine:
+class CombineRule:
+    """One consensus/combine scheme, lowered two ways.
+
+    ``make_sim_mixer(W, T_con, backend=...)`` returns the simulator
+    closure ``Z (L, ...) ↦ combined Z``; ``make_mesh_mixer(mesh, T_con,
+    ...)`` the per-rank closure ``z ↦ combined z`` on a
+    :class:`~repro_torch.distributed.mesh.NodeMesh` — pass ``W=`` for an
+    arbitrary weighted topology (each distinct cyclic shift of W's
+    sparsity pattern one ``ppermute``, each node combining with its own
+    W row), or ``shifts``/``self_weight`` for the uniform circulant
+    form; ``signature(T_con)`` the comm cost.  Subclasses override the
+    pieces that differ."""
+
+    name: str = "base"
+
+    def make_sim_mixer(self, W, T_con: int, *,
+                       backend: str = "torch-ref") -> Callable:
+        raise NotImplementedError
+
+    def make_mesh_mixer(self, mesh, T_con: int, shifts=(-1, 1),
+                        self_weight: float | None = None, *, W=None,
+                        backend: str = "torch-ref") -> Callable:
+        raise NotImplementedError
+
+    def signature(self, T_con: int, **params) -> CommSignature:
+        raise NotImplementedError
+
+    # ---------------------------------------------------------- shared
+
+    @staticmethod
+    def _ring_weights(shifts, self_weight: float | None):
+        k = len(shifts)
+        sw = self_weight if self_weight is not None else 1.0 / (k + 1)
+        return sw, (1.0 - sw) / k
+
+    @classmethod
+    def _mesh_weights(cls, L: int, shifts, self_weight: float | None, W):
+        """The mesh lowering's (shifts, weights) pair.  With ``W``:
+        decompose the mixing matrix — identical rows collapse to shared
+        Python-float weights (the circulant case), otherwise the full
+        (L, K+1) numpy table is kept and each node selects its row in
+        the round.  Without ``W``: the uniform circulant weights of
+        ``shifts`` / ``self_weight``."""
+        if W is None:
+            sw, wn = cls._ring_weights(shifts, self_weight)
+            return tuple(shifts), (sw,) + (wn,) * len(shifts)
+        shifts_, table = mesh_weights_from_matrix(W)
+        if table.shape[0] != L:
+            raise ValueError(f"mixing matrix is {table.shape[0]}×"
+                             f"{table.shape[0]} but the mesh has {L} nodes")
+        if np.all(table == table[0]):
+            return shifts_, tuple(float(x) for x in table[0])
+        return shifts_, table
+
+    @classmethod
+    def _mesh_round(cls, z, mesh, shifts, placed, backend: str):
+        """One gossip round on the mesh: the K neighbour blocks fetched by
+        ``ppermute``, then ONE (K+1)-way combine (the kernel on cuda).
+        ``placed`` is :func:`place_weights`'s pair; a per-node table is
+        indexed by the node's rank on the device, never read back to the
+        host."""
+        exact, f32 = placed
+        w = f32 if _fused_wanted(backend, z.dtype) else exact
+        if not isinstance(w, tuple) and w.ndim == 2:
+            w = w[mesh.axis_index()]
+        nbrs = mesh.ppermute_many(z, shifts)
+        return combine_blocks(z, nbrs, w, backend=backend)
+
+    @classmethod
+    def roll_round(cls, x, shifts, weights, *, backend: str = "torch-ref"):
+        """One gossip round in the single-process form: neighbour blocks
+        come from ``torch.roll`` over the leading node axis.  ``weights``:
+        a length-K+1 tuple of Python floats shared by every node, the
+        same as a (K+1,) float32 tensor on x's device (placed once by
+        :func:`place_weights` for the kernel), or a per-node (L, K+1)
+        table (column k+1 = each node's weight on its shift-``shifts[k]``
+        neighbour — the :func:`mesh_weights_from_matrix` layout).  Shared
+        weights take the fused combine on cuda; a table takes the
+        sequential chain in the promoted accumulator dtype (the kernel
+        takes one weight row for all of its elements)."""
+        nbrs = [torch.roll(x, -s, dims=0) for s in shifts]
+        if isinstance(weights, (tuple, list)):
+            return combine_blocks(x, nbrs, tuple(weights), backend=backend)
+        w = torch.as_tensor(weights, device=x.device)
+        if w.ndim != 2:
+            return combine_blocks(x, nbrs, w, backend=backend)
+        if w.shape[0] != x.shape[0]:
+            raise ValueError(
+                f"per-node weight table has {w.shape[0]} rows but the "
+                f"leading node axis is {x.shape[0]} — roll_round mixes "
+                f"over the leading axis, one table row per node")
+        acc_dt = _acc_dtype(x.dtype)
+        col = (slice(None),) + (None,) * (x.ndim - 1)
+        wt = w.to(acc_dt)
+        acc = wt[:, 0][col] * x.to(acc_dt)
+        for k, nbr in enumerate(nbrs):
+            acc = acc + wt[:, k + 1][col] * nbr.to(acc_dt)
+        return acc.to(x.dtype)
+
+
+class GossipCombine(CombineRule):
     """The paper's AGREE combine: T_con rounds of the mixing product
-    ``Z ← W Z`` (Algorithm 1).  A combine rule has a simulator lowering
-    (``make_sim_mixer``) and a comm signature."""
+    ``Z ← W Z`` (Algorithm 1)."""
 
     name = "gossip"
 
@@ -136,8 +338,135 @@ class GossipCombine:
             return stacked_dense_mix(Z, Wp, backend=backend)
         return mix
 
+    def make_mesh_mixer(self, mesh, T_con, shifts=(-1, 1), self_weight=None,
+                        *, W=None, backend="torch-ref"):
+        """Per-rank closure ``z ↦ z'``: T_con mesh rounds, each K
+        ``ppermute``s and one combine.  The weights are placed on the
+        node's device here, once."""
+        shifts_, weights = self._mesh_weights(mesh.size, shifts, self_weight,
+                                              W)
+        if T_con == 0:
+            return lambda z: z
+        placed = place_weights(weights, mesh.device)
+
+        def gossip(z):
+            for _ in range(T_con):
+                z = self._mesh_round(z, mesh, shifts_, placed, backend)
+            return z
+        return gossip
+
     def signature(self, T_con: int, **params) -> CommSignature:
         return CommSignature("gossip", T_con)
+
+
+class NeighborCombine(CombineRule):
+    """DGD's combine: ONE row-stochastic neighbour average that excludes
+    the node itself (Experiment 1's ``(1/deg_g) Σ_{g'∈N_g} U_g'``).  The
+    simulator form takes the precomputed neighbour-average matrix M."""
+
+    name = "neighbor"
+
+    def make_sim_mixer(self, M, T_con: int = 1, *,
+                       backend: str = "torch-ref"):
+        M = maybe_sparsify(M)
+        return lambda Z: stacked_dense_mix(Z, M, backend=backend)
+
+    def make_mesh_mixer(self, mesh, T_con=1, shifts=(-1, 1), self_weight=None,
+                        *, W=None, backend="torch-ref"):
+        """ONE neighbour-average round.  Without ``W`` the circulant
+        graph of ``shifts`` is K-regular, so the average is the
+        equal-weight shift combine with a zero self weight; with ``W``
+        (the row-stochastic neighbour matrix, zero diagonal) each node
+        combines with its own row."""
+        if W is None:
+            shifts_ = tuple(shifts)
+            weights = (0.0,) + (1.0 / len(shifts),) * len(shifts)
+        else:
+            shifts_, weights = self._mesh_weights(mesh.size, shifts,
+                                                  self_weight, W)
+        placed = place_weights(weights, mesh.device)
+        return lambda z: self._mesh_round(z, mesh, shifts_, placed, backend)
+
+    def signature(self, T_con: int, **params) -> CommSignature:
+        return CommSignature("neighbor", 1)
+
+
+class CentralCombine(CombineRule):
+    """Fusion-center combine: the exact node mean (AltGDmin [10])."""
+
+    name = "central"
+
+    def make_sim_mixer(self, W=None, T_con: int = 0, *,
+                       backend: str = "torch-ref"):
+        return node_mean
+
+    def make_mesh_mixer(self, mesh, T_con=0, shifts=(), self_weight=None,
+                        *, W=None, backend="torch-ref"):
+        return lambda z: mesh.psum(z) / mesh.size
+
+    def signature(self, T_con: int, **params) -> CommSignature:
+        return CommSignature("central", 1)
+
+
+class NoCombine(CombineRule):
+    """Local training: no communication (identity combine)."""
+
+    name = "none"
+
+    def make_sim_mixer(self, W=None, T_con: int = 0, *,
+                       backend: str = "torch-ref"):
+        return lambda Z: Z
+
+    def make_mesh_mixer(self, mesh, T_con=0, shifts=(), self_weight=None,
+                        *, W=None, backend="torch-ref"):
+        return lambda z: z
+
+    def signature(self, T_con: int, **params) -> CommSignature:
+        return CommSignature("none", 0)
+
+
+class ExactDiffusionCombine(GossipCombine):
+    """The projection-corrected combine of Exact Subspace Diffusion
+    (arXiv:2304.07358).  The mixing product is standard AGREE, but each
+    application first bias-corrects the adapt iterate with the previous
+    correction state:
+
+        φ_g^τ = ψ_g^τ + U_g^{τ-1} − ψ_g^{τ-1}        (correction)
+        Ũ_g^τ = Σ_j W_gj φ_j^τ  (T_con rounds)        (combine)
+
+    so the combine tracks the exact (bias-free) fixed point instead of
+    the diffusion limit point; the solver carries ``(ψ_prev, U_prev)``
+    and retracts Ũ onto the Grassmannian afterwards."""
+
+    name = "exact_diffusion"
+
+    @staticmethod
+    def correct(psi, psi_prev, U_prev):
+        """φ = ψ + U_prev − ψ_prev (vanishes at τ=0 when ψ_prev=U_prev)."""
+        return psi + U_prev - psi_prev
+
+
+class BeyondCentralCombine(GossipCombine):
+    """The communication-efficient combine of Beyond Centralization
+    (arXiv:2512.22675): nodes take several *local* adapt steps between
+    consensus exchanges and then combine with ONE gossip round — per
+    outer iteration the wire carries a single d×r exchange instead of
+    the T_con-round AGREE chain."""
+
+    name = "beyond_central"
+
+    def make_sim_mixer(self, W, T_con: int = 1, *,
+                       backend: str = "torch-ref"):
+        # a single mixing round regardless of T_con — that IS the rule
+        return super().make_sim_mixer(W, 1, backend=backend)
+
+    def make_mesh_mixer(self, mesh, T_con=1, shifts=(-1, 1), self_weight=None,
+                        *, W=None, backend="torch-ref"):
+        return super().make_mesh_mixer(mesh, 1, shifts, self_weight, W=W,
+                                       backend=backend)
+
+    def signature(self, T_con: int, **params) -> CommSignature:
+        return CommSignature("gossip", 1)
 
 
 # ----------------------------------------------------------------------
@@ -258,6 +587,11 @@ class CompressedGossipCombine(GossipCombine):
     def make_sim_mixer(self, W, T_con, *, backend="torch-ref"):
         raise TypeError(f"combine rule {self.name!r} is stateful; use "
                         f"make_sim_state_mixer / init_state")
+
+    def make_mesh_mixer(self, mesh, T_con, shifts=(-1, 1), self_weight=None,
+                        *, W=None, backend="torch-ref"):
+        raise TypeError(f"combine rule {self.name!r} is stateful; its mesh "
+                        f"state mixer comes with a later slice of the port")
 
     def make_sim_state_mixer(self, W, T_con: int, *,
                              backend: str = "torch-ref", **kw) -> Callable:
@@ -471,10 +805,8 @@ class EventGossipCombine(CompressedGossipCombine):
 # ----------------------------------------------------------------------
 
 # The JAX package's other combine rules, each brought by a later slice.
-LATER_SLICE_RULES = ("neighbor", "central", "none", "exact_diffusion",
-                     "beyond_central", "partial_gossip", "stale_gossip",
-                     "push_sum_gossip")
-COMBINE_RULES: dict[str, GossipCombine] = {}
+LATER_SLICE_RULES = ("partial_gossip", "stale_gossip", "push_sum_gossip")
+COMBINE_RULES: dict[str, CombineRule] = {}
 
 
 def register_rule(rule):
@@ -496,7 +828,9 @@ def get_rule(name: str):
                          f"{sorted(COMBINE_RULES)}") from None
 
 
-register_rule(GossipCombine())
-register_rule(TopkGossipCombine())
-register_rule(QuantizedGossipCombine())
-register_rule(EventGossipCombine())
+for _rule in (GossipCombine(), NeighborCombine(), CentralCombine(),
+              NoCombine(), ExactDiffusionCombine(), BeyondCentralCombine(),
+              TopkGossipCombine(), QuantizedGossipCombine(),
+              EventGossipCombine()):
+    register_rule(_rule)
+del _rule

@@ -165,3 +165,26 @@ def mix_nodes(Z, W, *, backend=None):
     else:
         out = _ga.mix_rows(W, flat)
     return out.reshape(Z.shape)
+
+
+def gossip_combine(z, neighbors, weights, *, backend=None):
+    """One gossip round's (K+1)-way combine z ← w₀·z + Σ_k
+    w_{k+1}·neighbors[k] over z of any shape, in one launch: float32
+    weights and accumulation, z's dtype out.  ``neighbors`` (K,
+    *z.shape); ``weights`` a length-K+1 sequence of Python floats
+    (uploaded on each call: callers that combine every round upload
+    theirs once) or a (K+1,) tensor on z's device (a device's own row
+    of a W table, never read back to the host)."""
+    if not torch.is_tensor(weights):
+        weights = torch.tensor(tuple(float(w) for w in weights),
+                               dtype=torch.float32, device=z.device)
+    K = neighbors.shape[0] if neighbors.ndim else 0
+    if tuple(neighbors.shape[1:]) != tuple(z.shape):
+        raise ValueError(f"want neighbors (K, *{tuple(z.shape)}); got "
+                         f"{tuple(neighbors.shape)}")
+    if tuple(weights.shape) != (K + 1,):
+        raise ValueError(f"want {K + 1} weights for K={K} neighbours, got "
+                         f"shape {tuple(weights.shape)}")
+    if _resolve_for(backend, z, neighbors, weights) == "torch-ref":
+        return _ref.ref_gossip_combine(z, neighbors, weights)
+    return _ga.gossip_combine(z, neighbors, weights)

@@ -62,6 +62,18 @@ def ref_mix_rows(W, Z):
     return (W.to(f32) @ Z.to(f32)).to(Z.dtype)
 
 
+def ref_gossip_combine(z, neighbors, weights):
+    """z ← w₀·z + Σ_k w_{k+1}·neighbors[k]: float32 weights and
+    accumulation, the sum taken over k in order, z's dtype out.  z of
+    any shape; neighbors (K, *z.shape); weights (K+1,), a sequence of
+    Python floats or a tensor on z's device."""
+    w = torch.as_tensor(weights, dtype=f32, device=z.device)
+    acc = w[0] * z.to(f32)
+    for k in range(neighbors.shape[0]):
+        acc = acc + w[k + 1] * neighbors[k].to(f32)
+    return acc.to(z.dtype)
+
+
 def ref_compress_topk(M, k: int):
     """What ``compress_topk`` computes: per (d, r) block the k rows of
     largest squared row norm, descending, ties to the lowest index.

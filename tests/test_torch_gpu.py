@@ -2,7 +2,8 @@
 PyTorch version on the same inputs (``compress_topk`` and ``dequant``
 bit for bit), the dtype rules of the ops, and small end-to-end runs
 through the kernels (the dense, the sample-split and the compressed
-paths) against the torch-ref backend, with their launch counts.
+paths, and a 2-rank gloo mesh) against the torch-ref backend or the
+simulator, with their launch counts.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither jax nor the JAX package, so it runs on
@@ -11,7 +12,8 @@ the machine with the card:
     python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances are the reference's cross-backend ones: rtol = atol = 1e-4 at
-f32, 5e-2 at bf16; trajectories rtol 1e-4, atol 1e-5.
+f32, 5e-2 at bf16; trajectories rtol 1e-4, atol 1e-5; gossip_combine's
+f32 rtol = atol = 1e-6 (the reference's kernel test).
 """
 import dataclasses
 
@@ -233,3 +235,60 @@ def test_slice_paths_through_kernels_match_torch_ref(cuda, name, kw, counts):
     assert abs(got.final_sd_max - ref.final_sd_max) <= 0.1 * ref.final_sd_max
     assert np.all(np.isfinite(got.sd_max))
     assert got.final_sd_max < got.sd_max[0]
+
+
+# (n, K): the mesh round at Experiment 1 (d·r = 2400; K = 2 on a ring,
+# 19 at ER p = 0.5), the roll form's (L·d·r, ring), ragged n, tiny n
+COMBINE = [(2400, 2), (2400, 19), (48000, 2), (2401, 19), (7, 1)]
+
+
+@pytest.mark.parametrize("tensor_weights", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,K", COMBINE)
+def test_gossip_combine_matches_plain(cuda, n, K, dtype, tensor_weights):
+    from repro_torch.kernels import _build, ops, ref
+    g = torch.Generator(device="cuda").manual_seed(n + K)
+    z = torch.randn(n, generator=g, device="cuda").to(dtype)
+    nbrs = torch.randn((K, n), generator=g, device="cuda").to(dtype)
+    w = torch.rand(K + 1, generator=g, device="cuda")
+    w = w / w.sum()
+    weights = w if tensor_weights else tuple(w.tolist())
+    _build.LAUNCHES.clear()
+    out = ops.gossip_combine(z, nbrs, weights)          # auto → cuda
+    assert _build.LAUNCHES["gossip_combine"] == 1
+    assert out.dtype == dtype and out.shape == z.shape
+    tol = (dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32
+           else TOL[torch.bfloat16])
+    _close(out, ref.ref_gossip_combine(z, nbrs, weights), tol)
+
+
+def test_two_rank_gloo_mesh_through_the_kernels(cuda):
+    """dif_altgdmin on a 2-rank gloo mesh on the card (staged through the
+    host): T_con·T_GD gossip_combine launches per rank, and the sd_max
+    trace of the port's simulator on the card."""
+    from repro_torch.api import (EngineSpec, ExperimentSpec, InitSpec,
+                                 ProblemSpec, SolverSpec, TopologySpec,
+                                 materialize, run_experiment)
+    from repro_torch.api.runner import run_on_mesh
+    from repro_torch.distributed.mesh import spawn
+    from repro_torch.kernels import _build
+    _build.build()                  # the ranks load it, never race on nvcc
+    spec = ExperimentSpec(
+        problem=ProblemSpec(d=60, T=20, r=3, n=25, L=2, kappa=1.5,
+                            dtype="float32"),
+        topology=TopologySpec(family="complete"),
+        init=InitSpec(T_pm=20, T_con=3),
+        solver=SolverSpec(T_GD=40, T_con=3),
+        engine=EngineSpec(backend="cuda"), substrate="mesh")
+    ranks = spawn(run_on_mesh, 2, args=("cuda", [spec.to_dict()], 1),
+                  backend="gloo", device="cuda", timeout=300)
+    sim = run_experiment(dataclasses.replace(spec, substrate="simulator"),
+                         key=1, materialized=materialize(spec, key=1))
+    for (hw,) in ranks:
+        assert hw["transport"] == "gloo, staged through host memory"
+        assert hw["launches"]["gossip_combine"] == 3 * 40
+        assert hw["launches"]["node_fused_iter"] == 40
+        np.testing.assert_allclose(hw["sd_max"], sim.sd_max, rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(hw["U_nodes"], ranks[0][0]["U_nodes"])
+    assert ranks[0][0]["sd_max"][-1] < ranks[0][0]["sd_max"][0]

@@ -115,15 +115,14 @@ def test_specs_round_trip_between_packages():
 
 def test_later_slice_features_raise_not_implemented():
     spec = _port_spec(SPEC, None)
-    for name in ("dec_altgdmin", "dgd_altgdmin", "dif_stale",
-                 "centralized_altgdmin", "dif_pushsum"):
+    for name in ("dif_partial", "dif_stale", "dif_pushsum"):
         bad = dataclasses.replace(spec, solver=dataclasses.replace(
             spec.solver, name=name))
         with pytest.raises(NotImplementedError, match=name):
             tapi.run_experiment(bad, device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
         tapi.get_solver("no_such_solver")
-    with pytest.raises(NotImplementedError, match="substrate"):
+    with pytest.raises(RuntimeError, match="process group"):
         tapi.run_experiment(dataclasses.replace(spec, substrate="mesh"),
                             device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
