@@ -69,7 +69,43 @@ Phases, each printing one JSON line and raising on failure:
                simulator on the card (rtol 1e-4, atol 1e-5),
                dif_altgdmin's geometric decay, each rank's launch
                counts against the program's DispatchBudget, and ms per
-               iteration labelled with the transport.
+               iteration labelled with the transport;
+ 12. serving kernels — task_gram and task_grad_tiles (one basis shared by
+               T tasks) against their plain versions at the serving
+               phase's cohort (T = 64, n = 16, d = 600, r = 4), a serving
+               batch (T = 32), the JAX package's kernel benchmark row
+               (T = 32, n = 30), a ragged shape (T = 3, n = 20, d = 100,
+               r = 8), f32 and bf16 (the tolerances of phase 3);
+               ops.altgdmin_minimize_B / altgdmin_gradient against their
+               plain route at f32 and f64; times as in phase 3 (no
+               single PyTorch call computes either);
+ 13. serving — the serving path on the card, with the launch counts set
+               to 0 just before and read just after: run_experiment on
+               the EXPERIMENT1 preset with checkpoint_every=100 (its
+               traces and final U_nodes equal the main phase's
+               unsegmented run bit for bit; steps 0, 100, ..., 500
+               published); a fixed cohort of 64 noiseless requests served
+               from every published U through HotSwapSource and
+               ServingEngine (one node_task_gram launch a batch), whose
+               mean θ error falls at every step until it reaches the f32
+               floor (SERVE_ERR_FLOOR), stays within 2× of its least
+               value from there on, and ends below 0.75× step 0's;
+               at each step the cohort's least-squares heads and its
+               gradient at the served U through ops.altgdmin_minimize_B
+               (task_gram) and ops.altgdmin_gradient (task_grad_tiles),
+               the first against the engine's B as a consistency check
+               (both launch the same kernel body; rtol 1e-4, atol 1e-5),
+               the gradient against its plain route (phase 3's f32
+               tolerance) and falling below a tenth of step 0's by the
+               final step; a closed loop of 800
+               ragged requests (T_new from 8, 16, 32; max_batch 32) at
+               70 % of the measured ragged-batch capacity, max_wait 4×
+               its batch time, the swap source polled: every request
+               served or shed once, one node_task_gram launch a batch,
+               requests/s, p50/p99 latency, sheds, mean batch.  Then,
+               outside the counted run, the packed-solve frontier: µs per
+               dispatch and per request at batch 1, 8, 32 on cuda and
+               torch-ref.
 
 Then the kernels line (each kernel's launches from its own path's run),
 the card line, and the result line.  Exits non-
@@ -79,6 +115,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -111,14 +149,18 @@ SOURCES = {"node_fused_iter": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
                "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
            "compress_topk": "src/repro_torch/kernels/csrc/compress.cu",
            "dequant": "src/repro_torch/kernels/csrc/compress.cu",
-           "gossip_combine": "src/repro_torch/kernels/csrc/gossip_axpy.cu"}
+           "gossip_combine": "src/repro_torch/kernels/csrc/gossip_axpy.cu",
+           "task_gram": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
+           "task_grad_tiles": "src/repro_torch/kernels/csrc/altgdmin_ls.cu"}
 REPLACES = {"node_fused_iter": "src/repro/kernels/altgdmin_ls.py:244",
             "node_task_gram": "src/repro/kernels/altgdmin_ls.py:306",
             "mix_rows": "src/repro/kernels/gossip_axpy.py:45",
             "node_task_grad_tiles": "src/repro/kernels/altgdmin_ls.py:375",
             "compress_topk": "src/repro/kernels/compress.py:64",
             "dequant": "src/repro/kernels/compress.py:89",
-            "gossip_combine": "src/repro/kernels/gossip_axpy.py:73"}
+            "gossip_combine": "src/repro/kernels/gossip_axpy.py:73",
+            "task_gram": "src/repro/kernels/altgdmin_ls.py:67",
+            "task_grad_tiles": "src/repro/kernels/altgdmin_ls.py:139"}
 
 # The sample-split fold of Experiment 1 (n = 30 split in two), and the
 # (N, d, r, k) blocks of compress_topk: the dif_topk path's (k = d/4),
@@ -155,6 +197,31 @@ MESH_TIMEOUT = 600
 # rank 0's final U_nodes and B_nodes against the simulator's on the card:
 # the trajectory tolerance the sd_max traces are held to
 MESH_TOL = dict(rtol=1e-4, atol=1e-5)
+
+# (T, n, d, r) of the single-basis kernels: the serving phase's cohort
+# at Experiment 1's width (the shape the path gives them, the kernel
+# rows' timing), a serving batch of 32, the JAX package's kernel
+# benchmark row (benchmarks/kernel_bench.py), a ragged d with r = 8.
+SINGLE_SHAPES = {"cohort": (64, 16, 600, 4), "serving": (32, 16, 600, 4),
+                 "kernel_bench": (32, 30, 600, 4), "ragged": (3, 20, 100, 8)}
+# The serving phase: the publish cadence, the drifting cohort, the closed
+# loop (requests, T_new mix, batch capacity, load as a share of the
+# measured capacity, deadline in batch times; the reference benchmark's
+# calibration, benchmarks/serving_bench.py) and the frontier's batches.
+SERVE_EVERY = 100
+COHORT, COHORT_T_NEW = 64, 16
+LOOP_N, LOOP_T_NEW, LOOP_BATCH = 800, (8, 16, 32), 32
+LOOP_LOAD, LOOP_WAIT = 0.7, 4.0
+FRONTIER_BATCHES, FRONTIER_T_NEW, FRONTIER_REPS = (1, 8, 32), 16, 50
+SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+# The cohort's θ error at float32: noiseless requests served from an f32
+# basis bottom out near 5e-7 (the trained basis's own round-off, reached
+# by about iteration 200), where successive steps differ by round-off.
+# The error must fall at every step until both steps are under this
+# floor, and every step under it must stay within SERVE_ERR_PLATEAU× of
+# the least error reached (at f64 the reference's test, and the CPU
+# test, hold strict monotonicity over the whole schedule).
+SERVE_ERR_FLOOR, SERVE_ERR_PLATEAU = 2e-6, 2.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -372,7 +439,7 @@ def main_path(torch):
          torch_ref_run_s=t4 - t3,
          torch_ref_ms_per_iter=(t4 - t3) / T_GD * 1e3,
          total_s=t2 - t0)
-    return spec, mat, launches
+    return spec, mat, launches, trace
 
 
 def profile(torch, spec, mat, *, label="profile"):
@@ -416,7 +483,8 @@ def check_slice_kernels(torch):
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
             X, U, y = instance(torch, shape, dtype, seed=7)
-            B = torch.randn((L, tpn, r), device="cuda")
+            B = torch.randn((L, tpn, r), device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(8))
             tiles = altgdmin_ls.node_task_grad_tiles(X, U, B, y)
             want = ref.ref_node_grad_tiles(X, U, B, y)
             e = max_err(torch, tiles, want, TOL[dname],
@@ -820,6 +888,256 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD, L=20,
     return launches_combine
 
 
+def check_serving_kernels(torch):
+    """Phase 12: task_gram and task_grad_tiles against their plain
+    versions, with their times at each f32 shape (the kernel rows take
+    the cohort's, the serving phase's shape)."""
+    from repro_torch.kernels import altgdmin_ls, ops, ref
+
+    errs = {"task_gram": 0.0, "task_grad_tiles": 0.0}
+    times = {}
+    for sname, (T, n, d, r) in SINGLE_SHAPES.items():
+        for dname in ("float32", "bfloat16"):
+            X, U, y = (t[0] for t in instance(
+                torch, (1, T, n, d, r), getattr(torch, dname), seed=T + n))
+            B = torch.randn((T, r), device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(T + n + 1))
+            G, c = altgdmin_ls.task_gram(X, U, y)
+            e_gram = pair_err(torch, (G, c), ref.ref_single_task_gram(X, U, y),
+                              TOL[dname], f"task_gram {sname} {dname}")
+            tiles = altgdmin_ls.task_grad_tiles(X, U, B, y)
+            e_grad = max_err(torch, tiles,
+                             ref.ref_single_grad_tiles(X, U, B, y),
+                             TOL[dname], f"task_grad_tiles {sname} {dname}")
+            timing_ = None
+            if dname == "float32":
+                errs["task_gram"] = max(errs["task_gram"], e_gram)
+                errs["task_grad_tiles"] = max(errs["task_grad_tiles"], e_grad)
+                timing_ = {
+                    "task_gram": timing(
+                        torch, altgdmin_ls.task_gram, ref.ref_single_task_gram,
+                        (X, U, y), nbytes(X, U, y, G, c),
+                        T * (2 * n * d * r + 2 * n * r * r + 2 * n * r)),
+                    "task_grad_tiles": timing(
+                        torch, altgdmin_ls.task_grad_tiles,
+                        ref.ref_single_grad_tiles, (X, U, B, y),
+                        nbytes(X, U, B, y, tiles),
+                        T * (2 * n * d * r + 2 * n * r + 2 * n * d + d * r))}
+                if sname == "cohort":
+                    times = timing_
+            emit("serving_kernels", shape=sname, T=T, n=n, d=d, r=r,
+                 dtype=dname, max_abs_err={"task_gram": e_gram,
+                                           "task_grad_tiles": e_grad},
+                 timing=timing_)
+        # the ops on their two routes, f32 and f64 operands
+        for dname in ("float32", "float64"):
+            X, U, y = (t[0] for t in instance(
+                torch, (1, T, n, d, r), getattr(torch, dname), seed=5))
+            B = ops.altgdmin_minimize_B(X, U, y, backend="cuda")
+            e_min = max_err(
+                torch, B, ops.altgdmin_minimize_B(X, U, y,
+                                                  backend="torch-ref"),
+                TOL["float32"], f"altgdmin_minimize_B {sname} {dname}")
+            e_g = max_err(
+                torch, ops.altgdmin_gradient(X, U, B, y, backend="cuda"),
+                ops.altgdmin_gradient(X, U, B, y, backend="torch-ref"),
+                TOL["float32"], f"altgdmin_gradient {sname} {dname}")
+            emit("serving_kernels", shape=sname, dtype=dname,
+                 max_abs_err={"altgdmin_minimize_B": e_min,
+                              "altgdmin_gradient": e_g})
+    return errs, times
+
+
+def _time_s(torch, fn, reps):
+    """Host seconds per call of ``fn`` over ``reps`` calls, ended by a
+    device synchronize (one warm call first)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def serving_phase(torch, spec, mat, plain):
+    """Phase 13: train with checkpoint publishing, hot-swap every
+    published U into the serving engine, serve a fixed cohort and a
+    closed loop, on the card; ``plain`` is the main phase's unsegmented
+    run of the same spec on the same materialization."""
+    import tempfile
+
+    from repro_torch.api import run_experiment
+    from repro_torch.kernels import _build, ops
+    from repro_torch.serving import (HotSwapSource, RequestGenerator,
+                                     ServingEngine, pack_requests,
+                                     run_closed_loop)
+
+    T_GD, p = spec.solver.T_GD, spec.problem
+    steps = list(range(0, T_GD + 1, SERVE_EVERY))
+    U_star = mat.problem.U_star
+    with tempfile.TemporaryDirectory(prefix="serving_ck_") as ckdir:
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        seg = run_experiment(spec, key=0, materialized=mat,
+                             checkpoint_every=SERVE_EVERY,
+                             checkpoint_dir=ckdir)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        published = sorted(int(f.split("_")[1]) for f in os.listdir(ckdir))
+        require(published == steps,
+                f"published steps {published}, want {steps}")
+        for field in ("sd_max", "sd_mean", "spread", "time_axis"):
+            require(np.array_equal(getattr(seg, field), getattr(plain, field)),
+                    f"segmented run: {field} differs from the unsegmented run")
+        require(torch.equal(seg.U_nodes, plain.U_nodes),
+                "segmented run: final U_nodes differ from the unsegmented run")
+
+        # the drifting cohort, hot-swapped in from every published step
+        cohort = RequestGenerator(U_star, t_new=COHORT_T_NEW,
+                                  seed=3).generate(COHORT)
+        X_list, y_list = [q.X for q in cohort], [q.y for q in cohort]
+        theta_star = np.stack([q.theta_star for q in cohort])
+        Xp, yp, _ = pack_requests(X_list, y_list, max_batch=COHORT,
+                                  dtype=torch.float32, device="cuda")
+        # the publications replayed in order into a live directory, which
+        # the server's hot-swap reader polls after each one lands
+        live = os.path.join(ckdir, "live")
+        os.makedirs(live)
+        source = HotSwapSource(live, d=p.d, r=p.r, dtype=torch.float32,
+                               device="cuda")
+        eng, errs, grad_norms, e_routes, e_grad = None, [], [], 0.0, 0.0
+        for step in steps:
+            name = f"step_{step:09d}"
+            shutil.copytree(os.path.join(ckdir, name),
+                            os.path.join(live, name))
+            got = source.poll()
+            require(got is not None and got[0] == step,
+                    f"HotSwapSource offered {got and got[0]}, want {step}")
+            if eng is None:
+                eng = ServingEngine(got[1], max_batch=COHORT, version=step)
+            else:
+                eng.update_representation(got[1], version=step)
+            _, theta, version = eng.solve(X_list, y_list)
+            require(version == step, f"served version {version} != {step}")
+            th = theta.double().cpu().numpy()
+            errs.append(float(np.mean(np.linalg.norm(th - theta_star, axis=1)
+                                      / np.linalg.norm(theta_star, axis=1))))
+            B_ls = ops.altgdmin_minimize_B(Xp, eng.U, yp)      # task_gram
+            g = ops.altgdmin_gradient(Xp, eng.U, B_ls, yp)   # task_grad_tiles
+            grad_norms.append(float(torch.linalg.norm(g)))
+            # the ops entry point against the engine's fold solve (a
+            # consistency check: both launch the same kernel body), and
+            # the gradient against its plain route (the kernels' f32
+            # tolerance: near the optimum the gradient is a sum of
+            # round-off)
+            B_eng, _ = eng.solve_packed(Xp, yp)             # node_task_gram
+            e_routes = max(e_routes, max_err(
+                torch, B_ls, B_eng, SERVE_TOL,
+                f"step {step}: task_gram route vs solve_packed"))
+            e_grad = max(e_grad, max_err(
+                torch, g, ops.altgdmin_gradient(Xp, eng.U, B_ls, yp,
+                                                backend="torch-ref"),
+                TOL["float32"], f"step {step}: altgdmin_gradient vs its "
+                f"plain route"))
+        low = [e for e in errs if e < SERVE_ERR_FLOOR]
+        require(all(b < a or max(a, b) < SERVE_ERR_FLOOR
+                    for a, b in zip(errs, errs[1:]))
+                and all(e < SERVE_ERR_PLATEAU * min(errs) for e in low)
+                and errs[-1] < 0.75 * errs[0],
+                f"the cohort's θ error does not fall at every step down to "
+                f"the f32 floor {SERVE_ERR_FLOOR} and stay within "
+                f"{SERVE_ERR_PLATEAU}× of its least value there: {errs}")
+        require(grad_norms[-1] < 0.1 * grad_norms[0],
+                f"the cohort's gradient does not fall: {grad_norms}")
+
+        # the closed loop: calibrate on one ragged full batch, then drive
+        gen = RequestGenerator(U_star, t_new=LOOP_T_NEW, seed=11)
+        probe = gen.generate(LOOP_BATCH)
+        loop_eng = ServingEngine(mat.init.U0[0], max_batch=LOOP_BATCH)
+        for t in LOOP_T_NEW:    # one batch per sample bucket: first-call
+            warm = RequestGenerator(U_star, t_new=t, seed=10).generate(
+                LOOP_BATCH)     # costs stay out of the calibration and loop
+            loop_eng.solve([q.X for q in warm], [q.y for q in warm])
+        s_batch = _time_s(torch, lambda: loop_eng.solve(
+            [q.X for q in probe], [q.y for q in probe]), 10)
+        rate = LOOP_LOAD * LOOP_BATCH / s_batch
+        gen = RequestGenerator(U_star, t_new=LOOP_T_NEW, rate_hz=rate,
+                               seed=12)
+        requests = gen.generate(LOOP_N)
+        swap = HotSwapSource(ckdir, d=p.d, r=p.r, device="cuda")
+        before = _build.LAUNCHES["node_task_gram"]
+        report = run_closed_loop(loop_eng, requests,
+                                 max_wait_s=LOOP_WAIT * s_batch,
+                                 queue_capacity=max(4 * LOOP_BATCH, 16),
+                                 swap_source=swap)
+        torch.cuda.synchronize()
+        loop_launches = _build.LAUNCHES["node_task_gram"] - before
+        launches = dict(_build.LAUNCHES)
+    rids = [rec.rid for rec in report.records]
+    require(len(rids) == len(set(rids))
+            and len(rids) + report.n_shed == LOOP_N,
+            f"closed loop: {len(rids)} served ({len(set(rids))} distinct) + "
+            f"{report.n_shed} shed != {LOOP_N} offered")
+    require(loop_launches == len(report.batch_sizes),
+            f"closed loop: {loop_launches} node_task_gram launches for "
+            f"{len(report.batch_sizes)} batches")
+    require({rec.version for rec in report.records} == {T_GD},
+            "closed loop: the swap source did not serve the final step")
+    want = {"node_fused_iter": T_GD, "mix_rows": T_GD,
+            "task_gram": len(steps), "task_grad_tiles": len(steps)}
+    require(all(launches.get(k, 0) == v for k, v in want.items()),
+            f"serving path launch counts {launches}, want {want}")
+    pct = report.latency_percentiles((50, 99))
+    span = max(r.t_done for r in report.records) - min(
+        r.t_arrival for r in report.records)
+    emit("serving", preset=spec.name, dtype="float32", T_GD=T_GD,
+         checkpoint_every=SERVE_EVERY, published=published,
+         segmented_equals_unsegmented_bitwise=True, train_s=train_s,
+         cohort=COHORT, cohort_t_new=COHORT_T_NEW, mean_theta_err=errs,
+         cohort_grad_norm=grad_norms,
+         task_gram_vs_solve_packed_max_abs_err=e_routes,
+         gradient_vs_plain_max_abs_err=e_grad, launches=launches)
+    emit("serving_loop", requests=LOOP_N, t_new=list(LOOP_T_NEW),
+         max_batch=LOOP_BATCH, batch_s=s_batch, capacity_req_per_s=
+         LOOP_BATCH / s_batch, offered_req_per_s=rate,
+         served_req_per_s=len(rids) / span,
+         max_wait_ms=LOOP_WAIT * s_batch * 1e3,
+         p50_latency_ms=pct["p50"] * 1e3, p99_latency_ms=pct["p99"] * 1e3,
+         served=len(rids), shed=report.n_shed,
+         batches=len(report.batch_sizes),
+         mean_batch=float(np.mean(report.batch_sizes)),
+         node_task_gram_launches=loop_launches,
+         mean_theta_err=report.mean_err,
+         clock="host, each batch ended by a device synchronize")
+    return launches
+
+
+def serving_frontier(torch, U):
+    """The packed solve's µs per dispatch and per request at a few batch
+    sizes, on cuda and on torch-ref, on the card (host clock, ended by a
+    device synchronize)."""
+    from repro_torch.serving import ServingEngine
+
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for batch in FRONTIER_BATCHES:
+        X = torch.randn((batch, FRONTIER_T_NEW, U.shape[0]), generator=g,
+                        device="cuda")
+        y = torch.randn((batch, FRONTIER_T_NEW), generator=g, device="cuda")
+        for backend in ("cuda", "torch-ref"):
+            eng = ServingEngine(U, max_batch=batch, backend=backend)
+            s = _time_s(torch, lambda: eng.solve_packed(X, y),
+                        FRONTIER_REPS)
+            rows.append({"batch": batch, "backend": backend,
+                         "us_per_dispatch": s * 1e6,
+                         "us_per_request": s * 1e6 / batch,
+                         "req_per_s": batch / s})
+    emit("serving_frontier", t_new=FRONTIER_T_NEW, d=int(U.shape[0]),
+         r=int(U.shape[1]), rows=rows,
+         clock="host, ended by a device synchronize")
+
+
 def main() -> int:
     try:
         import torch
@@ -854,7 +1172,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     rows = check_kernels(torch)
-    spec, mat, launches = main_path(torch)
+    spec, mat, launches, trace = main_path(torch)
     profile(torch, spec, mat, label="main")
     slice_errs, slice_timing = check_slice_kernels(torch)
     launches_a = path_a(torch)
@@ -862,6 +1180,9 @@ def main() -> int:
     combine_err, combine_timing = check_gossip_kernel(torch)
     roll_form(torch)
     launches_mesh = mesh_phase(torch, spec, mat)
+    single_errs, single_timing = check_serving_kernels(torch)
+    launches_serving = serving_phase(torch, spec, mat, trace)
+    serving_frontier(torch, trace.U_nodes[0])
 
     main_row = rows[("exp1", "float32")]
     kernels = []
@@ -886,6 +1207,12 @@ def main() -> int:
                     "replaces": REPLACES["gossip_combine"],
                     "launches": launches_mesh, "max_abs_err": combine_err,
                     **combine_timing})
+    for name in ("task_gram", "task_grad_tiles"):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCES[name], "replaces": REPLACES[name],
+                        "launches": launches_serving[name],
+                        "max_abs_err": single_errs[name],
+                        **single_timing[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,7 @@ import torch
 from repro_torch.api.registry import SolverDef, get_solver
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.core import comm_model as _cm
-from repro_torch.core.altgdmin import resolve_eta
+from repro_torch.core.altgdmin import RunResult, resolve_eta
 from repro_torch.core.engine import resolve_engine
 from repro_torch.core.problem import (MTRLProblem, generate_problem,
                                       node_view, split_samples)
@@ -247,12 +247,23 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
     result of a spec sharing this spec's problem/topology/init sub-specs
     and key; the run then takes place on its device.  With
     ``substrate="mesh"`` every rank of the process group calls this with
-    the same spec and key (see the module docstring).  Checkpoint
-    publishing is not ported yet and raises."""
+    the same spec and key (see the module docstring).
+
+    ``checkpoint_every`` (with ``checkpoint_dir``) publishes U snapshots
+    for the serving side: the spectral init at step 0, then the node
+    bases every that-many outer iterations (and at T_GD), each a
+    crash-safe checkpoint via
+    :func:`repro_torch.serving.publisher.publish_representation`.  The
+    run is executed in segments of that length with the U iterate
+    chained through, so a server can hot-swap to fresher U's while the
+    solver keeps refining.  Solvers whose loop carries just U
+    (dif/dec/dgd/centralized) give the unsegmented run's trajectory bit
+    for bit; solvers carrying auxiliary state (exact_diffusion's ψ, the
+    compressed rules' public copies) restart that state at segment
+    boundaries, as the reference does.  Simulator substrate only;
+    incompatible with ``n_folds > 1`` (the fold schedule would restart
+    per segment)."""
     solver = get_solver(spec.solver.name)
-    if checkpoint_every is not None or checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint publishing comes with the serving slice of the port")
     # a non-default solver knob on a solver that ignores it must raise
     # instead of silently running without it
     for field, default in (("local_steps", 1), ("compression", None),
@@ -264,6 +275,19 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
                 f"solver {solver.name!r} does not consume {field} "
                 f"(got {field}={value}); only solvers declaring it in "
                 f"spec_kwargs honor the field")
+    if checkpoint_every is not None:
+        if checkpoint_dir is None:
+            raise ValueError("checkpoint_every needs checkpoint_dir")
+        if checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got "
+                             f"{checkpoint_every}")
+        if spec.substrate == "mesh":
+            raise ValueError("checkpoint publishing runs on "
+                             "substrate='simulator' only")
+        if spec.problem.n_folds > 1:
+            raise ValueError("checkpoint_every segments the run, which "
+                             "would restart the n_folds sample-split "
+                             "schedule; use n_folds <= 1")
     if materialized is None:
         mat = materialize(spec, key, device=device)
     else:
@@ -276,6 +300,10 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
     eng = resolve_engine(engine, spec.engine.backend, device=mat.Xg.device)
     if spec.substrate == "mesh":
         result = _run_mesh(spec, solver, mat, eng, eta)
+    elif checkpoint_every is not None:
+        result = _run_segmented(spec, solver, mat, eng, eta,
+                                every=checkpoint_every,
+                                directory=checkpoint_dir)
     else:
         extra = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
         result = solver.call(mat.init.U0, mat.Xg, mat.yg, mat.W, mat.adj,
@@ -293,6 +321,42 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
                  materialized=mat,
                  send_frac=(host[3].astype(np.float32)
                             if result.send_frac is not None else None))
+
+
+def _run_segmented(spec: ExperimentSpec, solver: SolverDef,
+                   mat: Materialized, eng, eta: float, *, every: int,
+                   directory: str) -> RunResult:
+    """The checkpoint-publishing run: the solver in segments of
+    ``every`` iterations, chaining the U iterate and publishing a
+    serving checkpoint after each segment (plus the step-0 init).  The
+    reference also slices the masked trio's availability schedule per
+    segment; those solvers come with a later slice of the port."""
+    from repro_torch.serving.publisher import publish_representation
+    T_GD = spec.solver.T_GD
+    extra = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
+    publish_representation(directory, 0, mat.init.U0)
+    U_cur = mat.init.U0
+    chunks = []
+    done = 0
+    while done < T_GD:
+        seg = min(every, T_GD - done)
+        res = solver.call(U_cur, mat.Xg, mat.yg, mat.W, mat.adj, eta=eta,
+                          T_GD=seg, T_con=spec.solver.T_con,
+                          U_star=mat.problem.U_star, engine=eng, **extra)
+        done += seg
+        publish_representation(directory, done, res.U_nodes)
+        chunks.append(res)
+        U_cur = res.U_nodes
+
+    def cat(name):
+        return torch.cat([getattr(c, name) for c in chunks])
+
+    sfs = [c.send_frac for c in chunks]
+    return RunResult(chunks[-1].U_nodes, chunks[-1].B_nodes,
+                     cat("sd_max"), cat("sd_mean"), cat("spread"), eta,
+                     send_frac=(torch.cat(sfs)
+                                if all(s is not None for s in sfs)
+                                else None))
 
 
 def _run_mesh(spec: ExperimentSpec, solver: SolverDef, mat: Materialized,

@@ -11,8 +11,16 @@
   (``_grad_kernel_nb``): the gradient tiles for a GIVEN B, the second
   launch of the sample-split path; A = X_t U_g is rebuilt on the
   gradient fold's data with the fused kernel's own device code.
+* :func:`task_gram` and :func:`task_grad_tiles` replace ``task_gram``
+  (``_gram_kernel``) and ``task_grad_tiles`` (``_grad_kernel``): the
+  same Gram pair and gradient tiles with ONE basis U (d, r) shared by
+  all T tasks (X (T, n, d), no node axis), the layout of the serving
+  side and of ``ops.altgdmin_minimize_B`` / ``ops.altgdmin_gradient``.
+  They launch the node Gram and gradient kernels with one node (L = 1,
+  tpn = T), where every block's basis is that U, and keep their own
+  launch counts.
 
-All three are bound by the bytes of X: one block per task streams its X_t
+All five are bound by the bytes of X: one block per task streams its X_t
 row by row (see the source for the design).  X, U and y are taken in
 float32 or bfloat16; float64 inputs are converted to float32 first,
 which is what the TPU kernel's ``astype(float32)`` does in its body.
@@ -75,6 +83,31 @@ def _operands(X, U, y):
     return X, U, y, (L, tpn, n, d, r), _DTYPE_CODE[dt]
 
 
+def _single_operands(X, U, y):
+    """:func:`_operands` for one basis shared by T tasks: X (T, n, d),
+    U (d, r), y (T, n), returned in the node layout with one node
+    (L = 1, tpn = T), the dims (1, T, n, d, r) and the dtype code."""
+    if X.ndim != 3 or U.ndim != 2 or y.ndim != 2:
+        raise ValueError(f"want X (T,n,d), U (d,r), y (T,n); got "
+                         f"{tuple(X.shape)}, {tuple(U.shape)}, "
+                         f"{tuple(y.shape)}")
+    if U.shape[0] != X.shape[2] or y.shape != X.shape[:2]:
+        raise ValueError(f"shape mismatch: X {tuple(X.shape)}, U "
+                         f"{tuple(U.shape)}, y {tuple(y.shape)}")
+    return _operands(X[None], U[None], y[None])
+
+
+def _checked_B(B, X, shape):
+    """B on X's card, of ``shape``, as contiguous float32."""
+    if not B.is_cuda or B.device != X.device:
+        raise ValueError(f"B must be on {X.device} with X, got {B.device}")
+    if tuple(B.shape) != shape:
+        raise ValueError(f"want B of shape {shape}, got {tuple(B.shape)}")
+    if not B.is_floating_point():
+        raise ValueError(f"unsupported B dtype {B.dtype}")
+    return B.to(torch.float32).contiguous()
+
+
 def _launch(fn: str, tensors, dims, code):
     lib = _build.load("altgdmin_ls", _SIGNATURES)
     device = tensors[0].device
@@ -118,15 +151,34 @@ def node_task_grad_tiles(X, U, B, y):
     b_tᵀ."""
     X, U, y, dims, code = _operands(X, U, y)
     L, tpn, n, d, r = dims
-    if not B.is_cuda or B.device != X.device:
-        raise ValueError(f"B must be on {X.device} with X, got {B.device}")
-    if B.shape != (L, tpn, r):
-        raise ValueError(f"want B (L, tpn, r) = {(L, tpn, r)}, got "
-                         f"{tuple(B.shape)}")
-    if not B.is_floating_point():
-        raise ValueError(f"unsupported B dtype {B.dtype}")
-    B = B.to(torch.float32).contiguous()
+    B = _checked_B(B, X, (L, tpn, r))
     tiles = torch.empty((L, tpn, d, r), dtype=torch.float32, device=X.device)
     _launch("altgdmin_node_grad_tiles", (X, U, B, y, tiles), dims, code)
     _build.LAUNCHES["node_task_grad_tiles"] += 1
     return tiles
+
+
+def task_gram(X, U, y):
+    """The Gram systems of T tasks against one basis, one launch.
+    X (T, n, d), U (d, r), y (T, n) on the card → G (T, r, r),
+    c (T, r), float32."""
+    X, U, y, dims, code = _single_operands(X, U, y)
+    _, T, n, d, r = dims
+    G = torch.empty((1, T, r, r), dtype=torch.float32, device=X.device)
+    c = torch.empty((1, T, r), dtype=torch.float32, device=X.device)
+    _launch("altgdmin_node_task_gram", (X, U, y, G, c), dims, code)
+    _build.LAUNCHES["task_gram"] += 1
+    return G[0], c[0]
+
+
+def task_grad_tiles(X, U, B, y):
+    """The gradient tiles of T tasks against one basis for a given B,
+    one launch.  X (T, n, d), U (d, r), B (T, r), y (T, n) on the card →
+    tiles (T, d, r) float32, tiles[t] = X_tᵀ(X_t U b_t − y_t) b_tᵀ."""
+    X, U, y, dims, code = _single_operands(X, U, y)
+    _, T, n, d, r = dims
+    B = _checked_B(B, X, (T, r))[None]
+    tiles = torch.empty((1, T, d, r), dtype=torch.float32, device=X.device)
+    _launch("altgdmin_node_grad_tiles", (X, U, B, y, tiles), dims, code)
+    _build.LAUNCHES["task_grad_tiles"] += 1
+    return tiles[0]

@@ -12,6 +12,13 @@
 //     from another fold): A = X_t U_g is rebuilt, resid = A b_t - y_t, and
 //     the tile X_t^T resid b_t^T is emitted.  It shares the A build
 //     (load_task) and the tile pass (write_tiles) with the fused kernel.
+//   * task_gram (_gram_kernel) and task_grad_tiles (_grad_kernel), ONE
+//     basis U (d, r) shared by T tasks, are the last two entries launched
+//     with L = 1, tpn = T: with one node every block's basis is U.  At the
+//     serving batch (T = 32, n = 16, d = 600, r = 4, f32) they must move
+//     1.24 / 1.55 MB (0.37 / 0.46 us at 3.35 TB/s); one block a task fills
+//     only 32 of the 132 SMs there, a known weakness left for a later
+//     change (a block per (task, d slice)).
 //
 // Layouts (row-major, contiguous): X (L, tpn, n, d), U (L, d, r),
 // y (L, tpn, n) in float32 or bfloat16 (converted to f32 in the load);

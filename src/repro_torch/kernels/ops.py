@@ -86,6 +86,30 @@ def _resolve_for(backend, *tensors) -> str:
     return name
 
 
+# ------------------------------------------------------------ MTRL LS
+
+def altgdmin_minimize_B(X, U, y, *, backend=None):
+    """b_t = (X_t U)† y_t for T tasks sharing one basis: the Gram kernel,
+    then the r×r SPD solves in plain torch.  X (T, n, d); U (d, r);
+    y (T, n) → B (T, r) f32."""
+    if _resolve_for(backend, X, U, y) == "torch-ref":
+        G, c = _ref.ref_single_task_gram(X, U, y)
+    else:
+        G, c = _ls.task_gram(X, U, y)
+    return _ref.solve_spd(G, c)
+
+
+def altgdmin_gradient(X, U, B, y, *, backend=None):
+    """∇_U f = Σ_t X_tᵀ(X_t U b_t − y_t) b_tᵀ for T tasks sharing one
+    basis.  X (T, n, d); U (d, r); B (T, r); y (T, n) → (d, r) f32; the
+    tiles are summed over T by torch.sum."""
+    if _resolve_for(backend, X, U, B, y) == "torch-ref":
+        tiles = _ref.ref_single_grad_tiles(X, U, B, y)
+    else:
+        tiles = _ls.task_grad_tiles(X, U, B, y)
+    return torch.sum(tiles, dim=0)
+
+
 # ---------------------------------------------- MTRL LS (node-batched)
 
 def altgdmin_node_minimize_B(X, U, y, *, backend=None):

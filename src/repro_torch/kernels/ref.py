@@ -49,6 +49,21 @@ def ref_altgdmin_grad(X, U, B, y):
     return ref_node_grad_tiles(X, U, B, y).sum(dim=1)
 
 
+def ref_single_task_gram(X, U, y):
+    """What ``task_gram`` computes: the Gram pairs of T tasks against
+    ONE basis.  X (T, n, d), U (d, r), y (T, n) → G (T, r, r),
+    c (T, r), float32 (the node-batched version at L = 1)."""
+    G, c = ref_task_gram(X[None], U[None], y[None])
+    return G[0], c[0]
+
+
+def ref_single_grad_tiles(X, U, B, y):
+    """What ``task_grad_tiles`` computes: per task, for a given B and
+    ONE basis, X_tᵀ(X_t U b_t − y_t) b_tᵀ.  X (T, n, d), U (d, r),
+    B (T, r), y (T, n) → (T, d, r), float32."""
+    return ref_node_grad_tiles(X[None], U[None], B[None], y[None])[0]
+
+
 def ref_fused_iter(X, U, y):
     """What ``node_fused_iter`` computes: the min-B solutions and the
     per-task gradient tiles.  → B (L, tpn, r), tiles (L, tpn, d, r)."""

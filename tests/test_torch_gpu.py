@@ -3,7 +3,9 @@ PyTorch version on the same inputs (``compress_topk`` and ``dequant``
 bit for bit), the dtype rules of the ops, and small end-to-end runs
 through the kernels (the dense, the sample-split and the compressed
 paths, and a 2-rank gloo mesh) against the torch-ref backend or the
-simulator, with their launch counts.
+simulator, with their launch counts; the single-basis kernels and the
+serving side (``ServingEngine`` against torch-ref, slot and bucket
+padding bit for bit, checkpoints of CUDA tensors, a segmented run).
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither jax nor the JAX package, so it runs on
@@ -292,3 +294,138 @@ def test_two_rank_gloo_mesh_through_the_kernels(cuda):
                                    atol=1e-5)
         np.testing.assert_array_equal(hw["U_nodes"], ranks[0][0]["U_nodes"])
     assert ranks[0][0]["sd_max"][-1] < ranks[0][0]["sd_max"][0]
+
+
+# (T, n, d, r): the serving cohort and a serving batch at Experiment 1's
+# width, the JAX package's kernel benchmark row, a ragged d, the rank
+# capacity's edge, one task
+SINGLE = [(64, 16, 600, 4), (32, 16, 600, 4), (32, 30, 600, 4),
+          (3, 20, 100, 8), (5, 40, 33, 16), (1, 50, 256, 2)]
+
+
+def _single(shape, dtype, seed=0):
+    T, n, d, r = shape
+    X, U, y = _instance((1, T, n, d, r), dtype, seed)
+    return X[0], U[0], y[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SINGLE)
+def test_single_basis_kernels_match_plain(cuda, shape, dtype):
+    from repro_torch.kernels import _build, altgdmin_ls, ref
+    X, U, y = _single(shape, dtype, seed=2)
+    B = torch.randn((shape[0], shape[3]), device="cuda")
+    _build.LAUNCHES.clear()
+    G, c = altgdmin_ls.task_gram(X, U, y)
+    tiles = altgdmin_ls.task_grad_tiles(X, U, B, y)
+    assert dict(_build.LAUNCHES) == {"task_gram": 1, "task_grad_tiles": 1}
+    assert G.dtype == c.dtype == tiles.dtype == torch.float32
+    G_ref, c_ref = ref.ref_single_task_gram(X, U, y)
+    _close(G, G_ref, TOL[dtype])
+    _close(c, c_ref, TOL[dtype])
+    _close(tiles, ref.ref_single_grad_tiles(X, U, B, y), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_single_basis_ops_match_torch_ref(cuda, dtype):
+    """ops.altgdmin_minimize_B / altgdmin_gradient on cuda against their
+    plain route; f64 operands go through the f32 kernels."""
+    from repro_torch.kernels import ops
+    X, U, y = _single(SINGLE[1], dtype, seed=3)
+    B = ops.altgdmin_minimize_B(X, U, y)                # auto → cuda
+    assert B.dtype == torch.float32 and B.shape == (32, 4)
+    _close(B, ops.altgdmin_minimize_B(X, U, y, backend="torch-ref"),
+           TOL[torch.float32])
+    g = ops.altgdmin_gradient(X, U, B, y)
+    assert g.dtype == torch.float32 and g.shape == (600, 4)
+    _close(g, ops.altgdmin_gradient(X, U, B, y, backend="torch-ref"),
+           TOL[torch.float32])
+
+
+def _serving_requests(seed, t_news, d=600):
+    rng = np.random.default_rng(seed)
+    return ([rng.standard_normal((t, d)) for t in t_news],
+            [rng.standard_normal(t) for t in t_news])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_serving_engine_on_cuda_matches_torch_ref(cuda, dtype):
+    """One node_task_gram launch a batch; B against the torch-ref engine
+    on the card (f64 U: the kernel computes in f32, B comes back in U's
+    dtype)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ServingEngine
+    U = torch.linalg.qr(torch.randn(600, 4, device="cuda",
+                                    dtype=torch.float64))[0].to(dtype)
+    X_list, y_list = _serving_requests(0, (8, 16, 32, 12, 16))
+    eng = ServingEngine(U, max_batch=8)
+    assert eng.engine.backend == "cuda"
+    _build.LAUNCHES.clear()
+    B, theta, version = eng.solve(X_list, y_list)
+    assert dict(_build.LAUNCHES) == {"node_task_gram": 1}
+    assert B.dtype == dtype and B.is_cuda and theta.shape == (5, 600)
+    B_ref, theta_ref, _ = ServingEngine(U, max_batch=8,
+                                        backend="torch-ref").solve(X_list,
+                                                                   y_list)
+    _close(B, B_ref, dict(rtol=1e-4, atol=1e-5))
+    _close(theta, theta_ref, dict(rtol=1e-4, atol=1e-5))
+
+
+def test_serving_padding_is_bitwise_exact_on_cuda(cuda):
+    """Slot padding (max_batch 3 vs 8) and bucket padding (pad_n_to 8 vs
+    32) leave the real solutions bit for bit equal on the card."""
+    from repro_torch.serving import ServingEngine
+    U = torch.linalg.qr(torch.randn(600, 4, device="cuda"))[0]
+    X_list, y_list = _serving_requests(1, (7, 11, 13))
+    tight = ServingEngine(U, max_batch=3).solve(X_list, y_list)[0]
+    slack = ServingEngine(U, max_batch=8).solve(X_list, y_list)[0]
+    assert torch.equal(tight, slack)
+    b8 = ServingEngine(U, max_batch=4, pad_n_to=8).solve(X_list, y_list)[0]
+    b32 = ServingEngine(U, max_batch=4, pad_n_to=32).solve(X_list,
+                                                           y_list)[0]
+    assert torch.equal(b8, b32)
+
+
+def test_checkpoint_round_trip_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.serving import HotSwapSource, publish_representation
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"U": torch.randn(600, 4, generator=g, device="cuda"),
+            "h": torch.randn(8, generator=g, device="cuda").to(torch.bfloat16),
+            "k": [torch.arange(5, device="cuda")]}
+    save_checkpoint(str(tmp_path / "ck"), 1, tree)
+    out = restore_checkpoint(str(tmp_path / "ck"), 1,
+                             {k: (torch.zeros_like(v) if torch.is_tensor(v)
+                                  else [torch.zeros_like(v[0])])
+                              for k, v in tree.items()})
+    for a, b in ((tree["U"], out["U"]), (tree["h"], out["h"]),
+                 (tree["k"][0], out["k"][0])):
+        assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)
+    publish_representation(str(tmp_path / "pub"), 3, tree["U"][None])
+    step, U = HotSwapSource(str(tmp_path / "pub"), d=600, r=4).poll()
+    assert step == 3 and U.is_cuda and U.dtype == torch.float32
+    torch.testing.assert_close(U.T @ U, torch.eye(4, device="cuda"),
+                               rtol=0, atol=1e-5)
+
+
+def test_segmented_run_on_cuda_is_bit_identical(cuda, tmp_path):
+    """checkpoint_every on the card: the segmented trajectory equals the
+    unsegmented one bit for bit, and every segment publishes."""
+    from repro_torch.api import (EngineSpec, ExperimentSpec, InitSpec,
+                                 ProblemSpec, SolverSpec, TopologySpec,
+                                 materialize, run_experiment)
+    spec = ExperimentSpec(
+        problem=ProblemSpec(d=60, T=60, r=3, n=25, L=6, kappa=1.5,
+                            dtype="float32"),
+        topology=TopologySpec(family="erdos_renyi", p=0.5, seed=3),
+        init=InitSpec(T_pm=20, T_con=8),
+        solver=SolverSpec(T_GD=30, T_con=3),
+        engine=EngineSpec(backend="cuda"))
+    mat = materialize(spec, key=1)
+    seg = run_experiment(spec, materialized=mat, checkpoint_every=10,
+                         checkpoint_dir=str(tmp_path))
+    plain = run_experiment(spec, materialized=mat)
+    assert np.array_equal(seg.sd_max, plain.sd_max)
+    assert torch.equal(seg.U_nodes, plain.U_nodes)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        f"step_{s:09d}" for s in (0, 10, 20, 30)]

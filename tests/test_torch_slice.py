@@ -125,9 +125,6 @@ def test_later_slice_features_raise_not_implemented():
     with pytest.raises(RuntimeError, match="process group"):
         tapi.run_experiment(dataclasses.replace(spec, substrate="mesh"),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tapi.run_experiment(spec, device="cpu", checkpoint_every=5,
-                            checkpoint_dir="unused")
     with pytest.raises(NotImplementedError, match="system"):
         d = SPEC.to_dict()
         d["system"] = {"availability": "bernoulli", "p_on": 0.9}
@@ -163,9 +160,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch.api, repro_torch.configs.paper\n"
         "import repro_torch.kernels.ops, repro_torch.core.program\n"
+        "import repro_torch.serving, repro_torch.checkpoint\n"
         "from repro_torch.api import run_experiment, materialize\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
@@ -189,4 +187,4 @@ def test_port_sources_never_import_jax_or_repro():
     assert len(files) > 20
     for path in files:
         roots = set(_imported_roots(path))
-        assert not roots & {"jax", "jaxlib", "repro"}, path
+        assert not roots & {"jax", "jaxlib", "repro", "msgpack"}, path
