@@ -107,6 +107,33 @@ Phases, each printing one JSON line and raising on failure:
                dispatch and per request at batch 1, 8, 32 on cuda and
                torch-ref.
 
+ 14. lm_kernels — flash_attention and ssd_scan against their plain
+               versions (ref_attention, ref_ssd) on the card at f32 and
+               bf16 within the reference's tolerances (tests/
+               test_kernels.py: 2e-5 / 2e-2 and 1e-4 / 5e-2): flash at
+               qwen3-1.7b's prefill (B 4, S 2048, H 16, Hkv 8, D 128),
+               the same with window 512, a ragged S = 1000, cross lengths
+               Sq 16 / Skv 2048 and D = 112; ssd_scan at mamba2-130m's
+               (B 4, S 2048, H 24, P 64, N 128, Q 128) and S = 1000, y
+               and h_final; times as in phase 3 at both dtypes, with
+               scaled_dot_product_attention (is_causal, enable_gqa) as
+               flash's library call, timed only (ssd_scan has none);
+ 15. lm_dense — qwen3-1.7b at full width, weights drawn on the card from
+               a seed: make_prefill_step on B 4 × S 2048 at f32 through
+               the kernel, with the launch counts set to 0 just before
+               and read just after (28 flash_attention launches), its
+               last-position logits within 2e-3 of the torch-ref route on
+               the card (tests/test_arch_smoke.py's cross-route
+               tolerance); generate_tokens with B 4, prompt 128, gen 32,
+               whose teacher-forced decode logits at every prompt
+               position are within 2e-3 of the kernel-route forward;
+               then at bf16 (linear weights cast once): the error
+               against f32, prefill tokens/s, decode ms a token, and the
+               device's busy share over a profiled prefill step and 16
+               decode steps;
+ 16. lm_ssm  — the same for mamba2-130m: 24 ssd_scan launches a forward,
+               decode through the O(1) step ≡ prefill.
+
 Then the kernels line (each kernel's launches from its own path's run),
 the card line, and the result line.  Exits non-
 zero, printing no result, without a CUDA device or outside the repo.
@@ -132,6 +159,7 @@ SRC = ROOT / "src"
 # bandwidth, and float32 outside the tensor cores — the kernels' f32 FMAs.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12      # dense bf16 on the tensor cores
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=5e-2, atol=5e-2),
@@ -151,7 +179,10 @@ SOURCES = {"node_fused_iter": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
            "dequant": "src/repro_torch/kernels/csrc/compress.cu",
            "gossip_combine": "src/repro_torch/kernels/csrc/gossip_axpy.cu",
            "task_gram": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
-           "task_grad_tiles": "src/repro_torch/kernels/csrc/altgdmin_ls.cu"}
+           "task_grad_tiles": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
 REPLACES = {"node_fused_iter": "src/repro/kernels/altgdmin_ls.py:244",
             "node_task_gram": "src/repro/kernels/altgdmin_ls.py:306",
             "mix_rows": "src/repro/kernels/gossip_axpy.py:45",
@@ -160,7 +191,9 @@ REPLACES = {"node_fused_iter": "src/repro/kernels/altgdmin_ls.py:244",
             "dequant": "src/repro/kernels/compress.py:89",
             "gossip_combine": "src/repro/kernels/gossip_axpy.py:73",
             "task_gram": "src/repro/kernels/altgdmin_ls.py:67",
-            "task_grad_tiles": "src/repro/kernels/altgdmin_ls.py:139"}
+            "task_grad_tiles": "src/repro/kernels/altgdmin_ls.py:139",
+            "flash_attention": "src/repro/kernels/flash_attention.py:111",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:87"}
 
 # The sample-split fold of Experiment 1 (n = 30 split in two), and the
 # (N, d, r, k) blocks of compress_topk: the dif_topk path's (k = d/4),
@@ -223,6 +256,28 @@ SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 # test, hold strict monotonicity over the whole schedule).
 SERVE_ERR_FLOOR, SERVE_ERR_PLATEAU = 2e-6, 2.0
 
+# The LM phases.  flash_attention's (name, B, Sq, Skv, H, Hkv, D, window)
+# cases, qwen3-1.7b's prefill first (the kernels line's timing), and
+# ssd_scan's (name, B, S, H, P, N, Q), mamba2-130m's first; the
+# reference's kernel tolerances (tests/test_kernels.py); the serving
+# shapes (prefill batch × length; generate's batch, prompt, gen) and the
+# cross-route tolerance of tests/test_arch_smoke.py.
+FLASH_CASES = (("qwen3_prefill", 4, 2048, 2048, 16, 8, 128, None),
+               ("window_512", 4, 2048, 2048, 16, 8, 128, 512),
+               ("ragged_1000", 4, 1000, 1000, 16, 8, 128, None),
+               ("cross_16_2048", 4, 16, 2048, 16, 8, 128, None),
+               ("d112", 2, 1024, 1024, 32, 32, 112, None))
+SSD_CASES = (("mamba2_prefill", 4, 2048, 24, 64, 128, 128),
+             ("ragged_1000", 4, 1000, 24, 64, 128, 128))
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+           "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+LM_PREFILL = (4, 2048)
+LM_GEN = (4, 128, 32)
+LM_TOL = dict(rtol=2e-3, atol=2e-3)
+LM_DECODE_PROFILE = 16
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -268,8 +323,9 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes: int, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(n_bytes: int, flops: float,
+          flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flop_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -350,12 +406,16 @@ def check_kernels(torch):
     return rows
 
 
-def timing(torch, kernel, plain, args, n_bytes, flops, library=None):
+def timing(torch, kernel, plain, args, n_bytes, flops, library=None, *,
+           flop_per_s=F32_FLOP_PER_S, plain_reps=None):
     """Kernel, plain and library ms of one call on ``args``, and the
-    card's bound for its bytes and operations."""
-    b, by = bound(n_bytes, flops)
+    card's bound for its bytes and operations (at ``flop_per_s``, the
+    peak for the operands' type).  ``plain_reps`` times a slow plain
+    version over that many single calls."""
+    b, by = bound(n_bytes, flops, flop_per_s)
+    plain_kw = dict(reps=plain_reps, batch=1) if plain_reps else {}
     return dict(ms=device_ms(torch, lambda: kernel(*args)),
-                plain_ms=device_ms(torch, lambda: plain(*args)),
+                plain_ms=device_ms(torch, lambda: plain(*args), **plain_kw),
                 library_ms=(device_ms(torch, lambda: library(*args))
                             if library else None),
                 bound_ms=b, bound_by=by)
@@ -442,19 +502,18 @@ def main_path(torch):
     return spec, mat, launches, trace
 
 
-def profile(torch, spec, mat, *, label="profile"):
-    from repro_torch.api import run_experiment
+def profiled(torch, fn) -> dict:
+    """One call of ``fn`` (after a warm call) under torch.profiler: host
+    wall ms ended by a device synchronize, device ms summed over kernels,
+    the device's busy share and the top kernels by device ms."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    iters = 20
-    short = dataclasses.replace(
-        spec, solver=dataclasses.replace(spec.solver, T_GD=iters))
-    run_experiment(short, key=0, materialized=mat)        # warm
+    fn()                                                  # warm
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_experiment(short, key=0, materialized=mat)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -464,10 +523,19 @@ def profile(torch, spec, mat, *, label="profile"):
                                 + ev.time_range.elapsed_us() / 1e3)
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
-    emit("profile", path=label, iterations=iters, wall_ms=wall_ms,
-         device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / wall_ms if wall_ms else None,
-         top_kernels_ms=[[name[:90], ms] for name, ms in top])
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms if wall_ms else None,
+                top_kernels_ms=[[name[:90], ms] for name, ms in top])
+
+
+def profile(torch, spec, mat, *, label="profile"):
+    from repro_torch.api import run_experiment
+
+    iters = 20
+    short = dataclasses.replace(
+        spec, solver=dataclasses.replace(spec.solver, T_GD=iters))
+    emit("profile", path=label, iterations=iters, **profiled(
+        torch, lambda: run_experiment(short, key=0, materialized=mat)))
 
 
 def check_slice_kernels(torch):
@@ -1138,6 +1206,206 @@ def serving_frontier(torch, U):
          clock="host, ended by a device synchronize")
 
 
+def visible_pairs(Sq: int, Skv: int, window) -> int:
+    """(query, key) pairs that the causal mask, aligned at the ends, and
+    the window leave visible: the work the attention must do."""
+    qp = np.arange(Sq) + (Skv - Sq)
+    hi = np.minimum(qp, Skv - 1)
+    lo = np.zeros_like(qp) if window is None else np.maximum(
+        qp - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_lm_kernels(torch):
+    """Phase 14: flash_attention and ssd_scan against their plain
+    versions at f32 and bf16; times at each dtype (the kernels line takes
+    the main path's shape and dtype, bf16)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref, ssd_scan
+
+    errs = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    times = {}
+    peak = {"float32": F32_FLOP_PER_S, "bfloat16": BF16_FLOP_PER_S}
+    for name, B, Sq, Skv, H, Hkv, D, window in FLASH_CASES:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            g = torch.Generator(device="cuda").manual_seed(Sq + D)
+            q, k, v = (torch.randn(shape, generator=g, device="cuda")
+                       .to(dtype) for shape in
+                       ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+
+            def kernel(q, k, v):
+                return flash_attention.flash_attention(q, k, v, causal=True,
+                                                       window=window)
+
+            def plain(q, k, v):
+                return ref.ref_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=True, window=window).transpose(1, 2)
+
+            def library(q, k, v):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True)
+
+            out = kernel(q, k, v)
+            err = max_err(torch, out, plain(q, k, v), FLASH_TOL[dname],
+                          f"flash_attention {name} {dname}")
+            if dname == "float32":
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+            timing_ = None
+            if name in ("qwen3_prefill", "window_512"):
+                timing_ = timing(
+                    torch, kernel, plain, (q, k, v), nbytes(q, k, v, out),
+                    4 * D * B * H * visible_pairs(Sq, Skv, window),
+                    library if window is None and Sq == Skv else None,
+                    flop_per_s=peak[dname])
+                if name == "qwen3_prefill" and dname == "bfloat16":
+                    times["flash_attention"] = timing_
+            emit("lm_kernels", kernel="flash_attention", case=name, B=B,
+                 Sq=Sq, Skv=Skv, H=H, Hkv=Hkv, D=D, window=window,
+                 dtype=dname, max_abs_err=err, timing=timing_)
+            del q, k, v, out
+    for name, B, S, H, P, N, Q in SSD_CASES:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            g = torch.Generator(device="cuda").manual_seed(S + P)
+            x = torch.randn((B, S, H, P), generator=g, device="cuda").to(dtype)
+            # tests/test_kernels.py's draws of dt, A and D
+            dt = F.softplus(torch.randn((B, S, H), generator=g,
+                                        device="cuda")) * 0.1
+            A = -torch.exp(torch.randn((H,), generator=g, device="cuda")
+                           * 0.3)
+            Bm, Cm = (torch.randn((B, S, N), generator=g, device="cuda")
+                      .to(dtype) for _ in range(2))
+            Dv = torch.full((H,), 0.5, device="cuda")
+            args = (x, dt, A, Bm, Cm, Dv)
+
+            def kernel(*a):
+                return ssd_scan.ssd_scan(*a, chunk=Q)
+
+            y, h = kernel(*args)
+            err = pair_err(torch, (y, h), ref.ref_ssd(*args), SSD_TOL[dname],
+                           f"ssd_scan {name} {dname}")
+            if dname == "float32":
+                errs["ssd_scan"] = max(errs["ssd_scan"], err)
+            timing_ = None
+            if name == "mamba2_prefill":
+                # the recurrence's 5 P N flops a token and head: 3 for
+                # the state update, 2 for the readout
+                timing_ = timing(torch, kernel, ref.ref_ssd, args,
+                                 nbytes(*args, y, h), 5 * B * S * H * P * N,
+                                 flop_per_s=peak[dname], plain_reps=3)
+                if dname == "bfloat16":
+                    times["ssd_scan"] = timing_
+            emit("lm_kernels", kernel="ssd_scan", case=name, B=B, S=S, H=H,
+                 P=P, N=N, chunk=Q, dtype=dname, max_abs_err=err,
+                 timing=timing_)
+    return errs, times
+
+
+def _lm_tokens(torch, vocab, shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=g, device="cuda")
+
+
+def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
+    """Phases 15-16: ``arch`` at full width on the card through its LM
+    kernel, against the torch-ref route and against teacher-forced
+    decode at f32, then timed at bf16.  Returns the kernel's launches in
+    the main path's run (one prefill step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import generate_tokens
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import (
+        LanguageModel, count_params, init_params, serving_params)
+
+    cfg = get_config(arch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(params)
+    require(n_params == cfg.n_params(),
+            f"{arch}: {n_params} parameters, want {cfg.n_params()}")
+    B, S = LM_PREFILL
+    toks = _lm_tokens(torch, cfg.vocab_size, (B, S), seed=1)
+
+    # f32: the kernel route (the counted run) against torch-ref
+    model32 = LanguageModel(cfg32, params)
+    prefill32 = make_prefill_step(cfg32)
+    _build.LAUNCHES.clear()
+    last_k = prefill32(model32.params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    require(launches == {kernel: cfg.n_layers},
+            f"{arch}: prefill launches {launches}, want {cfg.n_layers} "
+            f"{kernel}")
+    with ops.backend_scope("torch-ref"):
+        last_r = prefill32(model32.params, {"tokens": toks})
+    e_route = max_err(torch, last_k, last_r, LM_TOL,
+                      f"{arch} f32 prefill: kernel vs torch-ref route")
+
+    # generate: teacher-forced decode logits against the kernel forward
+    Bg, prompt_len, gen = LM_GEN
+    prompt = _lm_tokens(torch, cfg.vocab_size, (Bg, prompt_len), seed=2)
+    _build.LAUNCHES.clear()
+    tokens, stats = generate_tokens(model32, prompt, gen,
+                                    keep_prefill_logits=True)
+    gen_launches = dict(_build.LAUNCHES)
+    require(not gen_launches, f"{arch}: decode launched {gen_launches}")
+    full = model32(prompt)
+    e_decode = max_err(torch, stats.pop("prefill_logits"), full, LM_TOL,
+                       f"{arch} f32: teacher-forced decode vs kernel forward")
+    require(tokens.shape == (Bg, gen) and int(tokens.max()) < cfg.vocab_size,
+            f"{arch}: generated tokens {tuple(tokens.shape)}")
+    del full, model32
+
+    # bf16: linear weights cast once; error against f32, speed, busy share
+    model16 = LanguageModel(cfg, serving_params(params, cfg))
+    del params
+    torch.cuda.empty_cache()
+    prefill16 = make_prefill_step(cfg)
+    last16 = prefill16(model16.params, {"tokens": toks})
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(last16).all()), f"{arch} bf16: non-finite")
+    e_bf16 = float((last16 - last_k).abs().max())
+    reps = 3
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        prefill16(model16.params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t1) / reps
+    generate_tokens(model16, prompt[:, :4], 4)            # warm
+    _, stats16 = generate_tokens(model16, prompt, gen)
+    prof_prefill = profiled(torch, lambda: prefill16(model16.params,
+                                                     {"tokens": toks}))
+    def decode_steps():
+        state = model16.init_cache(Bg, LM_DECODE_PROFILE)
+        for i in range(LM_DECODE_PROFILE):
+            _, state = model16.decode_step(state, prompt[:, i:i + 1])
+    prof_decode = profiled(torch, decode_steps)
+    emit(phase, arch=arch, params=n_params, init_s=init_s,
+         prefill_batch=B, prefill_len=S, launches=launches,
+         f32_kernel_vs_torch_ref_max_abs_err=e_route,
+         f32_decode_vs_forward_max_abs_err=e_decode,
+         generate=dict(batch=Bg, prompt=prompt_len, gen=gen,
+                       first_row=tokens[0].tolist()),
+         bf16_vs_f32_max_abs_err=e_bf16,
+         bf16_prefill_s=prefill_s, bf16_prefill_tok_per_s=B * S / prefill_s,
+         bf16_teacher_forced_prefill_s=stats16["prefill_s"],
+         bf16_decode_ms_per_token=stats16["decode_s"] / gen * 1e3,
+         bf16_decode_tok_per_s=Bg * gen / stats16["decode_s"],
+         profile_prefill=prof_prefill,
+         profile_decode=dict(steps=LM_DECODE_PROFILE, **prof_decode),
+         clock="host, ended by a device synchronize")
+    del model16
+    torch.cuda.empty_cache()
+    return launches[kernel]
+
+
 def main() -> int:
     try:
         import torch
@@ -1183,6 +1451,11 @@ def main() -> int:
     single_errs, single_timing = check_serving_kernels(torch)
     launches_serving = serving_phase(torch, spec, mat, trace)
     serving_frontier(torch, trace.U_nodes[0])
+    lm_errs, lm_timing = check_lm_kernels(torch)
+    lm_launches = {
+        "flash_attention": lm_phase(torch, "qwen3-1.7b", "flash_attention",
+                                    "lm_dense"),
+        "ssd_scan": lm_phase(torch, "mamba2-130m", "ssd_scan", "lm_ssm")}
 
     main_row = rows[("exp1", "float32")]
     kernels = []
@@ -1213,6 +1486,11 @@ def main() -> int:
                         "launches": launches_serving[name],
                         "max_abs_err": single_errs[name],
                         **single_timing[name]})
+    for name in ("flash_attention", "ssd_scan"):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCES[name], "replaces": REPLACES[name],
+                        "launches": lm_launches[name],
+                        "max_abs_err": lm_errs[name], **lm_timing[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

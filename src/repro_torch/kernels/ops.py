@@ -23,8 +23,10 @@ import torch
 
 from repro_torch.kernels import altgdmin_ls as _ls
 from repro_torch.kernels import compress as _cp
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gossip_axpy as _ga
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.utils import env as env_registry
 
 BACKENDS = ("cuda", "torch-ref")
@@ -84,6 +86,35 @@ def _resolve_for(backend, *tensors) -> str:
         raise ValueError("backend 'cuda' needs CUDA tensors; got "
                          f"{sorted({str(t.device) for t in tensors})}")
     return name
+
+
+# ------------------------------------------------------------ attention
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    backend=None):
+    """Model layout: q (B, Sq, H, D); k, v (B, Skv, Hkv, D) →
+    (B, Sq, H, D) in q's dtype.  Causal and window masks are aligned at
+    the ends (query i sits at key position i + Skv − Sq); GQA by head
+    grouping; float32 softmax.  A query row that sees no key is 0."""
+    if _resolve_for(backend, q, k, v) == "torch-ref":
+        o = _ref.ref_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window, scale=scale)
+        return o.transpose(1, 2)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+
+# ------------------------------------------------------------ SSD
+
+def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128, backend=None):
+    """Model layout: x (B, S, H, P); dt (B, S, H); A, D (H,); Bm/Cm
+    (B, S, N) → (y (B, S, H, P) in x's dtype, the D skip term included;
+    h_final (B, H, P, N) float32).  The torch-ref route is the
+    token-by-token recurrence, which has no chunk."""
+    if _resolve_for(backend, x, dt, A, Bm, Cm, D) == "torch-ref":
+        return _ref.ref_ssd(x, dt, A, Bm, Cm, D)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
 
 
 # ------------------------------------------------------------ MTRL LS

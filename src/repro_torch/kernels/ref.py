@@ -11,7 +11,9 @@ U (L, d, r), y (L, tpn, n).  The least-squares functions compute in
 float32 whatever the input dtype, as the kernels do.  The wire-
 compression functions take node blocks M (N, d, r) and keep the
 operand's precision where the kernels take f32 (float64 operands never
-reach those kernels).
+reach those kernels).  The LM kernels' versions, ``ref_attention`` and
+``ref_ssd``, compute in float32 and return the operand's dtype, as the
+kernels do.
 """
 from __future__ import annotations
 
@@ -112,3 +114,55 @@ def ref_dequant(q, scale):
     q · scale per node block, in the scale's dtype.  q (N, d, r);
     scale (N, 1, 1)."""
     return q.to(scale.dtype) * scale
+
+
+# ------------------------------------------------------------ LM kernels
+
+def ref_attention(q, k, v, *, causal=True, window=None, scale=None):
+    """What ``flash_attention`` computes.  q (B, H, Sq, D), k/v
+    (B, Hkv, Skv, D) → (B, H, Sq, D) in q's dtype: GQA by head grouping
+    (query head h reads KV head h // (H / Hkv)), float32 softmax, the
+    causal and window masks aligned at the ends (query i sits at key
+    position i + Skv − Sq).  A query row that sees no key (Sq > Skv, or
+    a window past every key) comes out 0, as from the kernel; the JAX
+    package's ``ref_attention`` gives such a row the mean of V instead.
+    """
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.to(f32).reshape(B, Hkv, G, Sq, D) * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(f32))
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    ki = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= (qi - ki) < window
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1) * mask
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(f32))
+    return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def ref_ssd(x, dt, A, Bm, Cm, D):
+    """What ``ssd_scan`` computes, as the token-by-token SSD recurrence
+    h_t = exp(dt_t·A) h_{t−1} + dt_t · x_t ⊗ B_t, y_t = h_t C_t + D·x_t,
+    in float32.  x (B, S, H, P); dt (B, S, H); A, D (H,); Bm/Cm
+    (B, S, N), one group shared by every head → (y (B, S, H, P) in x's
+    dtype, h_final (B, H, P, N) float32)."""
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf = x.to(f32), dt.to(f32)
+    Bf, Cf = Bm.to(f32), Cm.to(f32)
+    A, D = A.to(f32), D.to(f32)
+    h = torch.zeros((Bb, H, P, N), dtype=f32, device=x.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(dtf[:, t] * A)                              # (B, H)
+        h = (a[..., None, None] * h
+             + (dtf[:, t, :, None] * xf[:, t])[..., None]
+             * Bf[:, t, None, None, :])
+        ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], h))
+    y = torch.stack(ys, dim=1) + xf * D[:, None]
+    return y.to(x.dtype), h

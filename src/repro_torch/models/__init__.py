@@ -1,0 +1,10 @@
+"""The language models of the zoo: port of ``src/repro/models/`` for the
+serving path of the ``scan`` plans (dense GQA and Mamba2 stacks)."""
+from repro_torch.models.transformer import (
+    LanguageModel, count_params, decode_step, forward, init_cache,
+    init_params,
+)
+from repro_torch.models.convert import params_from_jax
+
+__all__ = ["LanguageModel", "count_params", "decode_step", "forward",
+           "init_cache", "init_params", "params_from_jax"]

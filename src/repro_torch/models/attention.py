@@ -1,0 +1,185 @@
+"""Attention mixers: GQA/MQA/MHA (+ RoPE, qk-norm, sliding window), with
+a full-sequence path (prefill) and a KV-cache single-token path (decode).
+
+Port of the GQA half of ``src/repro/models/attention.py``.  The softmax
+core has the JAX package's two plain implementations:
+  * ``attention_core`` — materializes the score matrix (short S);
+  * ``chunked_attention`` — a loop over KV chunks with an online softmax
+    (flash-attention math in plain torch), above ``CHUNK_THRESHOLD``.
+On the ``cuda`` kernel backend, ``gqa_forward`` sends its core through
+``ops.flash_attention`` instead — the hand-written kernel replacing the
+TPU one, which the JAX package holds equal to both cores
+(tests/test_kernels.py::test_flash_matches_model_chunked_attention).
+There every row's positions are ``arange(S)`` (``transformer.
+embed_inputs``), which is what the kernel's index-based causal and
+window masks express.  ``gqa_decode`` keeps the plain core on every
+backend: its query faces a ring buffer with explicit positions and −1
+(empty) slots.
+
+MLA (multi-head latent attention, DeepSeek-V3) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (
+    apply_rope, init_linear, init_rms_norm, linear, rms_norm,
+)
+
+f32 = torch.float32
+NEG_INF = -1e30
+CHUNK_THRESHOLD = 2048      # use the chunked path above this KV length
+
+
+# ======================================================================
+# softmax cores
+# ======================================================================
+
+def _build_mask(q_pos, k_pos, window):
+    """(B, Sq, Skv) bool — causal, optionally sliding-window, k valid."""
+    m = (k_pos[:, None, :] <= q_pos[:, :, None]) & (k_pos[:, None, :] >= 0)
+    if window is not None:
+        m &= (q_pos[:, :, None] - k_pos[:, None, :]) < window
+    return m
+
+
+def attention_core(q, k, v, q_pos, k_pos, *, window=None, scale=None):
+    """Reference core.  q: (B,Sq,H,D), k/v: (B,Skv,Hkv,D);
+    q_pos: (B,Sq) int, k_pos: (B,Skv) int (−1 ⇒ invalid slot)."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = (q.to(f32) * scale).reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(f32))
+    mask = _build_mask(q_pos, k_pos, window)[:, None, None]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(f32))
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, *, window=None, scale=None,
+                      chunk=1024):
+    """Online-softmax attention over KV chunks (flash math).
+
+    Same signature/semantics as :func:`attention_core`; activation memory
+    is O(B·H·Sq·chunk) instead of O(B·H·Sq·Skv).
+    """
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = (q.to(f32) * scale).reshape(B, Sq, Hkv, G, D)
+    o = torch.zeros((B, Hkv, G, Sq, D), dtype=f32, device=q.device)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=f32, device=q.device)
+    for c0 in range(0, Skv, chunk):
+        # a ragged last chunk is the padded chunk's valid part: padded
+        # slots (position −1) contribute exp(−1e30 − m) = 0 there
+        kci = k[:, c0:c0 + chunk].to(f32)
+        vci = v[:, c0:c0 + chunk].to(f32)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kci)
+        mask = _build_mask(q_pos, k_pos[:, c0:c0 + chunk], window)[:, None,
+                                                                    None]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        l = l * alpha + torch.sum(p, dim=-1)
+        o = o * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vci)
+        m = m_new
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_dispatch(q, k, v, q_pos, k_pos, *, window=None, scale=None):
+    if k.shape[1] > CHUNK_THRESHOLD:
+        return chunked_attention(q, k, v, q_pos, k_pos, window=window,
+                                 scale=scale)
+    return attention_core(q, k, v, q_pos, k_pos, window=window, scale=scale)
+
+
+# ======================================================================
+# GQA (covers MHA / MQA / GQA; qk-norm; sliding window)
+# ======================================================================
+
+class KVCache(NamedTuple):
+    k: torch.Tensor           # (B, capacity, Hkv, D)
+    v: torch.Tensor           # (B, capacity, Hkv, D)
+    positions: torch.Tensor   # (B, capacity) int64, −1 ⇒ empty slot
+
+
+def init_gqa(generator, cfg, device, lead=()):
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = getattr(torch, cfg.param_dtype)
+    p = {"wq": init_linear(generator, d, H * Dh, dt, device, cfg.attn_bias,
+                           lead),
+         "wk": init_linear(generator, d, Hkv * Dh, dt, device, cfg.attn_bias,
+                           lead),
+         "wv": init_linear(generator, d, Hkv * Dh, dt, device, cfg.attn_bias,
+                           lead),
+         "wo": init_linear(generator, H * Dh, d, dt, device, cfg.attn_bias,
+                           lead)}
+    if cfg.qk_norm:
+        p["q_norm"] = init_rms_norm(Dh, dt, device, lead)
+        p["k_norm"] = init_rms_norm(Dh, dt, device, lead)
+    return p
+
+
+def _qkv(p, x, cfg, positions):
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = linear(p["wq"], x).reshape(B, S, H, Dh)
+    k = linear(p["wk"], x).reshape(B, S, Hkv, Dh)
+    v = linear(p["wv"], x).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_forward(p, x, cfg, positions):
+    """Full-sequence path (prefill). x: (B,S,d); positions: (B,S), each
+    row ``arange(S)``."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    if ops.resolve_backend(None, x.device) == "cuda":
+        o = ops.flash_attention(q, k, v, causal=True,
+                                window=cfg.sliding_window, backend="cuda")
+    else:
+        o = attention_dispatch(q, k, v, positions, positions,
+                               window=cfg.sliding_window)
+    return linear(p["wo"], o.reshape(x.shape[0], x.shape[1], -1))
+
+
+def gqa_init_cache(cfg, batch, capacity, dtype, device, lead=()):
+    Hkv, Dh = cfg.n_kv_heads, cfg.d_head
+    shape = (*lead, batch, capacity, Hkv, Dh)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        positions=torch.full((*lead, batch, capacity), -1, dtype=torch.long,
+                             device=device))
+
+
+def gqa_decode(p, x, cfg, cache: KVCache, pos: int):
+    """One-token decode. x: (B,1,d); pos: the current position.  The
+    cache is a ring buffer of ``capacity`` slots, written IN PLACE at
+    slot ``pos % capacity`` (the JAX package returns an updated copy);
+    the returned cache is the same object."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+    slot = pos % cache.k.shape[1]
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    cache.positions[:, slot] = pos
+    o = attention_dispatch(q, cache.k, cache.v, positions, cache.positions,
+                           window=cfg.sliding_window)
+    return linear(p["wo"], o.reshape(B, 1, -1)), cache

@@ -429,3 +429,94 @@ def test_segmented_run_on_cuda_is_bit_identical(cuda, tmp_path):
     assert torch.equal(seg.U_nodes, plain.U_nodes)
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         f"step_{s:09d}" for s in (0, 10, 20, 30)]
+
+
+# ------------------------------------------------------------ LM kernels
+
+# flash_attention's (B, Sq, Skv, H, Hkv, D, causal, window): square GQA,
+# MQA, cross lengths with aligned ends, a ragged length, rows that see no
+# key (Sq > Skv), a window, D = 112 (zamba2's head) and causal=False on a
+# ragged key length.  The reference's tolerances: 2e-5 / 2e-2.
+FLASH = [(1, 64, 64, 4, 2, 32, True, None), (2, 32, 32, 4, 1, 16, True, None),
+         (1, 16, 200, 2, 2, 64, True, None), (2, 100, 100, 4, 2, 128, True,
+                                              None),
+         (1, 64, 40, 2, 1, 32, True, None), (1, 150, 150, 2, 2, 32, True, 33),
+         (2, 70, 70, 4, 2, 112, True, None), (1, 40, 40, 2, 2, 32, False,
+                                              None)]
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# ssd_scan's (B, S, H, P, N, chunk), the reference's shapes and a ragged
+# chunk; tolerances 1e-4 / 5e-2
+SSD = [(1, 32, 2, 16, 8, 8), (2, 48, 3, 8, 16, 16), (1, 20, 2, 16, 8, 8),
+       (1, 64, 1, 32, 32, 64), (2, 300, 4, 64, 128, 128)]
+SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal,window", FLASH)
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, D,
+                                              causal, window, dtype):
+    from repro_torch.kernels import _build, flash_attention, ref
+    g = torch.Generator(device="cuda").manual_seed(Sq + Skv)
+    q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
+               for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    before = _build.LAUNCHES["flash_attention"]
+    out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    want = ref.ref_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal,
+                             window=window).transpose(1, 2)
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD)
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
+    from repro_torch.kernels import _build, ref, ssd_scan
+    g = torch.Generator(device="cuda").manual_seed(S + H)
+    x = torch.randn((B, S, H, P), generator=g, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda")) * 0.1
+    A = -torch.exp(torch.randn((H,), generator=g, device="cuda") * 0.3)
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    D = torch.full((H,), 0.5, device="cuda")
+    before = _build.LAUNCHES["ssd_scan"]
+    y, h = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+    assert _build.LAUNCHES["ssd_scan"] == before + 1
+    y_ref, h_ref = ref.ref_ssd(x, dt, A, Bm, Cm, D)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    _close(y, y_ref, SSD_TOL[dtype])
+    _close(h, h_ref, SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-130m"])
+def test_smoke_model_through_the_kernels_matches_torch_ref(cuda, name):
+    """A smoke config's forward on the card through the LM kernel (one
+    launch a layer) against the torch-ref route on the same weights, and
+    generate() end to end; prefill ≡ decode at 2e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import LanguageModel, init_params
+    cfg = get_config(name).smoke()
+    model = LanguageModel(cfg, init_params(cfg, seed=0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    kernel = "ssd_scan" if name.startswith("mamba") else "flash_attention"
+    _build.LAUNCHES.clear()
+    got = model(toks)
+    assert _build.LAUNCHES[kernel] == cfg.n_layers
+    with ops.backend_scope("torch-ref"):
+        want = model(toks)
+    assert _build.LAUNCHES[kernel] == cfg.n_layers
+    _close(got, want, dict(rtol=1e-4, atol=1e-4))
+    _, stats = serve.generate_tokens(model, toks, 4,
+                                     keep_prefill_logits=True)
+    _close(stats["prefill_logits"], got, dict(rtol=2e-3, atol=2e-3))
+    tokens, _ = serve.generate(name, batch=2, prompt_len=8, gen=4)
+    assert tokens.is_cuda and tokens.shape == (2, 4)
