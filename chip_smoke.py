@@ -10,7 +10,11 @@ Phases, each printing one JSON line and raising on failure:
   1. card    — the card's name and power limit (nvidia-smi), torch/CUDA
                versions;
   2. build   — builds every CUDA kernel from ``src/repro_torch/kernels/
-               csrc`` (one nvcc per source, in parallel);
+               csrc`` (one nvcc per source, in parallel); ptxas's register
+               and spill lines; each instantiation of the bf16 flash
+               kernel with its HMMA count from ``cuobjdump -sass`` of the
+               built library (it must run on the tensor cores) and its
+               spill bytes (none allowed at D <= 128);
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs on the card, at the paper's Experiment 1 shape (the
                main path's), the Experiment 2 shape and a ragged shape;
@@ -32,8 +36,11 @@ Phases, each printing one JSON line and raising on failure:
                above), f64 through ops.altgdmin_node_gradient;
                compress_topk and dequant against theirs BIT FOR BIT at
                (20, 600, 4), (100, 100, 10) and (3, 97, 3), tied rows
-               included; times as in phase 3, with torch.mul(q, scale) as
-               dequant's library call;
+               included, and compress_topk on blocks with NaN rows (fewer
+               and more non-NaN rows than k), +inf rows and all rows
+               equal at (20, 600, 4) and (3, 97, 3), k = d/2 and d (NaN
+               compared by its bits); times as in phase 3, with
+               torch.mul(q, scale) as dequant's library call;
   7. path A — the same preset sample-split into two folds (n_folds=2),
                T_GD=500, cuda: launches node_task_gram 501,
                node_task_grad_tiles 500, mix_rows 500, node_fused_iter 0;
@@ -118,6 +125,8 @@ Phases, each printing one JSON line and raising on failure:
                and h_final; times as in phase 3 at both dtypes, with
                scaled_dot_product_attention (is_causal, enable_gqa) as
                flash's library call, timed only (ssd_scan has none);
+               flash's worst error at bf16 (the tensor-core kernel)
+               beside f32's;
  15. lm_dense — qwen3-1.7b at full width, weights drawn on the card from
                a seed: make_prefill_step on B 4 × S 2048 at f32 through
                the kernel, with the launch counts set to 0 just before
@@ -127,22 +136,29 @@ Phases, each printing one JSON line and raising on failure:
                tolerance); generate_tokens with B 4, prompt 128, gen 32,
                whose teacher-forced decode logits at every prompt
                position are within 2e-3 of the kernel-route forward;
-               then at bf16 (linear weights cast once): the error
-               against f32, prefill tokens/s, decode ms a token, and the
-               device's busy share over a profiled prefill step and 16
-               decode steps;
+               then at bf16 (linear weights cast once): the last-position
+               logits through the kernel against the bf16 torch-ref
+               route (relative L2 within LM_BF16_REL_L2, which must
+               reject the planted faults of LM_BF16_CAUGHT; each fault's
+               reading is printed), the error against f32, prefill
+               tokens/s, decode ms a token, and the device's busy share
+               over a profiled prefill step and 16 decode steps;
  16. lm_ssm  — the same for mamba2-130m: 24 ssd_scan launches a forward,
                decode through the O(1) step ≡ prefill.
 
-Then the kernels line (each kernel's launches from its own path's run),
-the card line, and the result line.  Exits non-
+Then the kernels line (each kernel's launches from its own path's run;
+flash's row is its bf16 tensor-core kernel, ``dtype`` bfloat16, with the
+f32 CUDA-core kernel's error as ``max_abs_err_f32_kernel``), the card
+line, and the result line.  Exits non-
 zero, printing no result, without a CUDA device or outside the repo.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -202,6 +218,9 @@ GRAD_SHAPES = {"exp1_fold": (20, 30, 15, 600, 4), "exp2": SHAPES["exp2"],
                "ragged": SHAPES["ragged"]}
 TOPK_SHAPES = {"exp1": (20, 600, 4, 150), "exp2": (100, 100, 10, 25),
                "ragged_k1": (3, 97, 3, 1), "ragged_kd": (3, 97, 3, 97)}
+# compress_topk's blocks with NaN, +inf and all-equal norms, at the
+# dif_topk path's shape and the ragged one
+TOPK_SPECIAL_SHAPES = ("exp1", "ragged_k1")
 
 
 # gossip_combine's (name, n, K, dtype, weights): the mesh round at
@@ -276,6 +295,15 @@ SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 LM_PREFILL = (4, 2048)
 LM_GEN = (4, 128, 32)
 LM_TOL = dict(rtol=2e-3, atol=2e-3)
+# qwen3-1.7b's bf16 last-position logits through the flash kernel
+# against the bf16 torch-ref route, as a relative L2 error (scale-free).
+# On the H100 the route reads 0.016 and the faults planted by
+# flash_fault_readings 0.29 (one key ahead) to 1.40 (KV heads reversed):
+# the limit, 3x the route and a sixth of the nearest fault, lies between,
+# and every run checks that it still rejects each planted fault.
+LM_BF16_REL_L2 = 0.05
+LM_BF16_CAUGHT = ("diagonal_hidden", "one_key_ahead", "kv_heads_reversed",
+                  "scale_without_log2e")
 LM_DECODE_PROFILE = 16
 
 
@@ -597,6 +625,8 @@ def check_slice_kernels(torch):
                 times["compress_topk"] = timing(
                     torch, compress.compress_topk, ref.ref_compress_topk,
                     (M, k), nbytes(M, vals, idx), 2 * N * d * r + N * d)
+        if sname in TOPK_SPECIAL_SHAPES:
+            check_topk_special(torch, compress, ref, sname, N, d, r)
         for dname in ("float32", "bfloat16"):
             g = torch.Generator(device="cuda").manual_seed(N)
             q = torch.randint(-127, 128, (N, d, r), generator=g,
@@ -617,6 +647,29 @@ def check_slice_kernels(torch):
                     nbytes(q, scale, out), q.numel(), library=torch.mul)
     emit("slice_kernels", timing=times)
     return errs, times
+
+
+def check_topk_special(torch, compress, ref, sname, N, d, r):
+    """compress_topk on NaN, inf, all-equal and tied blocks
+    (``ref.topk_special_block``) at k = d/2 and d, f32 and bf16, against
+    its plain version bit for bit (NaN rows compared by their bits): NaN
+    above every number, ties in index order, no row past d."""
+    g = torch.Generator(device="cuda").manual_seed(d)
+    base = torch.randn((N, d, r), generator=g, device="cuda")
+    for kind in ref.TOPK_SPECIAL_KINDS:
+        for dname in ("float32", "bfloat16"):
+            M = ref.topk_special_block(base, kind).to(getattr(torch, dname))
+            bits = torch.int32 if dname == "float32" else torch.int16
+            for k in (d // 2, d):
+                vals, idx = compress.compress_topk(M, k)
+                v_ref, i_ref = ref.ref_compress_topk(M, k)
+                torch.cuda.synchronize()
+                require(torch.equal(idx, i_ref)
+                        and torch.equal(vals.view(bits), v_ref.view(bits)),
+                        f"compress_topk {sname} {kind} {dname} k={k} "
+                        f"differs from its plain version")
+            emit("slice_kernels", kernel="compress_topk", shape=sname,
+                 block=kind, dtype=dname, k=[d // 2, d], bitwise_equal=True)
 
 
 def run_path(torch, spec, mat, want, *, name):
@@ -1216,6 +1269,44 @@ def visible_pairs(Sq: int, Skv: int, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+MMA_KERNEL = re.compile(r"flash_mma_kernelILi(\d+)E")
+
+
+def flash_mma_report(_build, lib) -> list[dict]:
+    """Each instantiation of the bf16 flash kernel (DMAX 64, 128, 256): its
+    HMMA instructions in the built library's SASS (cuobjdump), its
+    registers and spill bytes (ptxas -v).  Fails unless every one runs
+    on the tensor cores and none at D <= 128 spills."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    rows, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = MMA_KERNEL.search(line)
+            key = int(m[1]) if m else None
+            if key:
+                rows[key] = {"dmax": key, "hmma": 0}
+        elif key and "HMMA" in line:
+            rows[key]["hmma"] += 1
+    for line in _build.build_log("flash_attention").splitlines():
+        if "Compiling entry function" in line:
+            m = MMA_KERNEL.search(line)
+            key = int(m[1]) if m else None
+        elif key in rows and "spill stores" in line:
+            n = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            rows[key]["spill_bytes"] = n[1] + n[2]
+        elif key in rows and "Used" in line and "registers" in line:
+            rows[key]["registers"] = int(line.split("Used")[1].split()[0])
+    out = [rows[key] for key in sorted(rows)]
+    require(len(out) == 3 and all(r["hmma"] > 0 for r in out),
+            f"flash_mma_kernel: want 3 instantiations on the tensor cores, "
+            f"got {out}")
+    require(all(r.get("spill_bytes") == 0 for r in out if r["dmax"] <= 128),
+            f"flash_mma_kernel spills at D <= 128: {out}")
+    return out
+
+
 def check_lm_kernels(torch):
     """Phase 14: flash_attention and ssd_scan against their plain
     versions at f32 and bf16; times at each dtype (the kernels line takes
@@ -1223,7 +1314,8 @@ def check_lm_kernels(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref, ssd_scan
 
-    errs = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    errs = {"flash_attention": 0.0, "flash_attention_bf16": 0.0,
+            "ssd_scan": 0.0}
     times = {}
     peak = {"float32": F32_FLOP_PER_S, "bfloat16": BF16_FLOP_PER_S}
     for name, B, Sq, Skv, H, Hkv, D, window in FLASH_CASES:
@@ -1251,8 +1343,9 @@ def check_lm_kernels(torch):
             out = kernel(q, k, v)
             err = max_err(torch, out, plain(q, k, v), FLASH_TOL[dname],
                           f"flash_attention {name} {dname}")
-            if dname == "float32":
-                errs["flash_attention"] = max(errs["flash_attention"], err)
+            key = ("flash_attention" if dname == "float32"
+                   else "flash_attention_bf16")
+            errs[key] = max(errs[key], err)
             timing_ = None
             if name in ("qwen3_prefill", "window_512"):
                 timing_ = timing(
@@ -1302,6 +1395,63 @@ def check_lm_kernels(torch):
                  P=P, N=N, chunk=Q, dtype=dname, max_abs_err=err,
                  timing=timing_)
     return errs, times
+
+
+def rel_l2(torch, got, want) -> float:
+    """||got - want||_2 / ||want||_2 in float64 (NaN if either is not
+    finite)."""
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def flash_fault_readings(torch, step, want) -> dict:
+    """Faults planted in the bf16 flash route by a change of the kernel's
+    inputs, each swapped in for the wrapper that ``ops`` calls: the
+    diagonal key hidden (kp < qp: Skv one short, so query i sits at key
+    i - 1), one key ahead visible (kp <= qp + 1: a zero key appended),
+    the KV heads reversed (a wrong GQA map), and scores scaled without
+    the log2 e fold (x ln 2).  For each: whether lm_kernels' check
+    (FLASH_TOL at bf16, against ref_attention at qwen3's prefill shape)
+    fails on it, its worst error there, and the relative L2 error of
+    ``step()``'s last-position logits against ``want``."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    real = fa.flash_attention
+
+    def append_zero_key(t):
+        return torch.cat([t, t.new_zeros(t[:, :1].shape)], 1)
+
+    faults = {
+        "diagonal_hidden": lambda q, k, v, **kw: real(
+            q, k[:, :-1], v[:, :-1], **kw),
+        "one_key_ahead": lambda q, k, v, **kw: real(
+            q, append_zero_key(k), append_zero_key(v), **kw),
+        "kv_heads_reversed": lambda q, k, v, **kw: real(
+            q, k.flip(2), v.flip(2), **kw),
+        "scale_without_log2e": lambda q, k, v, **kw: real(
+            q, k, v, **{**kw, "scale": q.shape[-1] ** -0.5 * math.log(2)}),
+    }
+    _, B, Sq, Skv, H, Hkv, D, _ = FLASH_CASES[0]
+    g = torch.Generator(device="cuda").manual_seed(Sq + D)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               .to(torch.bfloat16) for shape in
+               ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    plain = ref.ref_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2)).transpose(1, 2).double()
+    tol = FLASH_TOL["bfloat16"]
+    out = {}
+    try:
+        for name, fault in faults.items():
+            err = (fault(q, k, v, causal=True).double() - plain).abs()
+            fa.flash_attention = fault
+            out[name] = dict(
+                kernel_check_fails=bool(
+                    (err > tol["atol"] + tol["rtol"] * plain.abs()).any()),
+                kernel_max_abs_err=float(err.max()),
+                logits_rel_l2=rel_l2(torch, step(), want))
+    finally:
+        fa.flash_attention = real
+    return out
 
 
 def _lm_tokens(torch, vocab, shape, seed):
@@ -1372,6 +1522,28 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
     torch.cuda.synchronize()
     require(bool(torch.isfinite(last16).all()), f"{arch} bf16: non-finite")
     e_bf16 = float((last16 - last_k).abs().max())
+    bf16_route = None
+    if kernel == "flash_attention":
+        # the bf16 route through the tensor-core kernel against the bf16
+        # torch-ref route: both round every activation to bf16 and part
+        # only inside attention (the kernel rounds P to bf16)
+        with ops.backend_scope("torch-ref"):
+            last16_ref = prefill16(model16.params, {"tokens": toks})
+        bf16_route = dict(
+            rel_l2=rel_l2(torch, last16, last16_ref),
+            max_abs_err=float((last16 - last16_ref).abs().max()),
+            faults=flash_fault_readings(
+                torch, lambda: prefill16(model16.params, {"tokens": toks}),
+                last16_ref))
+        require(bf16_route["rel_l2"] <= LM_BF16_REL_L2,
+                f"{arch} bf16 prefill: kernel vs torch-ref route "
+                f"{bf16_route} above {LM_BF16_REL_L2}")
+        blind = [f for f in LM_BF16_CAUGHT
+                 if not bf16_route["faults"][f]["logits_rel_l2"]
+                 > LM_BF16_REL_L2]
+        require(not blind, f"{arch} bf16: the route check misses the "
+                           f"planted faults {blind}: {bf16_route}")
+        del last16_ref
     reps = 3
     t1 = time.perf_counter()
     for _ in range(reps):
@@ -1394,6 +1566,7 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
          generate=dict(batch=Bg, prompt=prompt_len, gen=gen,
                        first_row=tokens[0].tolist()),
          bf16_vs_f32_max_abs_err=e_bf16,
+         bf16_kernel_vs_torch_ref=bf16_route,
          bf16_prefill_s=prefill_s, bf16_prefill_tok_per_s=B * S / prefill_s,
          bf16_teacher_forced_prefill_s=stats16["prefill_s"],
          bf16_decode_ms_per_token=stats16["decode_s"] / gen * 1e3,
@@ -1433,11 +1606,12 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build()
+    paths = _build.build()
     ptxas = [line.strip() for name in _build.SOURCES
              for line in _build.build_log(name).splitlines()
              if "registers" in line or "spill" in line]
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
+         flash_mma_kernel=flash_mma_report(_build, paths["flash_attention"]))
 
     rows = check_kernels(torch)
     spec, mat, launches, trace = main_path(torch)
@@ -1486,11 +1660,23 @@ def main() -> int:
                         "launches": launches_serving[name],
                         "max_abs_err": single_errs[name],
                         **single_timing[name]})
-    for name in ("flash_attention", "ssd_scan"):
-        kernels.append({"name": name, "route": "cuda",
-                        "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": lm_launches[name],
-                        "max_abs_err": lm_errs[name], **lm_timing[name]})
+    # flash's row is its bf16 tensor-core kernel, the main path's (times,
+    # bound, error); the f32 CUDA-core kernel is another __global__
+    # function, whose error rides beside it
+    kernels.append({"name": "flash_attention", "route": "cuda",
+                    "source": SOURCES["flash_attention"],
+                    "replaces": REPLACES["flash_attention"],
+                    "launches": lm_launches["flash_attention"],
+                    "dtype": "bfloat16",
+                    "max_abs_err": lm_errs["flash_attention_bf16"],
+                    "max_abs_err_f32_kernel": lm_errs["flash_attention"],
+                    **lm_timing["flash_attention"]})
+    kernels.append({"name": "ssd_scan", "route": "cuda",
+                    "source": SOURCES["ssd_scan"],
+                    "replaces": REPLACES["ssd_scan"],
+                    "launches": lm_launches["ssd_scan"],
+                    "max_abs_err": lm_errs["ssd_scan"],
+                    **lm_timing["ssd_scan"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

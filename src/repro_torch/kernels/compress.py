@@ -2,9 +2,12 @@
 
 * :func:`compress_topk` replaces ``compress_topk`` of
   ``src/repro/kernels/compress.py`` (``_topk_kernel``): per node block,
-  the k rows of largest squared row norm, descending, ties to the lowest
-  index — the encode of the ``topk_gossip`` rule.  It equals its plain
-  version :func:`repro_torch.kernels.ref.ref_compress_topk` bit for bit.
+  the k rows of largest squared row norm, descending, NaN above every
+  number, ties to the lowest index — the encode of the ``topk_gossip``
+  rule.  The kernel is a one-pass rank select (each row counts the rows
+  that rank above it); it equals its plain version
+  :func:`repro_torch.kernels.ref.ref_compress_topk` bit for bit, NaN
+  and inf rows included.
 * :func:`dequant` replaces ``dequant`` (``_dequant_kernel``): the int8
   wire payload decoded as q · scale per node block — the decode of the
   ``quantized_gossip`` rule's int8 wires; it equals
@@ -51,8 +54,9 @@ def _stream(device):
 
 def compress_topk(M, k: int):
     """M (N, d, r) float32 or bfloat16 on the card → (vals (N, k, r) in
-    M's dtype, descending row-norm order; idx (N, k) int32), ties to
-    the lowest index.  Needs 1 ≤ k ≤ d ≤ :data:`D_MAX`."""
+    M's dtype, descending row-norm order, a NaN norm above every
+    number; idx (N, k) int32), ties to the lowest index.  Needs
+    1 ≤ k ≤ d ≤ :data:`D_MAX`."""
     _on_card(M=M)
     if M.ndim != 3:
         raise ValueError(f"compress_topk wants node-batched (N, d, r) "

@@ -1,4 +1,4 @@
-"""CUDA wrapper of the flash-attention kernel
+"""CUDA wrapper of the flash-attention kernels
 (``csrc/flash_attention.cu``).
 
 :func:`flash_attention` replaces ``flash_attention`` of
@@ -7,10 +7,12 @@ softmax attention, causal and/or sliding-window masks aligned at the
 ends of the query and key sequences, GQA head grouping, float32 softmax
 and accumulation, the output in q's dtype.  It takes the model layout
 (q (B, Sq, H, D), k/v (B, Skv, Hkv, D)) as it is: no transpose and no
-padded copy, the kernel masks ragged tiles itself.  The plain version is
-:func:`repro_torch.kernels.ref.ref_attention` (in the (B, H, S, D)
-layout), which agrees with the kernel everywhere, rows that see no key
-included (both give 0).
+padded copy, the kernel masks ragged tiles itself.  bfloat16 runs on the
+tensor cores (``mma.sync``), with P rounded to bfloat16 before the P V
+product; float32 runs on the CUDA cores.  Both take 64 query rows a
+block.  The plain version is :func:`repro_torch.kernels.ref.ref_attention`
+(in the (B, H, S, D) layout), which agrees with the kernel everywhere,
+rows that see no key included (both give 0).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels import _build
 
 D_MAX = 256                 # 217 KB of shared memory a block at D = 256
+_BLOCK_Q = 64               # query rows a block (the q-tile of both kernels)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -60,7 +63,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
                          f"{tuple(k.shape)}")
     if D > D_MAX:
         raise ValueError(f"head dim D={D} exceeds the kernel's D_MAX={D_MAX}")
-    if max(H, B) > 65535 or Sq > 2**30 or max(Sq, Skv) * H * D >= 2**62:
+    if (max(H, B) > 65535 or Sq > 2**30 or max(Sq, Skv) * H * D >= 2**62
+            or -(-Sq // _BLOCK_Q) * H * B >= 2**31):
         raise ValueError(f"q {tuple(q.shape)} exceeds one launch grid")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")

@@ -97,8 +97,9 @@ def ref_compress_topk(M, k: int):
     The norms are summed over r in column order, in float32 for float32
     and bfloat16 blocks and in float64 for float64 ones, so the kernel
     matches this bit for bit; the stable sort keeps equal norms in index
-    order.  M (N, d, r) → (vals (N, k, r) in M's dtype, idx (N, k)
-    int32)."""
+    order and puts a NaN norm above every number, as ``lax.top_k`` does
+    in the JAX package's version.  M (N, d, r) → (vals (N, k, r) in
+    M's dtype, idx (N, k) int32)."""
     Mf = M.to(torch.promote_types(M.dtype, f32))
     s = Mf[..., 0] * Mf[..., 0]
     for c in range(1, M.shape[-1]):
@@ -107,6 +108,36 @@ def ref_compress_topk(M, k: int):
     idx = order[:, :k]
     vals = torch.gather(M, 1, idx[..., None].expand(-1, -1, M.shape[2]))
     return vals, idx.to(torch.int32)
+
+
+TOPK_SPECIAL_KINDS = ("nan_few", "nan_many", "inf", "equal", "ties")
+
+
+def topk_special_block(M, kind: str):
+    """A copy of the (N, d, r) float block M whose row norms test the
+    order of :func:`ref_compress_topk`: NaN rows every third
+    (``nan_few``: fewer non-NaN rows than k = d/2) or every seventh row
+    (``nan_many``: more), +inf and NaN rows among ties (``inf``), every
+    row equal (``equal``), every third row a copy of row 0 (``ties``)."""
+    M, r = M.clone(), M.shape[-1]
+    if kind == "nan_few":
+        M[:, ::3, 0] = float("nan")
+        M[:, 1::3, r - 1] = float("nan")
+    elif kind == "nan_many":
+        M[:, ::7, r - 1] = float("nan")
+    elif kind == "inf":
+        M[:, ::5, 0] = float("inf")
+        M[:, 3::5, r - 1] = -float("inf")
+        M[:, 2::11, 0] = float("nan")
+        M[:, 1::4] = M[:, 1:2]
+    elif kind == "equal":
+        M[:] = M[:, :1]
+    elif kind == "ties":
+        M[:, 1::3] = M[:, :1]
+    else:
+        raise ValueError(f"kind must be one of {TOPK_SPECIAL_KINDS}, "
+                         f"got {kind!r}")
+    return M
 
 
 def ref_dequant(q, scale):

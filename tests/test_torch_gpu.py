@@ -175,6 +175,31 @@ def test_compress_topk_kernel_equals_plain(cuda, N, d, r, k, dtype):
     assert torch.equal(vals, v_ref)
 
 
+def _bits(t):
+    """A float tensor's bit patterns, so that NaN compares equal."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["nan_few", "nan_many", "inf", "equal",
+                                  "ties"])
+@pytest.mark.parametrize("N,d,r", [(20, 600, 4), (3, 97, 3)])
+def test_compress_topk_nan_inf_and_ties_equal_plain(cuda, N, d, r, kind,
+                                                    dtype):
+    """NaN above every number, +inf next, ties in index order, and never
+    a row past d: the kernel's order is the plain version's, bit for bit,
+    at k = d/2 and k = d."""
+    from repro_torch.kernels import compress, ref
+    g = torch.Generator(device="cuda").manual_seed(d)
+    M = ref.topk_special_block(
+        torch.randn((N, d, r), generator=g, device="cuda"), kind).to(dtype)
+    for k in (d // 2, d):
+        vals, idx = compress.compress_topk(M, k)
+        v_ref, i_ref = ref.ref_compress_topk(M, k)
+        assert torch.equal(idx, i_ref)
+        assert torch.equal(_bits(vals), _bits(v_ref))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,d,r", [(20, 600, 4), (100, 100, 10), (3, 97, 3)])
 def test_dequant_kernel_equals_plain(cuda, N, d, r, dtype):
@@ -436,13 +461,23 @@ def test_segmented_run_on_cuda_is_bit_identical(cuda, tmp_path):
 # flash_attention's (B, Sq, Skv, H, Hkv, D, causal, window): square GQA,
 # MQA, cross lengths with aligned ends, a ragged length, rows that see no
 # key (Sq > Skv), a window, D = 112 (zamba2's head) and causal=False on a
-# ragged key length.  The reference's tolerances: 2e-5 / 2e-2.
+# ragged key length; then the tiling's edges: one query and a q-tile
+# plus one against three key tiles, D = 64, 256 and 40 (not a multiple
+# of 16), a window smaller than a tile, causal=False over 200 keys and
+# Sq > Skv across several q-tiles.  The reference's tolerances: 2e-5 /
+# 2e-2.
 FLASH = [(1, 64, 64, 4, 2, 32, True, None), (2, 32, 32, 4, 1, 16, True, None),
          (1, 16, 200, 2, 2, 64, True, None), (2, 100, 100, 4, 2, 128, True,
                                               None),
          (1, 64, 40, 2, 1, 32, True, None), (1, 150, 150, 2, 2, 32, True, 33),
          (2, 70, 70, 4, 2, 112, True, None), (1, 40, 40, 2, 2, 32, False,
-                                              None)]
+                                              None),
+         (2, 1, 129, 4, 2, 64, True, None), (1, 65, 129, 4, 2, 64, True, None),
+         (1, 300, 300, 2, 1, 64, True, None),
+         (1, 130, 130, 2, 2, 256, True, None),
+         (2, 70, 70, 2, 2, 40, True, None), (1, 150, 150, 2, 2, 64, True, 7),
+         (1, 100, 200, 4, 2, 64, False, None),
+         (1, 300, 90, 2, 1, 64, True, None)]
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 # ssd_scan's (B, S, H, P, N, chunk), the reference's shapes and a ragged
@@ -470,6 +505,28 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, D,
                              window=window).transpose(1, 2)
     assert out.dtype == dtype and out.shape == q.shape
     _close(out, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_unaligned_rows_and_bases(cuda, dtype):
+    """Rows of D = 20 (40 bytes in bf16) and bases 2 bytes past an
+    allocation: the kernel copies element by element there, with the
+    same result."""
+    from repro_torch.kernels import flash_attention, ref
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def unaligned(shape):
+        buf = torch.randn(int(np.prod(shape)) + 1, generator=g,
+                          device="cuda").to(dtype)
+        return buf[1:].view(shape)
+
+    for D in (20, 64):
+        q = unaligned((2, 80, 4, D))
+        k, v = unaligned((2, 80, 2, D)), unaligned((2, 80, 2, D))
+        out = flash_attention.flash_attention(q, k, v, causal=True)
+        want = ref.ref_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2)).transpose(1, 2)
+        _close(out, want, FLASH_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
