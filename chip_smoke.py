@@ -14,18 +14,30 @@ Phases, each printing one JSON line and raising on failure:
                and spill lines; each instantiation of the bf16 flash
                kernel with its HMMA count from ``cuobjdump -sass`` of the
                built library (it must run on the tensor cores) and its
-               spill bytes (none allowed at D <= 128);
+               spill bytes (none allowed at D <= 128); likewise the bf16
+               ssd_scan passes (HMMA in all 12 instantiations of the two
+               product passes, no spill in any of the 14 kernels); the
+               resident node_fused_iter kernel's registers and spills at
+               each dtype and rank capacity (none allowed at capacity 4,
+               the main path's);
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs on the card, at the paper's Experiment 1 shape (the
-               main path's), the Experiment 2 shape and a ragged shape;
+               main path's), the Experiment 2 shape, a ragged shape and
+               tasks past the shared-memory budget of the resident
+               node_fused_iter kernel (which run its two-pass kernel:
+               each call's kernel as the C entry reports it, in
+               ``_build.KERNEL_LAUNCHES``);
                f32 and bf16 inputs, plus f64 through the engine op; the
                reference tolerances (rtol = atol = 1e-4 at f32, 5e-2 at
                bf16); kernel, plain and library times (median of CUDA-
-               event-timed launch batches) beside the card's bound;
+               event-timed launch batches) beside the card's bound, and
+               node_fused_iter's time with one and with two CTAs a task
+               forced at each shape and dtype, beside the kernel's pick;
   4. main    — ``run_experiment`` on the EXPERIMENT1 preset (T_con=10,
                L=20, d=T=600, r=4, n=30, ER p=0.5 Metropolis, T_pm=30,
                T_GD=500) at float32 on the cuda backend, with the launch
-               counts set to 0 just before and read just after; then the
+               counts set to 0 just before and read just after (every
+               node_fused_iter launch the resident kernel); then the
                same spec and key on the torch-ref backend on the card,
                whose sd_max trace must agree (rtol 1e-4, atol 1e-5);
   5. profile — torch.profiler over 20 outer iterations: device time by
@@ -125,8 +137,8 @@ Phases, each printing one JSON line and raising on failure:
                and h_final; times as in phase 3 at both dtypes, with
                scaled_dot_product_attention (is_causal, enable_gqa) as
                flash's library call, timed only (ssd_scan has none);
-               flash's worst error at bf16 (the tensor-core kernel)
-               beside f32's;
+               each kernel's worst error at bf16 (the tensor-core
+               kernels) beside f32's (the CUDA-core ones);
  15. lm_dense — qwen3-1.7b at full width, weights drawn on the card from
                a seed: make_prefill_step on B 4 × S 2048 at f32 through
                the kernel, with the launch counts set to 0 just before
@@ -144,11 +156,18 @@ Phases, each printing one JSON line and raising on failure:
                tokens/s, decode ms a token, and the device's busy share
                over a profiled prefill step and 16 decode steps;
  16. lm_ssm  — the same for mamba2-130m: 24 ssd_scan launches a forward,
-               decode through the O(1) step ≡ prefill.
+               decode through the O(1) step ≡ prefill; the bf16 prefill
+               step's CUDA launches by kernel (``KERNEL_LAUNCHES``: the
+               three tensor-core passes 24 times each); its bf16 route
+               check against LM_SSM_BF16_REL_L2 with the faults of
+               LM_SSM_BF16_CAUGHT planted through ssd_scan's inputs.
 
 Then the kernels line (each kernel's launches from its own path's run;
-flash's row is its bf16 tensor-core kernel, ``dtype`` bfloat16, with the
-f32 CUDA-core kernel's error as ``max_abs_err_f32_kernel``), the card
+flash's and ssd_scan's rows are their bf16 tensor-core kernels,
+``dtype`` bfloat16, with the f32 CUDA-core kernel's error as
+``max_abs_err_f32_kernel``; ssd_scan's also carries the CUDA launches a
+call of the bf16 prefill step, counted by kernel, and the f32 kernel's
+ms; node_fused_iter's its times at one and two CTAs a task), the card
 line, and the result line.  Exits non-
 zero, printing no result, without a CUDA device or outside the repo.
 """
@@ -182,9 +201,12 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "float64": dict(rtol=1e-4, atol=1e-4)}     # the kernels compute in f32
 
 # (L, tpn, n, d, r): Experiment 1 (the main path's shape), Experiment 2,
-# and a ragged shape (d not a multiple of 32, r odd).
+# a ragged shape (d not a multiple of 32, r odd), and tasks past the
+# shared-memory budget of the resident node_fused_iter kernel at both
+# dtypes (half of X_t's 400 x 600 columns: 486 KB in f32, 243 KB in bf16,
+# above a CTA's 227 KB), which run the two-pass kernel.
 SHAPES = {"exp1": (20, 30, 30, 600, 4), "exp2": (100, 1, 50, 100, 10),
-          "ragged": (3, 5, 20, 97, 3)}
+          "ragged": (3, 5, 20, 97, 3), "past_budget": (2, 2, 400, 600, 4)}
 
 SOURCES = {"node_fused_iter": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
            "node_task_gram": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
@@ -304,6 +326,21 @@ LM_TOL = dict(rtol=2e-3, atol=2e-3)
 LM_BF16_REL_L2 = 0.05
 LM_BF16_CAUGHT = ("diagonal_hidden", "one_key_ahead", "kv_heads_reversed",
                   "scale_without_log2e")
+# mamba2-130m's, through the three-pass ssd_scan kernels, likewise.  On
+# the H100 the route reads 0.032 and the faults planted by
+# ssd_fault_readings 0.62 (A halved) to 1.39 (heads reversed): the limit,
+# 3x the route and a sixth of the nearest fault, lies between, and every
+# run checks that it still rejects each planted fault.
+LM_SSM_BF16_REL_L2 = 0.10
+LM_SSM_BF16_CAUGHT = ("bc_one_token_ahead", "a_halved", "d_dropped",
+                      "heads_reversed")
+LM_BF16_ROUTE = {"flash_attention": (LM_BF16_REL_L2, LM_BF16_CAUGHT),
+                 "ssd_scan": (LM_SSM_BF16_REL_L2, LM_SSM_BF16_CAUGHT)}
+# The __global__ functions a bf16 call of each LM kernel launches, as its
+# C entry reports them (flash's reports none: one kernel a call)
+LM_BF16_KERNELS = {"flash_attention": (),
+                   "ssd_scan": ("chunk_state_kernel", "state_pass_kernel",
+                                "chunk_out_kernel")}
 LM_DECODE_PROFILE = 16
 
 
@@ -387,7 +424,7 @@ def instance(torch, shape, dtype, seed):
 
 def check_kernels(torch):
     from repro_torch.distributed import graphs, mixing
-    from repro_torch.kernels import altgdmin_ls, gossip_axpy, ops, ref
+    from repro_torch.kernels import _build, altgdmin_ls, gossip_axpy, ops, ref
 
     rows = {}
     for sname, shape in SHAPES.items():
@@ -397,7 +434,9 @@ def check_kernels(torch):
             X, U, y = instance(torch, shape, dtype, seed=len(rows))
             tol = TOL[dname]
             what = f"{sname} {dname}"
+            _build.KERNEL_LAUNCHES.clear()
             B, tiles = altgdmin_ls.node_fused_iter(X, U, y)
+            fused_kernel = dict(_build.KERNEL_LAUNCHES)
             e_fused = pair_err(torch, (B, tiles), ref.ref_fused_iter(X, U, y),
                                tol, f"node_fused_iter {what}")
             G, c = altgdmin_ls.node_task_gram(X, U, y)
@@ -414,12 +453,25 @@ def check_kernels(torch):
             e_mix = max_err(torch, out, ref.ref_mix_rows(Wp, Z), tol,
                             f"mix_rows {what}")
             check = {"shape": sname, "dtype": dname,
+                     "fused_iter_kernel": fused_kernel,
                      "max_abs_err": {"node_fused_iter": e_fused,
                                      "node_task_gram": e_gram,
                                      "mix_rows": e_mix}}
             if dname == "float32":
                 check["timing"] = timings(torch, X, U, y, Wp, Z, B, tiles,
                                           G, c, out)
+            if sname != "past_budget":
+                # the resident kernel with its CTAs a task forced, beside
+                # the pick the kernel makes (fused_ms_by_ctas[pick] is
+                # the kernel's time)
+                check["fused_ms_by_ctas"] = {
+                    c: device_ms(torch, lambda: altgdmin_ls.node_fused_iter(
+                        X, U, y, ctas_per_task=c)) for c in (1, 2)}
+            want_kernel = ("fused_iter_kernel" if sname == "past_budget"
+                           else "fused_resident_kernel")
+            require(fused_kernel == {want_kernel: 1},
+                    f"node_fused_iter {what}: launched {fused_kernel}, "
+                    f"want {want_kernel}")
             rows[(sname, dname)] = check
             emit("kernels", **check)
         # float64 through the engine op: converted to f32 for the kernel,
@@ -483,6 +535,7 @@ def main_path(torch):
     T_GD, (L, tpn, n, d, r) = cfg.T_GD, SHAPES["exp1"]
 
     _build.LAUNCHES.clear()
+    _build.KERNEL_LAUNCHES.clear()
     t0 = time.perf_counter()
     mat = materialize(spec, key=0, device="cuda")
     torch.cuda.synchronize()
@@ -491,10 +544,14 @@ def main_path(torch):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(_build.LAUNCHES)
+    kernel_launches = dict(_build.KERNEL_LAUNCHES)
 
     want = {"node_fused_iter": T_GD, "mix_rows": T_GD, "node_task_gram": 1}
     require(all(launches.get(k, 0) == v for k, v in want.items()),
             f"main path launch counts {launches}, want {want}")
+    require(kernel_launches == {"fused_resident_kernel": T_GD},
+            f"main path: node_fused_iter launched {kernel_launches}, want "
+            f"the resident kernel {T_GD} times")
     for name, arr, shape in (
             ("sd_max", trace.sd_max, (T_GD,)),
             ("sd_mean", trace.sd_mean, (T_GD,)),
@@ -518,7 +575,8 @@ def main_path(torch):
             f"sd_max of the cuda run disagrees with torch-ref "
             f"(max abs diff {diff.max():.3e})")
     emit("main", preset=cfg.name, dtype="float32", T_GD=T_GD,
-         launches=launches, final_sd_max=trace.final_sd_max,
+         launches=launches, kernel_launches=kernel_launches,
+         final_sd_max=trace.final_sd_max,
          first_sd_max=float(trace.sd_max[0]),
          final_spread=float(trace.spread[-1]),
          sd_max_vs_torch_ref_max_abs_diff=float(diff.max()),
@@ -1269,42 +1327,116 @@ def visible_pairs(Sq: int, Skv: int, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-MMA_KERNEL = re.compile(r"flash_mma_kernelILi(\d+)E")
+# kernel templates by name in the mangled symbols of cuobjdump and ptxas:
+# the bf16 flash kernel (DMAX), the three bf16 ssd_scan passes (PMAX,
+# NMAX; the state pass by its vector width) and the resident
+# node_fused_iter kernel (dtype, rank capacity)
+KERNEL_SYMBOL = re.compile(r"(flash_mma_kernel|chunk_state_kernel|"
+                           r"state_pass_kernel|chunk_out_kernel|"
+                           r"fused_resident_kernel)I(f|13__nv_bfloat16)?"
+                           r"((?:Li\d+E)+)E")
+MANGLED_DTYPE = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
 
 
-def flash_mma_report(_build, lib) -> list[dict]:
-    """Each instantiation of the bf16 flash kernel (DMAX 64, 128, 256): its
-    HMMA instructions in the built library's SASS (cuobjdump), its
-    registers and spill bytes (ptxas -v).  Fails unless every one runs
-    on the tensor cores and none at D <= 128 spills."""
+def sass_report(_build, lib, source: str) -> dict:
+    """{(kernel, template args): {"hmma", "registers", "spill_bytes"}} for
+    each instantiation of KERNEL_SYMBOL in the built library: HMMA
+    instructions in its SASS (cuobjdump), registers and spill bytes
+    (ptxas -v of the build of ``source``).  The template args are its
+    dtype's name, where it has a type parameter, then its ints."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+    def key_of(line):
+        m = KERNEL_SYMBOL.search(line)
+        if not m:
+            return None
+        dtype = (MANGLED_DTYPE[m[2]],) if m[2] else ()
+        return m[1], dtype + tuple(int(v) for v in
+                                   re.findall(r"Li(\d+)E", m[3]))
+
     rows, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = MMA_KERNEL.search(line)
-            key = int(m[1]) if m else None
+            key = key_of(line)
             if key:
-                rows[key] = {"dmax": key, "hmma": 0}
+                rows[key] = {"hmma": 0}
         elif key and "HMMA" in line:
             rows[key]["hmma"] += 1
-    for line in _build.build_log("flash_attention").splitlines():
+    for line in _build.build_log(source).splitlines():
         if "Compiling entry function" in line:
-            m = MMA_KERNEL.search(line)
-            key = int(m[1]) if m else None
+            key = key_of(line)
         elif key in rows and "spill stores" in line:
             n = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
             rows[key]["spill_bytes"] = n[1] + n[2]
         elif key in rows and "Used" in line and "registers" in line:
             rows[key]["registers"] = int(line.split("Used")[1].split()[0])
-    out = [rows[key] for key in sorted(rows)]
+    return rows
+
+
+def flash_mma_report(_build, lib) -> list[dict]:
+    """Each instantiation of the bf16 flash kernel (DMAX 64, 128, 256): its
+    HMMA count, registers and spill bytes (sass_report).  Fails unless
+    every one runs on the tensor cores and none at D <= 128 spills."""
+    rows = sass_report(_build, lib, "flash_attention")
+    out = [{"dmax": args[0], **row} for (_, args), row in sorted(rows.items())]
     require(len(out) == 3 and all(r["hmma"] > 0 for r in out),
             f"flash_mma_kernel: want 3 instantiations on the tensor cores, "
             f"got {out}")
     require(all(r.get("spill_bytes") == 0 for r in out if r["dmax"] <= 128),
             f"flash_mma_kernel spills at D <= 128: {out}")
     return out
+
+
+def ssd_mma_report(_build, lib) -> list[dict]:
+    """The bf16 ssd_scan passes: chunk_state_kernel and chunk_out_kernel
+    at each (PMAX, NMAX) of 64/128 x 64/128/256, state_pass_kernel at
+    its two vector widths, with HMMA count, registers and spill bytes.
+    Fails unless the two product passes run on the tensor cores in every
+    instantiation and no kernel spills."""
+    rows = sass_report(_build, lib, "ssd_scan")
+    out = [{"kernel": name, "template": list(args), **row}
+           for (name, args), row in sorted(rows.items())]
+    mma = [r for r in out if r["kernel"] != "state_pass_kernel"]
+    require(len(mma) == 12 and all(r["hmma"] > 0 for r in mma)
+            and len(out) == 14,
+            f"ssd_scan: want 12 tensor-core instantiations and 2 state "
+            f"passes, got {out}")
+    require(all(r.get("spill_bytes") == 0 for r in out),
+            f"ssd_scan kernels spill: {out}")
+    return out
+
+
+def fused_resident_report(_build, lib) -> list[dict]:
+    """The resident node_fused_iter kernel at each dtype and rank
+    capacity (4, 8, 16): registers and spill bytes (sass_report).  Fails
+    unless all six are there and none at capacity 4 (the main path's,
+    its registers capped for five CTAs an SM) spills."""
+    rows = sass_report(_build, lib, "altgdmin_ls")
+    out = [{"dtype": args[0], "rank_capacity": args[1],
+            "registers": row.get("registers"),
+            "spill_bytes": row.get("spill_bytes")}
+           for (_, args), row in sorted(rows.items())]
+    require(len(out) == 6, f"fused_resident_kernel: want 6 instantiations, "
+                           f"got {out}")
+    require(all(r["spill_bytes"] == 0 for r in out
+                if r["rank_capacity"] == 4),
+            f"fused_resident_kernel spills at rank capacity 4: {out}")
+    return out
+
+
+def ssd_inputs(torch, B, S, H, P, N, dtype):
+    """ssd_scan's operands drawn on the card from a seed: x, Bm, Cm normal
+    in ``dtype``; dt, A and D as tests/test_kernels.py draws them."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(S + P)
+    x = torch.randn((B, S, H, P), generator=g, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device="cuda")) * 0.1
+    A = -torch.exp(torch.randn((H,), generator=g, device="cuda") * 0.3)
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    return x, dt, A, Bm, Cm, torch.full((H,), 0.5, device="cuda")
 
 
 def check_lm_kernels(torch):
@@ -1315,7 +1447,7 @@ def check_lm_kernels(torch):
     from repro_torch.kernels import flash_attention, ref, ssd_scan
 
     errs = {"flash_attention": 0.0, "flash_attention_bf16": 0.0,
-            "ssd_scan": 0.0}
+            "ssd_scan": 0.0, "ssd_scan_bf16": 0.0}
     times = {}
     peak = {"float32": F32_FLOP_PER_S, "bfloat16": BF16_FLOP_PER_S}
     for name, B, Sq, Skv, H, Hkv, D, window in FLASH_CASES:
@@ -1361,18 +1493,7 @@ def check_lm_kernels(torch):
             del q, k, v, out
     for name, B, S, H, P, N, Q in SSD_CASES:
         for dname in ("float32", "bfloat16"):
-            dtype = getattr(torch, dname)
-            g = torch.Generator(device="cuda").manual_seed(S + P)
-            x = torch.randn((B, S, H, P), generator=g, device="cuda").to(dtype)
-            # tests/test_kernels.py's draws of dt, A and D
-            dt = F.softplus(torch.randn((B, S, H), generator=g,
-                                        device="cuda")) * 0.1
-            A = -torch.exp(torch.randn((H,), generator=g, device="cuda")
-                           * 0.3)
-            Bm, Cm = (torch.randn((B, S, N), generator=g, device="cuda")
-                      .to(dtype) for _ in range(2))
-            Dv = torch.full((H,), 0.5, device="cuda")
-            args = (x, dt, A, Bm, Cm, Dv)
+            args = ssd_inputs(torch, B, S, H, P, N, getattr(torch, dname))
 
             def kernel(*a):
                 return ssd_scan.ssd_scan(*a, chunk=Q)
@@ -1380,8 +1501,8 @@ def check_lm_kernels(torch):
             y, h = kernel(*args)
             err = pair_err(torch, (y, h), ref.ref_ssd(*args), SSD_TOL[dname],
                            f"ssd_scan {name} {dname}")
-            if dname == "float32":
-                errs["ssd_scan"] = max(errs["ssd_scan"], err)
+            key = "ssd_scan" if dname == "float32" else "ssd_scan_bf16"
+            errs[key] = max(errs[key], err)
             timing_ = None
             if name == "mamba2_prefill":
                 # the recurrence's 5 P N flops a token and head: 3 for
@@ -1389,8 +1510,8 @@ def check_lm_kernels(torch):
                 timing_ = timing(torch, kernel, ref.ref_ssd, args,
                                  nbytes(*args, y, h), 5 * B * S * H * P * N,
                                  flop_per_s=peak[dname], plain_reps=3)
-                if dname == "bfloat16":
-                    times["ssd_scan"] = timing_
+                times["ssd_scan" if dname == "bfloat16"
+                      else "ssd_scan_f32"] = timing_
             emit("lm_kernels", kernel="ssd_scan", case=name, B=B, S=S, H=H,
                  P=P, N=N, chunk=Q, dtype=dname, max_abs_err=err,
                  timing=timing_)
@@ -1405,16 +1526,38 @@ def rel_l2(torch, got, want) -> float:
                  / torch.linalg.vector_norm(want))
 
 
+def fault_readings(torch, module, faults, call, plain, tol, step,
+                   want) -> dict:
+    """For each planted fault -- a stand-in for ``module``'s wrapper of
+    the same name, swapped in where ``ops`` calls it: whether the kernel
+    check (``tol`` against ``plain``, the plain version's output of
+    ``call``'s inputs) fails on ``call(fault)``, its worst error there,
+    and the relative L2 error of ``step()``'s last-position logits
+    against ``want`` with the fault in place."""
+    name = module.__name__.rsplit(".", 1)[-1]
+    real = getattr(module, name)
+    out = {}
+    try:
+        for fault_name, fault in faults.items():
+            err = (call(fault).double() - plain).abs()
+            setattr(module, name, fault)
+            out[fault_name] = dict(
+                kernel_check_fails=bool(
+                    (err > tol["atol"] + tol["rtol"] * plain.abs()).any()),
+                kernel_max_abs_err=float(err.max()),
+                logits_rel_l2=rel_l2(torch, step(), want))
+    finally:
+        setattr(module, name, real)
+    return out
+
+
 def flash_fault_readings(torch, step, want) -> dict:
     """Faults planted in the bf16 flash route by a change of the kernel's
-    inputs, each swapped in for the wrapper that ``ops`` calls: the
-    diagonal key hidden (kp < qp: Skv one short, so query i sits at key
-    i - 1), one key ahead visible (kp <= qp + 1: a zero key appended),
-    the KV heads reversed (a wrong GQA map), and scores scaled without
-    the log2 e fold (x ln 2).  For each: whether lm_kernels' check
-    (FLASH_TOL at bf16, against ref_attention at qwen3's prefill shape)
-    fails on it, its worst error there, and the relative L2 error of
-    ``step()``'s last-position logits against ``want``."""
+    inputs: the diagonal key hidden (kp < qp: Skv one short, so query i
+    sits at key i - 1), one key ahead visible (kp <= qp + 1: a zero key
+    appended), the KV heads reversed (a wrong GQA map), and scores scaled
+    without the log2 e fold (x ln 2); fault_readings at qwen3's prefill
+    shape (FLASH_TOL at bf16, against ref_attention)."""
     from repro_torch.kernels import flash_attention as fa, ref
     real = fa.flash_attention
 
@@ -1438,20 +1581,40 @@ def flash_fault_readings(torch, step, want) -> dict:
                ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
     plain = ref.ref_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2)).transpose(1, 2).double()
-    tol = FLASH_TOL["bfloat16"]
-    out = {}
-    try:
-        for name, fault in faults.items():
-            err = (fault(q, k, v, causal=True).double() - plain).abs()
-            fa.flash_attention = fault
-            out[name] = dict(
-                kernel_check_fails=bool(
-                    (err > tol["atol"] + tol["rtol"] * plain.abs()).any()),
-                kernel_max_abs_err=float(err.max()),
-                logits_rel_l2=rel_l2(torch, step(), want))
-    finally:
-        fa.flash_attention = real
-    return out
+    return fault_readings(
+        torch, fa, faults, lambda f: f(q, k, v, causal=True), plain,
+        FLASH_TOL["bfloat16"], step, want)
+
+
+def ssd_fault_readings(torch, step, want) -> dict:
+    """Faults planted in the bf16 ssd_scan route by a change of the
+    kernel's inputs: B and C one token ahead (each token paired with the
+    next token's B and C, a zero row at the end), A halved (the decay of
+    every head too slow), D dropped (no skip term), and the heads of x
+    reversed (a wrong head map); fault_readings at mamba2-130m's prefill
+    shape (SSD_TOL at bf16 on y, against ref_ssd)."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+    real = ss.ssd_scan
+
+    def ahead(t):
+        return torch.cat([t[:, 1:], t.new_zeros(t[:, :1].shape)], 1)
+
+    faults = {
+        "bc_one_token_ahead": lambda x, dt, A, Bm, Cm, D, **kw: real(
+            x, dt, A, ahead(Bm), ahead(Cm), D, **kw),
+        "a_halved": lambda x, dt, A, Bm, Cm, D, **kw: real(
+            x, dt, A * 0.5, Bm, Cm, D, **kw),
+        "d_dropped": lambda x, dt, A, Bm, Cm, D, **kw: real(
+            x, dt, A, Bm, Cm, torch.zeros_like(D), **kw),
+        "heads_reversed": lambda x, dt, A, Bm, Cm, D, **kw: real(
+            x.flip(2), dt, A, Bm, Cm, D, **kw),
+    }
+    _, B, S, H, P, N, Q = SSD_CASES[0]
+    args = ssd_inputs(torch, B, S, H, P, N, torch.bfloat16)
+    plain = ref.ref_ssd(*args)[0].double()
+    return fault_readings(
+        torch, ss, faults, lambda f: f(*args, chunk=Q)[0], plain,
+        SSD_TOL["bfloat16"], step, want)
 
 
 def _lm_tokens(torch, vocab, shape, seed):
@@ -1463,7 +1626,8 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
     """Phases 15-16: ``arch`` at full width on the card through its LM
     kernel, against the torch-ref route and against teacher-forced
     decode at f32, then timed at bf16.  Returns the kernel's launches in
-    the main path's run (one prefill step)."""
+    the main path's run (one prefill step) and the CUDA launches, by
+    ``__global__`` function, of one bf16 prefill step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.launch.serve import generate_tokens
@@ -1518,32 +1682,43 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
     del params
     torch.cuda.empty_cache()
     prefill16 = make_prefill_step(cfg)
+    _build.LAUNCHES.clear()
+    _build.KERNEL_LAUNCHES.clear()
     last16 = prefill16(model16.params, {"tokens": toks})
     torch.cuda.synchronize()
+    launches16 = dict(_build.LAUNCHES)
+    kernel_launches16 = dict(_build.KERNEL_LAUNCHES)
+    want16 = {name: cfg.n_layers for name in LM_BF16_KERNELS[kernel]}
+    require(launches16 == {kernel: cfg.n_layers}
+            and kernel_launches16 == want16,
+            f"{arch} bf16: prefill launches {launches16}, CUDA launches "
+            f"{kernel_launches16}, want {cfg.n_layers} {kernel} and "
+            f"{want16}")
     require(bool(torch.isfinite(last16).all()), f"{arch} bf16: non-finite")
     e_bf16 = float((last16 - last_k).abs().max())
-    bf16_route = None
-    if kernel == "flash_attention":
-        # the bf16 route through the tensor-core kernel against the bf16
-        # torch-ref route: both round every activation to bf16 and part
-        # only inside attention (the kernel rounds P to bf16)
-        with ops.backend_scope("torch-ref"):
-            last16_ref = prefill16(model16.params, {"tokens": toks})
-        bf16_route = dict(
-            rel_l2=rel_l2(torch, last16, last16_ref),
-            max_abs_err=float((last16 - last16_ref).abs().max()),
-            faults=flash_fault_readings(
-                torch, lambda: prefill16(model16.params, {"tokens": toks}),
-                last16_ref))
-        require(bf16_route["rel_l2"] <= LM_BF16_REL_L2,
-                f"{arch} bf16 prefill: kernel vs torch-ref route "
-                f"{bf16_route} above {LM_BF16_REL_L2}")
-        blind = [f for f in LM_BF16_CAUGHT
-                 if not bf16_route["faults"][f]["logits_rel_l2"]
-                 > LM_BF16_REL_L2]
-        require(not blind, f"{arch} bf16: the route check misses the "
-                           f"planted faults {blind}: {bf16_route}")
-        del last16_ref
+    # the bf16 route through the tensor-core kernel against the bf16
+    # torch-ref route: both round every activation to bf16 and part only
+    # inside the kernel (flash rounds P to bf16; ssd_scan rounds M, h_c
+    # and x exp(seg - cum) dt)
+    limit, caught = LM_BF16_ROUTE[kernel]
+    readings = {"flash_attention": flash_fault_readings,
+                "ssd_scan": ssd_fault_readings}[kernel]
+    with ops.backend_scope("torch-ref"):
+        last16_ref = prefill16(model16.params, {"tokens": toks})
+    bf16_route = dict(
+        rel_l2=rel_l2(torch, last16, last16_ref), limit=limit,
+        max_abs_err=float((last16 - last16_ref).abs().max()),
+        faults=readings(
+            torch, lambda: prefill16(model16.params, {"tokens": toks}),
+            last16_ref))
+    require(bf16_route["rel_l2"] <= limit,
+            f"{arch} bf16 prefill: kernel vs torch-ref route "
+            f"{bf16_route} above {limit}")
+    blind = [f for f in caught
+             if not bf16_route["faults"][f]["logits_rel_l2"] > limit]
+    require(not blind, f"{arch} bf16: the route check misses the "
+                       f"planted faults {blind}: {bf16_route}")
+    del last16_ref
     reps = 3
     t1 = time.perf_counter()
     for _ in range(reps):
@@ -1563,6 +1738,7 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
          prefill_batch=B, prefill_len=S, launches=launches,
          f32_kernel_vs_torch_ref_max_abs_err=e_route,
          f32_decode_vs_forward_max_abs_err=e_decode,
+         bf16_launches=launches16, bf16_kernel_launches=kernel_launches16,
          generate=dict(batch=Bg, prompt=prompt_len, gen=gen,
                        first_row=tokens[0].tolist()),
          bf16_vs_f32_max_abs_err=e_bf16,
@@ -1576,7 +1752,7 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
          clock="host, ended by a device synchronize")
     del model16
     torch.cuda.empty_cache()
-    return launches[kernel]
+    return launches[kernel], kernel_launches16
 
 
 def main() -> int:
@@ -1611,7 +1787,10 @@ def main() -> int:
              for line in _build.build_log(name).splitlines()
              if "registers" in line or "spill" in line]
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
-         flash_mma_kernel=flash_mma_report(_build, paths["flash_attention"]))
+         flash_mma_kernel=flash_mma_report(_build, paths["flash_attention"]),
+         ssd_kernels=ssd_mma_report(_build, paths["ssd_scan"]),
+         fused_resident_kernel=fused_resident_report(
+             _build, paths["altgdmin_ls"]))
 
     rows = check_kernels(torch)
     spec, mat, launches, trace = main_path(torch)
@@ -1626,10 +1805,11 @@ def main() -> int:
     launches_serving = serving_phase(torch, spec, mat, trace)
     serving_frontier(torch, trace.U_nodes[0])
     lm_errs, lm_timing = check_lm_kernels(torch)
-    lm_launches = {
-        "flash_attention": lm_phase(torch, "qwen3-1.7b", "flash_attention",
-                                    "lm_dense"),
-        "ssd_scan": lm_phase(torch, "mamba2-130m", "ssd_scan", "lm_ssm")}
+    lm_launches, lm_kernel_launches = zip(
+        lm_phase(torch, "qwen3-1.7b", "flash_attention", "lm_dense"),
+        lm_phase(torch, "mamba2-130m", "ssd_scan", "lm_ssm"))
+    lm_launches = dict(zip(("flash_attention", "ssd_scan"), lm_launches))
+    ssd_kernel_launches = lm_kernel_launches[1]
 
     main_row = rows[("exp1", "float32")]
     kernels = []
@@ -1641,6 +1821,9 @@ def main() -> int:
                         "launches": launches[name],
                         "max_abs_err": max(errs),
                         **main_row["timing"][name]})
+    # node_fused_iter's row: beside its time, the resident kernel's with
+    # one and with two CTAs a task forced
+    kernels[0]["ms_by_ctas_a_task"] = main_row["fused_ms_by_ctas"]
     slice_launches = {"node_task_grad_tiles":
                       launches_a["node_task_grad_tiles"], **launches_b}
     for name in ("node_task_grad_tiles", "compress_topk", "dequant"):
@@ -1671,11 +1854,21 @@ def main() -> int:
                     "max_abs_err": lm_errs["flash_attention_bf16"],
                     "max_abs_err_f32_kernel": lm_errs["flash_attention"],
                     **lm_timing["flash_attention"]})
+    # ssd_scan's row likewise: the bf16 three-pass tensor-core kernels
+    # (their CUDA launches a call, counted over a bf16 prefill step of
+    # mamba2-130m), the f32 CUDA-core kernel's error and time beside them
     kernels.append({"name": "ssd_scan", "route": "cuda",
                     "source": SOURCES["ssd_scan"],
                     "replaces": REPLACES["ssd_scan"],
                     "launches": lm_launches["ssd_scan"],
-                    "max_abs_err": lm_errs["ssd_scan"],
+                    "dtype": "bfloat16",
+                    "cuda_launches_per_call":
+                        sum(ssd_kernel_launches.values())
+                        / lm_launches["ssd_scan"],
+                    "cuda_launches_by_kernel": ssd_kernel_launches,
+                    "max_abs_err": lm_errs["ssd_scan_bf16"],
+                    "max_abs_err_f32_kernel": lm_errs["ssd_scan"],
+                    "f32_kernel_ms": lm_timing["ssd_scan_f32"]["ms"],
                     **lm_timing["ssd_scan"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

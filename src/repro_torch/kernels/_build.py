@@ -4,13 +4,16 @@ Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded through ``ctypes``
 (no PyTorch headers, so a build takes seconds).  Libraries are built at
 first use into ``build/repro_torch/`` at the repository root, named by a
-hash of their source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  :func:`build` starts one ``nvcc`` per
-missing library, all at once.
+hash of their source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header is rebuilt and an unchanged one is loaded
+as it is.  :func:`build` starts one ``nvcc`` per missing library, all at
+once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 kernel wrappers raise on anything but 0 and count their launches in
-:data:`LAUNCHES`.
+:data:`LAUNCHES`, one a call.  Where a call picks one of several
+``__global__`` functions or launches several, its C entry reports which
+and how often, and the wrapper adds that to :data:`KERNEL_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launches per kernel, counted by each wrapper right after its launch.
 LAUNCHES: collections.Counter = collections.Counter()
+# CUDA launches per __global__ function, as the C entries report them.
+KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -44,10 +49,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, every header of
+    ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, Path]:
@@ -97,6 +105,14 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
         _loaded[name] = lib
     return lib
+
+
+def count_kernels(names, launched) -> None:
+    """Add a C entry's launch report (``launched[i]`` launches of the
+    ``__global__`` function ``names[i]``) to :data:`KERNEL_LAUNCHES`."""
+    for name, k in zip(names, launched, strict=True):
+        if k:
+            KERNEL_LAUNCHES[name] += k
 
 
 def check(lib: ctypes.CDLL, err_fn: str, err: int, what: str) -> None:

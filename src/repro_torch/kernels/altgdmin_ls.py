@@ -4,7 +4,12 @@
 * :func:`node_fused_iter` replaces ``node_fused_iter`` of
   ``src/repro/kernels/altgdmin_ls.py`` (``_fused_iter_kernel``): one
   launch computes, for every task of every node, the min-B solution and
-  the gradient tile, building A = X_t U_g once.
+  the gradient tile, building A = X_t U_g once.  Where a task's X_t fits
+  the shared memory of its CTAs the launch reads X once
+  (``fused_resident_kernel``); past that budget it streams X twice
+  (``fused_iter_kernel``).  Both kernels are hand-written; the choice is
+  made in ``csrc/altgdmin_ls.cu``, which reports the kernel it launched
+  (:data:`repro_torch.kernels._build.KERNEL_LAUNCHES`).
 * :func:`node_task_gram` replaces ``node_task_gram``
   (``_gram_kernel_nb``): the Gram pair (G, c) of every task.
 * :func:`node_task_grad_tiles` replaces ``node_task_grad_tiles``
@@ -39,12 +44,14 @@ R_MAX = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "altgdmin_node_fused_iter": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "altgdmin_node_fused_iter": (_I, [_P] * 5 + [_I] * 7 + [_P, _I, _P]),
     "altgdmin_node_task_gram": (_I, [_P] * 5 + [_I] * 7 + [_P]),
     "altgdmin_node_grad_tiles": (_I, [_P] * 5 + [_I] * 7 + [_P]),
     "altgdmin_error_string": (ctypes.c_char_p, [_I]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels altgdmin_node_fused_iter reports in its launched[] slots
+_FUSED_KERNELS = ("fused_resident_kernel", "fused_iter_kernel")
 
 
 def _operands(X, U, y):
@@ -70,7 +77,7 @@ def _operands(X, U, y):
                          f"{tuple(U.shape)}")
     if r > R_MAX:
         raise ValueError(f"rank r={r} exceeds the kernel's R_MAX={R_MAX}")
-    if L * tpn >= 2**31:
+    if 2 * L * tpn >= 2**31:     # two CTAs a task in the resident kernel
         raise ValueError(f"L·tpn={L * tpn} tasks exceed one launch grid")
     dtypes = {X.dtype, U.dtype, y.dtype}
     if len(dtypes) == 1 and X.dtype in _DTYPE_CODE:
@@ -108,27 +115,37 @@ def _checked_B(B, X, shape):
     return B.to(torch.float32).contiguous()
 
 
-def _launch(fn: str, tensors, dims, code):
+def _launch(fn: str, tensors, dims, code, *extra):
     lib = _build.load("altgdmin_ls", _SIGNATURES)
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn)(*(t.data_ptr() for t in tensors), *dims, code,
-                               device.index, stream)
+                               device.index, stream, *extra)
     _build.check(lib, "altgdmin_error_string", err, fn)
 
 
-def node_fused_iter(X, U, y):
+def node_fused_iter(X, U, y, *, ctas_per_task=None):
     """One fused AltGDmin iteration for all nodes and tasks, one launch.
     X (L, tpn, n, d), U (L, d, r), y (L, tpn, n) on the card →
     B (L, tpn, r) and tiles (L, tpn, d, r), float32, where
-    tiles[g, t] = X_tᵀ(X_t U_g b_t − y_t) b_tᵀ."""
+    tiles[g, t] = X_tᵀ(X_t U_g b_t − y_t) b_tᵀ.  The resident kernel
+    splits a task's columns of X over the CTAs of a cluster; the kernel
+    picks one or two CTAs a task from the task's shared memory (``None``),
+    or ``ctas_per_task`` (1 or 2) forces it, to time the pick against the
+    other form."""
+    if ctas_per_task not in (None, 1, 2):
+        raise ValueError(f"ctas_per_task must be None, 1 or 2, got "
+                         f"{ctas_per_task}")
     X, U, y, dims, code = _operands(X, U, y)
     L, tpn, n, d, r = dims
     B = torch.empty((L, tpn, r), dtype=torch.float32, device=X.device)
     tiles = torch.empty((L, tpn, d, r), dtype=torch.float32, device=X.device)
-    _launch("altgdmin_node_fused_iter", (X, U, y, B, tiles), dims, code)
+    launched = (ctypes.c_int * len(_FUSED_KERNELS))()
+    _launch("altgdmin_node_fused_iter", (X, U, y, B, tiles), dims, code,
+            ctas_per_task or 0, launched)
     _build.LAUNCHES["node_fused_iter"] += 1
+    _build.count_kernels(_FUSED_KERNELS, launched)
     return B, tiles
 
 

@@ -1,13 +1,21 @@
-"""CUDA wrapper of the Mamba-2 SSD chunked-scan kernel
+"""CUDA wrapper of the Mamba-2 SSD chunked-scan kernels
 (``csrc/ssd_scan.cu``).
 
 :func:`ssd_scan` replaces ``ssd_scan`` of ``src/repro/kernels/ssd_scan.py``
-(``_ssd_kernel``): per (batch, head) the chunks in order, each a masked
-quadratic form, with the (P, N) float32 state carried across chunks; the
-D skip term is added in the kernel.  It takes the model layout (x
+(``_ssd_kernel``): per (batch, head) the chunks of the sequence, each a
+masked quadratic form, with a (P, N) float32 state carried across chunks;
+the D skip term is added in the kernel.  It takes the model layout (x
 (B, S, H, P), dt (B, S, H), Bm/Cm (B, S, N) shared by every head) as it
-is: no transpose and no padded copy.  The plain version is
-:func:`repro_torch.kernels.ref.ref_ssd`, the token-by-token recurrence.
+is: no transpose and no padded copy.  bfloat16 runs three tensor-core
+launches over (chunk, head, batch) -- chunk states, the pass of states
+across chunks, chunk outputs -- with float32 and bfloat16 scratch that
+this wrapper allocates, where P <= 128, N <= 256 and their blocks fit
+shared memory; float32, and bfloat16 past that, run the CUDA-core
+kernel, one launch.  Either way one call counts one launch in
+``_build.LAUNCHES``; the CUDA launches, by kernel, go to
+``_build.KERNEL_LAUNCHES`` as the C entry reports them.  The plain
+version is :func:`repro_torch.kernels.ref.ref_ssd`, the token-by-token
+recurrence.
 """
 from __future__ import annotations
 
@@ -21,18 +29,23 @@ SMEM_MAX = 232_448          # bytes of shared memory one block may take
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ssd_scan_fwd": (_I, [_P] * 8 + [_I] * 8 + [_P]),
-    "ssd_scan_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "ssd_scan_fwd": (_I, [_P] * 11 + [_I] * 8 + [_P, _P]),
+    "ssd_scan_tensor_cores": (_I, [_I, _I, _I]),
+    "ssd_scan_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "ssd_scan_error_string": (ctypes.c_char_p, [_I]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels ssd_scan_fwd reports in its launched[] slots
+_KERNELS = ("ssd_kernel", "chunk_state_kernel", "state_pass_kernel",
+            "chunk_out_kernel")
 
 
 def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128):
     """x (B, S, H, P), dt (B, S, H), A and D (H,), Bm and Cm (B, S, N) on
     the card → (y (B, S, H, P) in x's dtype, h_final (B, H, P, N)
     float32).  x, Bm and Cm share one dtype (float32 or bfloat16); dt, A
-    and D are used as float32.  ``chunk`` is the SSD chunk Q."""
+    and D are used as float32.  ``chunk`` is the SSD chunk Q; any P, N
+    and Q whose block fits shared memory."""
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
                     ("D", D)):
         if not t.is_cuda:
@@ -64,7 +77,8 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128):
     if max(H, B) > 65535 or B * S * H * P >= 2**62:
         raise ValueError(f"x {tuple(x.shape)} exceeds one launch grid")
     lib = _build.load("ssd_scan", _SIGNATURES)
-    smem = lib.ssd_scan_smem_bytes(P, N, Q)
+    code = _DTYPE_CODE[x.dtype]
+    smem = lib.ssd_scan_smem_bytes(P, N, Q, code)
     if smem > SMEM_MAX:
         raise ValueError(f"P={P}, N={N}, chunk={Q} need {smem} bytes of "
                          f"shared memory a block, above {SMEM_MAX}")
@@ -73,12 +87,23 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128):
     dt, A, D = (t.to(f32).contiguous() for t in (dt, A, D))
     y = torch.empty_like(x)
     h = torch.empty((B, H, P, N), dtype=f32, device=x.device)
+    scratch = (None, None, None)
+    if x.dtype == torch.bfloat16 and lib.ssd_scan_tensor_cores(P, N, Q):
+        # chunk states, h_c, seg
+        nc = -(-S // Q)
+        scratch = (
+            torch.empty((B, H, nc, P, N), dtype=f32, device=x.device),
+            torch.empty((B, H, nc, P, N), dtype=x.dtype, device=x.device),
+            torch.empty((B, H, nc), dtype=f32, device=x.device))
+    launched = (ctypes.c_int * len(_KERNELS))()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), D.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H,
-            P, N, Q, _DTYPE_CODE[x.dtype], x.device.index, stream)
+            Cm.data_ptr(), D.data_ptr(), y.data_ptr(), h.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in scratch),
+            B, S, H, P, N, Q, code, x.device.index, stream, launched)
     _build.check(lib, "ssd_scan_error_string", err, "ssd_scan_fwd")
     _build.LAUNCHES["ssd_scan"] += 1
+    _build.count_kernels(_KERNELS, launched)
     return y, h

@@ -73,6 +73,34 @@ def test_altgdmin_kernels_match_plain(cuda, shape, dtype):
     _close(c, c_ref, TOL[dtype])
 
 
+# past the resident fused kernel's shared-memory budget (half of X_t's
+# columns in 227 KB a CTA) at each dtype: X_t of 200 x 600 in f32 (243 KB
+# a half), 400 x 600 in bf16 (243 KB), where the two-pass kernel runs
+FUSED_PAST_BUDGET = {torch.float32: (2, 2, 200, 600, 4),
+                     torch.bfloat16: (2, 2, 400, 600, 4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_iter_resident_and_two_pass_kernels_match_plain(cuda, dtype):
+    """Every shape through the kernel that holds X_t in shared memory,
+    on one and on two CTAs a task (forced; SHAPES' test takes the
+    kernel's pick), a task past its budget through the two-pass kernel,
+    each within TOL of the plain version; the kernel launched is the one
+    the C entry reports."""
+    from repro_torch.kernels import _build, altgdmin_ls, ref
+    cases = [(shape, ctas, "fused_resident_kernel") for shape in SHAPES
+             for ctas in (1, 2)]
+    for shape, ctas, kernel in cases + [
+            (FUSED_PAST_BUDGET[dtype], None, "fused_iter_kernel")]:
+        X, U, y = _instance(shape, dtype, seed=3)
+        _build.KERNEL_LAUNCHES.clear()
+        B, tiles = altgdmin_ls.node_fused_iter(X, U, y, ctas_per_task=ctas)
+        assert dict(_build.KERNEL_LAUNCHES) == {kernel: 1}
+        B_ref, tiles_ref = ref.ref_fused_iter(X, U, y)
+        _close(B, B_ref, TOL[dtype])
+        _close(tiles, tiles_ref, TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,M", [(20, 2400), (100, 1000), (3, 291),
                                  (37, 129)])
@@ -546,6 +574,95 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
     assert _build.LAUNCHES["ssd_scan"] == before + 1
     y_ref, h_ref = ref.ref_ssd(x, dt, A, Bm, Cm, D)
     assert y.dtype == dtype and h.dtype == torch.float32
+    _close(y, y_ref, SSD_TOL[dtype])
+    _close(h, h_ref, SSD_TOL[dtype])
+
+
+def _ssd_case(B, S, H, P, N, dtype, seed, a_scale=1.0, unaligned=False):
+    """tests/test_kernels.py's draws of x, dt, A, Bm, Cm, D (A times
+    ``a_scale``); with ``unaligned``, x, Bm and Cm start one element past
+    an allocation."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape):
+        if not unaligned:
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+        buf = torch.randn(int(np.prod(shape)) + 1, generator=g,
+                          device="cuda").to(dtype)
+        return buf[1:].view(shape)
+
+    x = draw((B, S, H, P))
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda")) * 0.1
+    A = -torch.exp(torch.randn((H,), generator=g, device="cuda") * 0.3)
+    Bm, Cm = draw((B, S, N)), draw((B, S, N))
+    return x, dt, A * a_scale, Bm, Cm, torch.full((H,), 0.5, device="cuda")
+
+
+# (name, B, S, H, P, N, chunk, A scale): many chunks of 64 with |A| dt
+# about 3 a token, so exp(cum) underflows to 0 inside every chunk; S not
+# a multiple of Q at mamba2-130m's widths
+SSD_HARD = [("strong_decay", 2, 1024, 4, 64, 128, 64, 40.0),
+            ("ragged_mamba2", 2, 1000, 24, 64, 128, 128, 1.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,S,H,P,N,chunk,a_scale", SSD_HARD)
+def test_ssd_scan_strong_decay_and_ragged_match_plain(cuda, name, B, S, H,
+                                                      P, N, chunk, a_scale,
+                                                      dtype):
+    from repro_torch.kernels import ref, ssd_scan
+    args = _ssd_case(B, S, H, P, N, dtype, seed=S + N, a_scale=a_scale)
+    if name == "strong_decay":     # exp(cum) is 0 in f32 within a chunk
+        x, dt, A = args[:3]
+        cum = (dt * A)[:, :chunk].cumsum(1)
+        assert float(cum.min()) < -110.0
+    y, h = ssd_scan.ssd_scan(*args, chunk=chunk)
+    y_ref, h_ref = ref.ref_ssd(*args)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    _close(y, y_ref, SSD_TOL[dtype])
+    _close(h, h_ref, SSD_TOL[dtype])
+
+
+_SSD_PASSES = {"chunk_state_kernel": 1, "state_pass_kernel": 1,
+               "chunk_out_kernel": 1}
+
+
+# bf16 on each side of the tensor-core passes' reach: P = 128 with N =
+# 256 (their widest tiles), P or N past those, and P 72 / N 136 (tiles of
+# 128 x 256) with Q = 64, whose blocks fit shared memory, and Q = 128,
+# whose do not while the CUDA-core kernel's does
+@pytest.mark.parametrize("P,N,chunk,kernels", [
+    (128, 256, 32, _SSD_PASSES),
+    (256, 64, 64, {"ssd_kernel": 1}),
+    (64, 264, 32, {"ssd_kernel": 1}),
+    (72, 136, 64, _SSD_PASSES),
+    (72, 136, 128, {"ssd_kernel": 1})])
+def test_ssd_scan_bf16_picks_kernel_by_shape(cuda, P, N, chunk, kernels):
+    """Every bf16 shape whose block fits shared memory runs: the three
+    tensor-core passes where they take it, else the CUDA-core kernel;
+    each within SSD_TOL of the plain version."""
+    from repro_torch.kernels import _build, ref, ssd_scan
+    args = _ssd_case(1, 200, 2, P, N, torch.bfloat16, seed=P + N + chunk)
+    _build.KERNEL_LAUNCHES.clear()
+    y, h = ssd_scan.ssd_scan(*args, chunk=chunk)
+    assert dict(_build.KERNEL_LAUNCHES) == kernels
+    y_ref, h_ref = ref.ref_ssd(*args)
+    _close(y, y_ref, SSD_TOL[torch.bfloat16])
+    _close(h, h_ref, SSD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,N,chunk", [(20, 24, 24), (64, 20, 40),
+                                       (72, 136, 32)])
+def test_ssd_scan_unaligned_rows_and_bases(cuda, P, N, chunk, dtype):
+    """Rows of P or N not a multiple of 8, bases one element past an
+    allocation, and widths past 64 / 128 (the next tile sizes): the
+    kernels copy element by element where 16-byte copies do not fit."""
+    from repro_torch.kernels import ref, ssd_scan
+    args = _ssd_case(2, 100, 3, P, N, dtype, seed=P + N, unaligned=True)
+    y, h = ssd_scan.ssd_scan(*args, chunk=chunk)
+    y_ref, h_ref = ref.ref_ssd(*args)
     _close(y, y_ref, SSD_TOL[dtype])
     _close(h, h_ref, SSD_TOL[dtype])
 
