@@ -17,27 +17,34 @@ Phases, each printing one JSON line and raising on failure:
                spill bytes (none allowed at D <= 128); likewise the bf16
                ssd_scan passes (HMMA in all 12 instantiations of the two
                product passes, no spill in any of the 14 kernels); the
-               resident node_fused_iter kernel's registers and spills at
-               each dtype and rank capacity (none allowed at capacity 4,
-               the main path's);
+               resident node_fused_iter kernel's and the streaming Gram
+               kernel's registers and spills at each dtype and rank
+               capacity (none allowed at capacity 4, the main path's);
+               then the launch floor: an empty kernel
+               (torch.cuda._sleep(0)) timed back to back as the kernels
+               are;
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs on the card, at the paper's Experiment 1 shape (the
-               main path's), the Experiment 2 shape, a ragged shape and
-               tasks past the shared-memory budget of the resident
-               node_fused_iter kernel (which run its two-pass kernel:
-               each call's kernel as the C entry reports it, in
-               ``_build.KERNEL_LAUNCHES``);
+               main path's), its sample-split fold (path A's Gram), the
+               Experiment 2 shape, a ragged shape and tasks past the
+               shared-memory budget of the resident node_fused_iter
+               kernel (which run its two-pass kernel: each call's kernel
+               as the C entry reports it, in ``_build.KERNEL_LAUNCHES``;
+               mix_rows's and node_task_gram's kernels);
                f32 and bf16 inputs, plus f64 through the engine op; the
                reference tolerances (rtol = atol = 1e-4 at f32, 5e-2 at
                bf16); kernel, plain and library times (median of CUDA-
                event-timed launch batches) beside the card's bound, and
                node_fused_iter's time with one and with two CTAs a task
-               forced at each shape and dtype, beside the kernel's pick;
+               forced (each also held to the plain version), at each
+               shape and dtype, beside the kernel's pick;
   4. main    — ``run_experiment`` on the EXPERIMENT1 preset (T_con=10,
                L=20, d=T=600, r=4, n=30, ER p=0.5 Metropolis, T_pm=30,
                T_GD=500) at float32 on the cuda backend, with the launch
                counts set to 0 just before and read just after (every
-               node_fused_iter launch the resident kernel); then the
+               node_fused_iter launch the resident kernel, every mix_rows
+               launch the one-tile kernel, the Gram on one CTA a task);
+               then the
                same spec and key on the torch-ref backend on the card,
                whose sd_max trace must agree (rtol 1e-4, atol 1e-5);
   5. profile — torch.profiler over 20 outer iterations: device time by
@@ -55,13 +62,15 @@ Phases, each printing one JSON line and raising on failure:
                torch.mul(q, scale) as dequant's library call;
   7. path A — the same preset sample-split into two folds (n_folds=2),
                T_GD=500, cuda: launches node_task_gram 501,
-               node_task_grad_tiles 500, mix_rows 500, node_fused_iter 0;
-               sd_max against torch-ref on the card (rtol 1e-4, atol
+               node_task_grad_tiles 500, mix_rows 500, node_fused_iter 0,
+               and the CUDA launches by kernel as their C entries report
+               them; sd_max against torch-ref on the card (rtol 1e-4, atol
                1e-5); convergence; a profile of 20 iterations;
   8. path B — dif_topk (compression_k=150, and =d), dif_quantized
                (int8) and dif_event (event_threshold=0.02) on the same
                preset, T_GD=500, T_con=10, cuda: compress_topk / dequant
-               / mix_rows at 10·T_GD launches; finite outputs; sd_max
+               / mix_rows at 10·T_GD launches (by kernel as in path A);
+               finite outputs; sd_max
                below 0.65 / 0.5 / 0.6 of its first value (the
                reference's bounds); against torch-ref on the card over
                the whole trajectory (top-k at k=d, int8, event), or, for
@@ -94,7 +103,8 @@ Phases, each printing one JSON line and raising on failure:
                phase's cohort (T = 64, n = 16, d = 600, r = 4), a serving
                batch (T = 32), the JAX package's kernel benchmark row
                (T = 32, n = 30), a ragged shape (T = 3, n = 20, d = 100,
-               r = 8), f32 and bf16 (the tolerances of phase 3);
+               r = 8), f32 and bf16 (the tolerances of phase 3), task_gram's
+               kernel as its C entry reports it;
                ops.altgdmin_minimize_B / altgdmin_gradient against their
                plain route at f32 and f64; times as in phase 3 (no
                single PyTorch call computes either);
@@ -167,12 +177,30 @@ flash's and ssd_scan's rows are their bf16 tensor-core kernels,
 ``dtype`` bfloat16, with the f32 CUDA-core kernel's error as
 ``max_abs_err_f32_kernel``; ssd_scan's also carries the CUDA launches a
 call of the bf16 prefill step, counted by kernel, and the f32 kernel's
-ms; node_fused_iter's its times at one and two CTAs a task), the card
-line, and the result line.  Exits non-
-zero, printing no result, without a CUDA device or outside the repo.
+ms; node_fused_iter's its times at one and two CTAs a task,
+node_task_gram's at path A's fold, task_gram's at each serving shape;
+the launch floor beside mix_rows, compress_topk, dequant and
+gossip_combine), the card line, and the result line.  Exits non-zero,
+printing no result, without a CUDA device or outside the repo.
+
+    python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]
+
+runs none of the phases: it imports ``repro_torch`` from ``DIR``
+(default: this checkout's ``src``), builds its least-squares and mixing
+kernels there, and prints one JSON line: the card's name and power
+limit, and the device ms (device_ms) of ``mix_rows`` at Experiment 1's
+AGREE operand and tests/test_torch_gpu.py's other shapes, of
+``node_task_gram`` at SHAPES, of ``task_gram`` at SINGLE_SHAPES (f32 and
+bf16), of ``node_fused_iter`` at Experiment 1, ``node_task_grad_tiles``
+at its fold and ``task_grad_tiles`` at the serving cohort (f32), and of
+an empty kernel (the launch floor).  Only the wrappers' common
+signatures are called, so an older tree of the port (its ``src`` from
+``git archive``) can be timed by this script too: run parent, change,
+change, parent on one card, one process each.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -200,13 +228,15 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=5e-2, atol=5e-2),
        "float64": dict(rtol=1e-4, atol=1e-4)}     # the kernels compute in f32
 
-# (L, tpn, n, d, r): Experiment 1 (the main path's shape), Experiment 2,
-# a ragged shape (d not a multiple of 32, r odd), and tasks past the
+# (L, tpn, n, d, r): Experiment 1 (the main path's shape), its
+# sample-split fold (path A's node_task_gram, n = 15), Experiment 2, a
+# ragged shape (d not a multiple of 32, r odd), and tasks past the
 # shared-memory budget of the resident node_fused_iter kernel at both
 # dtypes (half of X_t's 400 x 600 columns: 486 KB in f32, 243 KB in bf16,
 # above a CTA's 227 KB), which run the two-pass kernel.
-SHAPES = {"exp1": (20, 30, 30, 600, 4), "exp2": (100, 1, 50, 100, 10),
-          "ragged": (3, 5, 20, 97, 3), "past_budget": (2, 2, 400, 600, 4)}
+SHAPES = {"exp1": (20, 30, 30, 600, 4), "exp1_fold": (20, 30, 15, 600, 4),
+          "exp2": (100, 1, 50, 100, 10), "ragged": (3, 5, 20, 97, 3),
+          "past_budget": (2, 2, 400, 600, 4)}
 
 SOURCES = {"node_fused_iter": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
            "node_task_gram": "src/repro_torch/kernels/csrc/altgdmin_ls.cu",
@@ -236,7 +266,7 @@ REPLACES = {"node_fused_iter": "src/repro/kernels/altgdmin_ls.py:244",
 # The sample-split fold of Experiment 1 (n = 30 split in two), and the
 # (N, d, r, k) blocks of compress_topk: the dif_topk path's (k = d/4),
 # Experiment 2's, and a ragged one at the two ends of k.
-GRAD_SHAPES = {"exp1_fold": (20, 30, 15, 600, 4), "exp2": SHAPES["exp2"],
+GRAD_SHAPES = {"exp1_fold": SHAPES["exp1_fold"], "exp2": SHAPES["exp2"],
                "ragged": SHAPES["ragged"]}
 TOPK_SHAPES = {"exp1": (20, 600, 4, 150), "exp2": (100, 100, 10, 25),
                "ragged_k1": (3, 97, 3, 1), "ragged_kd": (3, 97, 3, 97)}
@@ -422,6 +452,14 @@ def instance(torch, shape, dtype, seed):
     return X.to(dtype), U.to(dtype), y.to(dtype)
 
 
+def reported(_build, fn, *args, **kw):
+    """``fn(*args, **kw)`` and the CUDA launches its C entry reported
+    (``_build.KERNEL_LAUNCHES``, set to 0 just before)."""
+    _build.KERNEL_LAUNCHES.clear()
+    out = fn(*args, **kw)
+    return out, dict(_build.KERNEL_LAUNCHES)
+
+
 def check_kernels(torch):
     from repro_torch.distributed import graphs, mixing
     from repro_torch.kernels import _build, altgdmin_ls, gossip_axpy, ops, ref
@@ -434,26 +472,33 @@ def check_kernels(torch):
             X, U, y = instance(torch, shape, dtype, seed=len(rows))
             tol = TOL[dname]
             what = f"{sname} {dname}"
-            _build.KERNEL_LAUNCHES.clear()
-            B, tiles = altgdmin_ls.node_fused_iter(X, U, y)
-            fused_kernel = dict(_build.KERNEL_LAUNCHES)
+            (B, tiles), fused_kernel = reported(
+                _build, altgdmin_ls.node_fused_iter, X, U, y)
             e_fused = pair_err(torch, (B, tiles), ref.ref_fused_iter(X, U, y),
                                tol, f"node_fused_iter {what}")
-            G, c = altgdmin_ls.node_task_gram(X, U, y)
-            e_gram = pair_err(torch, (G, c), ref.ref_task_gram(X, U, y), tol,
+            (G, c), gram_kernel = reported(_build, altgdmin_ls.node_task_gram,
+                                           X, U, y)
+            gram_ref = ref.ref_task_gram(X, U, y)
+            e_gram = pair_err(torch, (G, c), gram_ref, tol,
                               f"node_task_gram {what}")
+            require(gram_kernel == {"stream_gram_kernel": 1},
+                    f"node_task_gram {what}: launched {gram_kernel}")
             # mix_rows at this shape's AGREE operand: W^{T_con} of an ER
             # graph's Metropolis weights, Z = the (L, d*r) iterate
             W = mixing.metropolis_weights(graphs.erdos_renyi(L, 0.5, seed=0))
             Wp = torch.linalg.matrix_power(
                 torch.as_tensor(W, dtype=torch.float32, device="cuda"), 10)
             Z = U.reshape(L, d * r)
-            out = gossip_axpy.mix_rows(Wp, Z)
+            out, mix_kernel = reported(_build, gossip_axpy.mix_rows, Wp, Z)
             require(out.dtype == Z.dtype, "mix_rows must return Z's dtype")
+            require(mix_kernel == {"mix_tile_kernel": 1},
+                    f"mix_rows {what}: launched {mix_kernel}, want the "
+                    f"one-tile kernel")
             e_mix = max_err(torch, out, ref.ref_mix_rows(Wp, Z), tol,
                             f"mix_rows {what}")
             check = {"shape": sname, "dtype": dname,
                      "fused_iter_kernel": fused_kernel,
+                     "gram_kernel": gram_kernel,
                      "max_abs_err": {"node_fused_iter": e_fused,
                                      "node_task_gram": e_gram,
                                      "mix_rows": e_mix}}
@@ -549,9 +594,11 @@ def main_path(torch):
     want = {"node_fused_iter": T_GD, "mix_rows": T_GD, "node_task_gram": 1}
     require(all(launches.get(k, 0) == v for k, v in want.items()),
             f"main path launch counts {launches}, want {want}")
-    require(kernel_launches == {"fused_resident_kernel": T_GD},
-            f"main path: node_fused_iter launched {kernel_launches}, want "
-            f"the resident kernel {T_GD} times")
+    want_kernels = {"fused_resident_kernel": T_GD, "mix_tile_kernel": T_GD,
+                    "stream_gram_kernel": 1}
+    require(kernel_launches == want_kernels,
+            f"main path: CUDA launches {kernel_launches}, want "
+            f"{want_kernels}")
     for name, arr, shape in (
             ("sd_max", trace.sd_max, (T_GD,)),
             ("sd_mean", trace.sd_mean, (T_GD,)),
@@ -730,24 +777,30 @@ def check_topk_special(torch, compress, ref, sname, N, d, r):
                  block=kind, dtype=dname, k=[d // 2, d], bitwise_equal=True)
 
 
-def run_path(torch, spec, mat, want, *, name):
+def run_path(torch, spec, mat, want, want_kernels, *, name):
     """Drive ``run_experiment`` on the cuda backend with the launch
-    counts set to 0 just before and read just after; check the counts
-    against ``want``, the outputs' shapes and finiteness; then the same
-    spec and materialization on torch-ref.  → (trace, torch-ref trace,
-    launches, seconds per run of each)."""
+    counts set to 0 just before and read just after; check the wrappers'
+    counts against ``want`` and the CUDA launches their C entries
+    reported against ``want_kernels``, the outputs' shapes and
+    finiteness; then the same spec and materialization on torch-ref.
+    → (trace, torch-ref trace, launches, CUDA launches by kernel,
+    seconds per run of each)."""
     from repro_torch.api import EngineSpec, run_experiment
     from repro_torch.kernels import _build
 
     T_GD, p = spec.solver.T_GD, spec.problem
     _build.LAUNCHES.clear()
+    _build.KERNEL_LAUNCHES.clear()
     t0 = time.perf_counter()
     trace = run_experiment(spec, key=0, materialized=mat)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = dict(_build.LAUNCHES)
+    kernel_launches = dict(_build.KERNEL_LAUNCHES)
     require(all(launches.get(k, 0) == v for k, v in want.items()),
             f"{name}: launch counts {launches}, want {want}")
+    require(kernel_launches == want_kernels,
+            f"{name}: CUDA launches {kernel_launches}, want {want_kernels}")
     for field, arr, shape in (
             ("sd_max", trace.sd_max, (T_GD,)),
             ("spread", trace.spread, (T_GD,)),
@@ -764,7 +817,7 @@ def run_path(torch, spec, mat, want, *, name):
     trace_ref = run_experiment(spec_ref, key=0, materialized=mat)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    return trace, trace_ref, launches, t1 - t0, t3 - t2
+    return trace, trace_ref, launches, kernel_launches, t1 - t0, t3 - t2
 
 
 def agree_upto(a, b, upto=None) -> tuple[bool, float, int | None]:
@@ -790,11 +843,14 @@ def path_a(torch):
     mat = materialize(spec, key=0, device="cuda")
     want = {"node_task_gram": T_GD + 1, "node_task_grad_tiles": T_GD,
             "mix_rows": T_GD, "node_fused_iter": 0}
-    trace, trace_ref, launches, run_s, ref_s = run_path(
-        torch, spec, mat, want, name="path A")
+    want_kernels = {"stream_gram_kernel": T_GD + 1,
+                    "mix_tile_kernel": T_GD}
+    trace, trace_ref, launches, kernel_launches, run_s, ref_s = run_path(
+        torch, spec, mat, want, want_kernels, name="path A")
     ok, diff, first = agree_upto(trace.sd_max, trace_ref.sd_max)
     emit("path_a", preset=cfg.name, n_folds=2, dtype="float32", T_GD=T_GD,
-         launches=launches, first_sd_max=float(trace.sd_max[0]),
+         launches=launches, kernel_launches=kernel_launches,
+         first_sd_max=float(trace.sd_max[0]),
          final_sd_max=trace.final_sd_max,
          final_spread=float(trace.spread[-1]),
          sd_max_vs_torch_ref_max_abs_diff=diff, run_s=run_s,
@@ -841,15 +897,18 @@ def path_b(torch, spec, mat):
                 "compress_topk": 0, "dequant": 0}
         if kernel:
             want[kernel] = T_con * T_GD
-        trace, trace_ref, launches, run_s, ref_s = run_path(
-            torch, s, mat, want, name=name)
+        want_kernels = {"fused_resident_kernel": T_GD,
+                        "mix_tile_kernel": T_con * T_GD,
+                        "stream_gram_kernel": 1}
+        trace, trace_ref, launches, kernel_launches, run_s, ref_s = run_path(
+            torch, s, mat, want, want_kernels, name=name)
         if kernel:
             launches_by_kernel.setdefault(kernel, launches.get(kernel, 0))
         ok, diff, first = agree_upto(trace.sd_max, trace_ref.sd_max, upto)
         final_rel = (abs(trace.final_sd_max - trace_ref.final_sd_max)
                      / trace_ref.final_sd_max)
         emit("path_b", solver=name, knobs=kw, dtype="float32", T_GD=T_GD,
-             T_con=T_con, launches=launches,
+             T_con=T_con, launches=launches, kernel_launches=kernel_launches,
              first_sd_max=float(trace.sd_max[0]),
              final_sd_max=trace.final_sd_max,
              torch_ref_final_sd_max=trace_ref.final_sd_max,
@@ -1069,21 +1128,25 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD, L=20,
 
 def check_serving_kernels(torch):
     """Phase 12: task_gram and task_grad_tiles against their plain
-    versions, with their times at each f32 shape (the kernel rows take
-    the cohort's, the serving phase's shape)."""
-    from repro_torch.kernels import altgdmin_ls, ops, ref
+    versions, with their times at each f32 shape (the kernel rows take the
+    cohort's, the serving phase's shape)."""
+    from repro_torch.kernels import _build, altgdmin_ls, ops, ref
 
     errs = {"task_gram": 0.0, "task_grad_tiles": 0.0}
-    times = {}
+    times, by_shape = {}, {}
     for sname, (T, n, d, r) in SINGLE_SHAPES.items():
         for dname in ("float32", "bfloat16"):
             X, U, y = (t[0] for t in instance(
                 torch, (1, T, n, d, r), getattr(torch, dname), seed=T + n))
             B = torch.randn((T, r), device="cuda", generator=torch.Generator(
                 device="cuda").manual_seed(T + n + 1))
-            G, c = altgdmin_ls.task_gram(X, U, y)
-            e_gram = pair_err(torch, (G, c), ref.ref_single_task_gram(X, U, y),
-                              TOL[dname], f"task_gram {sname} {dname}")
+            (G, c), gram_kernel = reported(_build, altgdmin_ls.task_gram,
+                                           X, U, y)
+            gram_ref = ref.ref_single_task_gram(X, U, y)
+            e_gram = pair_err(torch, (G, c), gram_ref, TOL[dname],
+                              f"task_gram {sname} {dname}")
+            require(gram_kernel == {"stream_gram_kernel": 1},
+                    f"task_gram {sname} {dname}: launched {gram_kernel}")
             tiles = altgdmin_ls.task_grad_tiles(X, U, B, y)
             e_grad = max_err(torch, tiles,
                              ref.ref_single_grad_tiles(X, U, B, y),
@@ -1102,12 +1165,14 @@ def check_serving_kernels(torch):
                         ref.ref_single_grad_tiles, (X, U, B, y),
                         nbytes(X, U, B, y, tiles),
                         T * (2 * n * d * r + 2 * n * r + 2 * n * d + d * r))}
+                by_shape[sname] = {"task_gram": timing_["task_gram"]["ms"],
+                                   "gram_kernel": gram_kernel}
                 if sname == "cohort":
                     times = timing_
             emit("serving_kernels", shape=sname, T=T, n=n, d=d, r=r,
                  dtype=dname, max_abs_err={"task_gram": e_gram,
                                            "task_grad_tiles": e_grad},
-                 timing=timing_)
+                 gram_kernel=gram_kernel, timing=timing_)
         # the ops on their two routes, f32 and f64 operands
         for dname in ("float32", "float64"):
             X, U, y = (t[0] for t in instance(
@@ -1124,6 +1189,8 @@ def check_serving_kernels(torch):
             emit("serving_kernels", shape=sname, dtype=dname,
                  max_abs_err={"altgdmin_minimize_B": e_min,
                               "altgdmin_gradient": e_g})
+    # task_gram's row: beside the cohort's time, each f32 shape's
+    times["task_gram"]["by_shape"] = by_shape
     return errs, times
 
 
@@ -1329,12 +1396,13 @@ def visible_pairs(Sq: int, Skv: int, window) -> int:
 
 # kernel templates by name in the mangled symbols of cuobjdump and ptxas:
 # the bf16 flash kernel (DMAX), the three bf16 ssd_scan passes (PMAX,
-# NMAX; the state pass by its vector width) and the resident
-# node_fused_iter kernel (dtype, rank capacity)
+# NMAX; the state pass by its vector width), the resident
+# node_fused_iter kernel and the streaming Gram kernel (dtype, rank
+# capacity)
 KERNEL_SYMBOL = re.compile(r"(flash_mma_kernel|chunk_state_kernel|"
                            r"state_pass_kernel|chunk_out_kernel|"
-                           r"fused_resident_kernel)I(f|13__nv_bfloat16)?"
-                           r"((?:Li\d+E)+)E")
+                           r"fused_resident_kernel|stream_gram_kernel)"
+                           r"I(f|13__nv_bfloat16)?((?:L[ib]\d+E)+)E")
 MANGLED_DTYPE = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
 
 
@@ -1354,7 +1422,7 @@ def sass_report(_build, lib, source: str) -> dict:
             return None
         dtype = (MANGLED_DTYPE[m[2]],) if m[2] else ()
         return m[1], dtype + tuple(int(v) for v in
-                                   re.findall(r"Li(\d+)E", m[3]))
+                                   re.findall(r"L[ib](\d+)E", m[3]))
 
     rows, key = {}, None
     for line in sass.splitlines():
@@ -1408,21 +1476,25 @@ def ssd_mma_report(_build, lib) -> list[dict]:
     return out
 
 
-def fused_resident_report(_build, lib) -> list[dict]:
-    """The resident node_fused_iter kernel at each dtype and rank
-    capacity (4, 8, 16): registers and spill bytes (sass_report).  Fails
-    unless all six are there and none at capacity 4 (the main path's,
-    its registers capped for five CTAs an SM) spills."""
+def altgdmin_report(_build, lib, kernel: str) -> list[dict]:
+    """``kernel`` (the resident node_fused_iter kernel, or the streaming
+    Gram kernel in its two forms, U_g's rows in shared memory or read
+    through L1) at each dtype and rank capacity (4, 8, 16): registers and
+    spill bytes (sass_report).  Fails unless every instantiation is there
+    and none at capacity 4 (the main path's, its registers capped for
+    five or two CTAs an SM) spills."""
     rows = sass_report(_build, lib, "altgdmin_ls")
     out = [{"dtype": args[0], "rank_capacity": args[1],
+            **({"u_shared": bool(args[2])} if len(args) > 2 else {}),
             "registers": row.get("registers"),
             "spill_bytes": row.get("spill_bytes")}
-           for (_, args), row in sorted(rows.items())]
-    require(len(out) == 6, f"fused_resident_kernel: want 6 instantiations, "
-                           f"got {out}")
+           for (name, args), row in sorted(rows.items()) if name == kernel]
+    want = 12 if kernel == "stream_gram_kernel" else 6
+    require(len(out) == want,
+            f"{kernel}: want {want} instantiations, got {out}")
     require(all(r["spill_bytes"] == 0 for r in out
                 if r["rank_capacity"] == 4),
-            f"fused_resident_kernel spills at rank capacity 4: {out}")
+            f"{kernel} spills at rank capacity 4: {out}")
     return out
 
 
@@ -1755,7 +1827,64 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
     return launches[kernel], kernel_launches16
 
 
-def main() -> int:
+# (L, M) of mix_rows in --kernel-times: Experiment 1's AGREE operand, then
+# tests/test_torch_gpu.py's other shapes
+MIX_TIME_SHAPES = ((20, 2400), (100, 1000), (3, 291), (37, 129))
+
+
+def kernel_times(torch, src: Path, label: str) -> dict:
+    """--kernel-times: the device ms of the least-squares and mixing
+    kernels of the port in ``src`` (see the module docstring)."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.kernels import _build, altgdmin_ls, gossip_axpy
+    _build.build(("altgdmin_ls", "gossip_axpy"))
+    times = {"launch_floor": device_ms(torch, lambda: torch.cuda._sleep(0))}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for L, M in MIX_TIME_SHAPES:
+            g = torch.Generator(device="cuda").manual_seed(L)
+            W = torch.rand((L, L), generator=g, device="cuda")
+            W = W / W.sum(dim=1, keepdim=True)
+            Z = torch.randn((L, M), generator=g, device="cuda").to(dtype)
+            times[f"mix_rows {L}x{M} {dname}"] = device_ms(
+                torch, lambda: gossip_axpy.mix_rows(W, Z))
+        for sname, shape in SHAPES.items():
+            X, U, y = instance(torch, shape, dtype, seed=0)
+            times[f"node_task_gram {sname} {dname}"] = device_ms(
+                torch, lambda: altgdmin_ls.node_task_gram(X, U, y))
+        for sname, (T, n, d, r) in SINGLE_SHAPES.items():
+            X, U, y = (t[0] for t in instance(torch, (1, T, n, d, r), dtype,
+                                              seed=0))
+            times[f"task_gram {sname} {dname}"] = device_ms(
+                torch, lambda: altgdmin_ls.task_gram(X, U, y))
+    f32 = torch.float32
+    X, U, y = instance(torch, SHAPES["exp1"], f32, seed=0)
+    times["node_fused_iter exp1 float32"] = device_ms(
+        torch, lambda: altgdmin_ls.node_fused_iter(X, U, y))
+    shape = GRAD_SHAPES["exp1_fold"]
+    X, U, y = instance(torch, shape, f32, seed=0)
+    B = torch.randn(shape[:2] + shape[4:], device="cuda")
+    times["node_task_grad_tiles exp1_fold float32"] = device_ms(
+        torch, lambda: altgdmin_ls.node_task_grad_tiles(X, U, B, y))
+    T, n, d, r = SINGLE_SHAPES["cohort"]
+    X, U, y = (t[0] for t in instance(torch, (1, T, n, d, r), f32, seed=0))
+    B = torch.randn((T, r), device="cuda")
+    times["task_grad_tiles cohort float32"] = device_ms(
+        torch, lambda: altgdmin_ls.task_grad_tiles(X, U, B, y))
+    return {"label": label, "src": str(src), "card": nvidia_smi_line(),
+            "ms": times}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernel-times", action="store_true",
+                        help="only time the least-squares and mixing kernels")
+    parser.add_argument("--src", type=Path, default=SRC,
+                        help="with --kernel-times: the src directory of the "
+                             "tree to time")
+    parser.add_argument("--label", default="this checkout",
+                        help="with --kernel-times: the name of the tree")
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1764,15 +1893,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print("chip_smoke: run from the repository root (src/repro_torch "
-              "is missing)", file=sys.stderr)
+    src = args.src if args.kernel_times else SRC
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: run from the repository root ({src}/repro_torch "
+              f"is missing)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     # plain float32 products in full precision on the card (no TF32), so
     # the plain versions are a fair yardstick
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.kernel_times:
+        print(json.dumps(kernel_times(torch, src, args.label)), flush=True)
+        return 0
+    sys.path.insert(0, str(SRC))
 
     smi = nvidia_smi_line()
     emit("card", nvidia_smi=smi, torch=torch.__version__,
@@ -1789,9 +1922,15 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
          flash_mma_kernel=flash_mma_report(_build, paths["flash_attention"]),
          ssd_kernels=ssd_mma_report(_build, paths["ssd_scan"]),
-         fused_resident_kernel=fused_resident_report(
-             _build, paths["altgdmin_ls"]))
+         fused_resident_kernel=altgdmin_report(
+             _build, paths["altgdmin_ls"], "fused_resident_kernel"),
+         stream_gram_kernel=altgdmin_report(
+             _build, paths["altgdmin_ls"], "stream_gram_kernel"))
 
+    # the launch floor: an empty kernel, timed back to back as the
+    # kernels are
+    launch_floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
+    emit("launch_floor", ms=launch_floor_ms)
     rows = check_kernels(torch)
     spec, mat, launches, trace = main_path(torch)
     profile(torch, spec, mat, label="main")
@@ -1822,8 +1961,14 @@ def main() -> int:
                         "max_abs_err": max(errs),
                         **main_row["timing"][name]})
     # node_fused_iter's row: beside its time, the resident kernel's with
-    # one and with two CTAs a task forced
+    # one and with two CTAs a task forced; node_task_gram's its time at
+    # path A's fold (501 launches there); mix_rows's beside the launch
+    # floor
     kernels[0]["ms_by_ctas_a_task"] = main_row["fused_ms_by_ctas"]
+    kernels[1]["launch_floor_ms"] = launch_floor_ms
+    kernels[2].update(
+        cuda_kernel=main_row["gram_kernel"],
+        path_a_fold=rows[("exp1_fold", "float32")]["timing"]["node_task_gram"])
     slice_launches = {"node_task_grad_tiles":
                       launches_a["node_task_grad_tiles"], **launches_b}
     for name in ("node_task_grad_tiles", "compress_topk", "dequant"):
@@ -1832,11 +1977,13 @@ def main() -> int:
                         "launches": slice_launches[name],
                         "max_abs_err": slice_errs[name],
                         **slice_timing[name]})
+        if name != "node_task_grad_tiles":
+            kernels[-1]["launch_floor_ms"] = launch_floor_ms
     kernels.append({"name": "gossip_combine", "route": "cuda",
                     "source": SOURCES["gossip_combine"],
                     "replaces": REPLACES["gossip_combine"],
                     "launches": launches_mesh, "max_abs_err": combine_err,
-                    **combine_timing})
+                    "launch_floor_ms": launch_floor_ms, **combine_timing})
     for name in ("task_gram", "task_grad_tiles"):
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],

@@ -11,7 +11,10 @@
   made in ``csrc/altgdmin_ls.cu``, which reports the kernel it launched
   (:data:`repro_torch.kernels._build.KERNEL_LAUNCHES`).
 * :func:`node_task_gram` replaces ``node_task_gram``
-  (``_gram_kernel_nb``): the Gram pair (G, c) of every task.
+  (``_gram_kernel_nb``): the Gram pair (G, c) of every task, one CTA a
+  task streaming X once and holding none of it (``stream_gram_kernel``),
+  with U_g's rows in shared memory where they fit and read through L1
+  where they do not; the C entry reports which.
 * :func:`node_task_grad_tiles` replaces ``node_task_grad_tiles``
   (``_grad_kernel_nb``): the gradient tiles for a GIVEN B, the second
   launch of the sample-split path; A = X_t U_g is rebuilt on the
@@ -25,10 +28,10 @@
   tpn = T), where every block's basis is that U, and keep their own
   launch counts.
 
-All five are bound by the bytes of X: one block per task streams its X_t
-row by row (see the source for the design).  X, U and y are taken in
-float32 or bfloat16; float64 inputs are converted to float32 first,
-which is what the TPU kernel's ``astype(float32)`` does in its body.
+All five are bound by the bytes of X (see the source for each design).
+X, U and y are taken in float32 or bfloat16; float64 inputs are
+converted to float32 first, which is what the TPU kernel's
+``astype(float32)`` does in its body.
 B is taken as float32 whatever its dtype, as the TPU body converts it.
 The plain versions are :mod:`repro_torch.kernels.ref`.
 """
@@ -45,13 +48,15 @@ R_MAX = 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "altgdmin_node_fused_iter": (_I, [_P] * 5 + [_I] * 7 + [_P, _I, _P]),
-    "altgdmin_node_task_gram": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "altgdmin_node_task_gram": (_I, [_P] * 5 + [_I] * 7 + [_P, _P]),
     "altgdmin_node_grad_tiles": (_I, [_P] * 5 + [_I] * 7 + [_P]),
     "altgdmin_error_string": (ctypes.c_char_p, [_I]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels altgdmin_node_fused_iter reports in its launched[] slots
 _FUSED_KERNELS = ("fused_resident_kernel", "fused_iter_kernel")
+# altgdmin_node_task_gram's: U_g's rows in shared memory, or through L1
+_GRAM_KERNELS = ("stream_gram_kernel", "stream_gram_kernel/u_from_l1")
 
 
 def _operands(X, U, y):
@@ -149,14 +154,21 @@ def node_fused_iter(X, U, y, *, ctas_per_task=None):
     return B, tiles
 
 
-def node_task_gram(X, U, y):
-    """The Gram systems of all tasks, one launch.  Same operands as
-    :func:`node_fused_iter` → G (L, tpn, r, r), c (L, tpn, r), float32."""
-    X, U, y, dims, code = _operands(X, U, y)
+def _gram(X, U, y, dims, code):
+    """Launch the Gram kernel on the node layout; G, c of all tasks."""
     L, tpn, n, d, r = dims
     G = torch.empty((L, tpn, r, r), dtype=torch.float32, device=X.device)
     c = torch.empty((L, tpn, r), dtype=torch.float32, device=X.device)
-    _launch("altgdmin_node_task_gram", (X, U, y, G, c), dims, code)
+    launched = (ctypes.c_int * len(_GRAM_KERNELS))()
+    _launch("altgdmin_node_task_gram", (X, U, y, G, c), dims, code, launched)
+    _build.count_kernels(_GRAM_KERNELS, launched)
+    return G, c
+
+
+def node_task_gram(X, U, y):
+    """The Gram systems of all tasks, one launch.  Same operands as
+    :func:`node_fused_iter` → G (L, tpn, r, r), c (L, tpn, r), float32."""
+    G, c = _gram(*_operands(X, U, y))
     _build.LAUNCHES["node_task_gram"] += 1
     return G, c
 
@@ -179,11 +191,7 @@ def task_gram(X, U, y):
     """The Gram systems of T tasks against one basis, one launch.
     X (T, n, d), U (d, r), y (T, n) on the card → G (T, r, r),
     c (T, r), float32."""
-    X, U, y, dims, code = _single_operands(X, U, y)
-    _, T, n, d, r = dims
-    G = torch.empty((1, T, r, r), dtype=torch.float32, device=X.device)
-    c = torch.empty((1, T, r), dtype=torch.float32, device=X.device)
-    _launch("altgdmin_node_task_gram", (X, U, y, G, c), dims, code)
+    G, c = _gram(*_single_operands(X, U, y))
     _build.LAUNCHES["task_gram"] += 1
     return G[0], c[0]
 

@@ -11,6 +11,8 @@
 //     not (see "Design" for both).
 //   * altgdmin_node_task_gram   <- node_task_gram (_gram_kernel_nb): the
 //     first half only, emitting (G, c); the r x r solve runs outside.
+//     stream_gram_kernel streams X_t once and holds none of it (see
+//     "Design").
 //   * altgdmin_node_grad_tiles  <- node_task_grad_tiles (_grad_kernel_nb):
 //     the second half for a GIVEN B (the sample-split path, where B comes
 //     from another fold): A = X_t U_g is rebuilt, resid = A b_t - y_t, and
@@ -20,9 +22,9 @@
 //     basis U (d, r) shared by T tasks, are the last two entries launched
 //     with L = 1, tpn = T: with one node every block's basis is U.  At the
 //     serving batch (T = 32, n = 16, d = 600, r = 4, f32) they must move
-//     1.24 / 1.55 MB (0.37 / 0.46 us at 3.35 TB/s); one block a task fills
-//     only 32 of the 132 SMs there, a known weakness left for a later
-//     change (a block per (task, d slice)).
+//     1.24 / 1.55 MB (0.37 / 0.46 us at 3.35 TB/s), so both are bound by
+//     the launch and a few trips to memory there; each runs one CTA a
+//     task (32 of the 132 SMs).
 //
 // Layouts (row-major, contiguous): X (L, tpn, n, d), U (L, d, r),
 // y (L, tpn, n) in float32 or bfloat16 (converted to f32 in the load);
@@ -32,14 +34,31 @@
 //
 // Design.  The Pallas kernel carries A across sequential grid steps over
 // d tiles in VMEM scratch; CUDA blocks run in no order, so here ONE block
-// owns one task and loops over the whole of d itself (L*tpn = 600 blocks
-// at the paper's Experiment 1 shape, enough to fill 132 SMs).  Each warp
-// builds rows of A with its lanes strided along d, so a warp reads a row
-// of X as one contiguous stream; the ragged end of d is masked by the loop
-// bound, nothing is padded.  A, y, G, c, b and the residual stay in shared
-// memory.  The Cholesky is done by one thread in f32 in exactly the order
-// of _chol_solve_unrolled.  The gradient pass re-reads X with threads
-// along d (coalesced).
+// (or one cluster) owns one task and loops over d itself (L*tpn = 600
+// tasks at the paper's Experiment 1 shape, enough to fill 132 SMs).  In
+// the first port's kernels (fused_iter_kernel, grad_tiles_kernel) each
+// warp builds rows of A with its lanes strided along d, so a warp reads a
+// row of X as one contiguous stream; the ragged end of d is masked by the
+// loop bound, nothing is padded.  A, y, G, c, b and the residual stay in
+// shared memory.  The Cholesky is done by one thread in f32 in exactly
+// the order of _chol_solve_unrolled.  The gradient pass re-reads X with
+// threads along d (coalesced).
+//
+// The Gram kernel (stream_gram_kernel) reads X once and needs only bytes
+// in flight and reuse of U.  One CTA owns a task.  Each warp forms four
+// rows of A at a time (one read of a U row serves four X values), a lane
+// taking one 16-byte chunk of each row a step; the lane copies its
+// chunks with cp.async into its own slots of a ring in shared memory,
+// three steps ahead of the one it computes, so the bytes in flight take
+// no registers and need no barrier.  U_g's rows are staged in shared
+// memory once where they fit (else read through L1).  Each step's
+// products are summed over the lanes by shuffles, the steps in column
+// order; G and c are formed one output a thread over chunks of A's rows.
+// Up to four warps a CTA where the grid has two CTAs an SM or more, up
+// to eight where it has fewer (gram_warps).  A task is not split over
+// CTAs: on the H100 a cluster split measured slower at the serving batch
+// and at Experiment 1 (PERF.md).  No count of warps, and no zero row or
+// task added, changes a bit of a task's G and c.
 //
 // The resident fused kernel runs a task on a thread-block cluster of one
 // or two CTAs (resident_ctas), each holding its share of X_t's columns
@@ -61,13 +80,13 @@
 // Bound on the card: bytes.  At Experiment 1 (L=20, tpn=30, n=30, d=600,
 // r=4, f32) the fused kernel must move 49.2 MB (X once, the tiles once):
 // 0.0147 ms at 3.35 TB/s, while its arithmetic would take a tenth of that
-// at the f32 peak.  The two-pass kernel reads X twice, the second time
-// largely from L2: measured by chip_smoke.py on an NVIDIA H100 80GB HBM3
-// at its 700 W limit, 0.066 ms per fused launch, 0.041 ms per Gram
-// launch (bound 0.0130 ms).  The gradient kernel at the sample-split fold
-// of Experiment 1 (n = 15 per fold) must move 27.4 MB (X once, the tiles
+// at the f32 peak; the Gram kernel 43.5 MB (0.0130 ms).  The two-pass
+// kernel reads X twice, the second time largely from L2: measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3 at its 700 W limit, 0.066 ms
+// per fused launch.  The gradient kernel at the sample-split fold of
+// Experiment 1 (n = 15 per fold) must move 27.4 MB (X once, the tiles
 // once; 0.0082 ms at 3.35 TB/s) and reads X twice, the second time from
-// L2 (a fold's X, 21.6 MB, fits the 50 MB L2).
+// L2 (a fold's X, 21.6 MB, fits the 50 MB L2).  Times: PERF.md.
 // r is bounded by a template capacity of 4, 8 or 16 (R_MAX = 16) so the
 // per-lane accumulators of A stay in registers.
 
@@ -482,21 +501,342 @@ fused_resident_kernel(const T* __restrict__ X, const T* __restrict__ U,
   cluster.sync();  // no CTA leaves while a peer may read its partial A
 }
 
+// stream_gram_kernel: the Gram pair of a task on one CTA of gram_warps
+// warps.  Where U_g's rows fit in shared memory beside the rest of the
+// kernel's (kUShared; d r up to about 40 K values in f32), they are staged
+// there once; past that (d = 4096 at r = 16 in f32, say) each lane reads
+// them through L1.  A is formed gram_chunk_rows rows at a time, so n is
+// bounded by nothing but the grid.
+constexpr int kGramStages = 4;      // 16-byte chunks in flight a row a lane
+constexpr int kGramFillCtas = 132;  // the card's SMs
+constexpr int kGramMaxWarps = 8;
+constexpr int kGramChunkRows = 256;  // rows of A in shared memory at most
+
+// Warps a CTA: one a group of kRowsA rows, at most four where the grid
+// has two CTAs an SM or more (more CTAs an SM instead), else eight.
+inline int gram_warps(int n, int tasks) {
+  const int groups = (n + kRowsA - 1) / kRowsA;
+  const int cap = tasks >= 2 * kGramFillCtas ? 4 : kGramMaxWarps;
+  return groups < cap ? groups : cap;
+}
+
+// Rows of A a chunk: whole groups of kRowsA rows for every warp (so every
+// chunk starts at a multiple of kRowsA), all of n where it fits.
+inline int gram_chunk_rows(int n, int warps) {
+  const int per = warps * kRowsA;
+  const int most = (kGramChunkRows / per > 1 ? kGramChunkRows / per : 1) * per;
+  const int all = (n + per - 1) / per * per;
+  return most < all ? most : all;
+}
+
+// Shared memory of one CTA: U_g's rows (d x RC in X's dtype, a 16-byte
+// multiple; kUShared only), each warp's ring of kGramStages x kRowsA
+// chunks a lane, A's chunk (rows x RC), y_t's chunk, and the four partial
+// sums of each output of G and c carried from chunk to chunk.
 template <typename T, int RC>
-__global__ void __launch_bounds__(kThreads)
-task_gram_kernel(const T* __restrict__ X, const T* __restrict__ U,
-                 const T* __restrict__ Y, float* __restrict__ Gout,
-                 float* __restrict__ Cout, int tpn, int n, int d, int r) {
-  extern __shared__ float smem[];
-  TaskSmem<RC> s(smem, n);
-  const size_t task = blockIdx.x;
+__host__ __device__ size_t gram_us_bytes(int d) {
+  return ((size_t)d * RC * sizeof(T) + 15) & ~(size_t)15;
+}
+template <int RC>
+size_t gram_rest_bytes(int rows, int warps) {
+  return sizeof(uint4) * warps * kGramStages * kRowsA * 32 +
+         sizeof(float) * ((size_t)rows * (RC + 1) + 4 * (RC * RC + RC));
+}
+
+// Row j of U (row stride r) from global memory through L1, as f32, 0
+// past r.
+template <int RC, typename T>
+__device__ __forceinline__ void u_row_ldg(const T* __restrict__ u, int j,
+                                          int r, float (&uv)[RC]) {
+#pragma unroll
+  for (int k = 0; k < RC; ++k)
+    uv[k] = k < r ? to_f32(__ldg(u + j * r + k)) : 0.f;
+}
+
+// 16 bytes of X (four f32 or eight bf16 values) as raw bits, element by
+// element (rows not 16-byte aligned), 0 past the d columns.
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ row, int c,
+                                            int d) {
+  constexpr int kPer = 16 / sizeof(T);
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const int j = c * kPer + e;
+    if (j < d) {
+      if constexpr (sizeof(T) == 4)
+        w[e] = reinterpret_cast<const unsigned*>(row)[j];
+      else
+        w[e / 2] |= (unsigned)reinterpret_cast<const unsigned short*>(row)[j]
+                    << (16 * (e % 2));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// value e (a constant once unrolled) of a chunk's raw bits as f32
+template <typename T>
+__device__ __forceinline__ float chunk_value(uint4 q, int e) {
+  constexpr int kPerWord = 4 / sizeof(T);   // values a 32-bit word
+  const int wi = e / kPerWord;
+  const unsigned w = wi == 0 ? q.x : wi == 1 ? q.y : wi == 2 ? q.z : q.w;
+  if constexpr (sizeof(T) == 4)
+    return __uint_as_float(w);
+  else
+    return __uint_as_float(e % 2 ? w & 0xffff0000u : w << 16);
+}
+
+// cp.async as in mma_sm90.cuh, but each a compiler barrier too, so no
+// shared-memory access of the thread moves across it: a lane reads a
+// ring slot only after the wait for it, and refills it only after the
+// read.
+__device__ __forceinline__ void cp_async16_mem(void* dst, const void* src,
+                                               int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   sm90::smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit_mem() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_mem() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The sums over the warp's lanes of V values a lane (V = 16, 32 or 64),
+// in about V shuffles: at offsets 16, 8, .. each lane keeps half of its
+// values (the upper half where its lane bit is set) and adds its
+// partner's sums of that half; at V = 16 a last butterfly at offset 1.
+// Every value is summed over the lanes in the same tree, whichever lane
+// ends up holding it.  Template recursion keeps every index a constant,
+// so v stays in registers.  After it v[0] (and v[1] where V = 64) hold
+// the totals of values sum_index<V>(lane) (+ 1); at V = 16 lanes 2k and
+// 2k + 1 hold the same.
+template <int V, int Half, int O>
+__device__ __forceinline__ void warp_sum_values(float (&v)[V], int lane) {
+  if constexpr (O >= 1) {
+    if constexpr (Half >= 1) {
+      const bool upper = lane & O;
+#pragma unroll
+      for (int i = 0; i < Half; ++i) {
+        const float lo = v[i], hi = v[i + Half];
+        const float got = __shfl_xor_sync(0xffffffffu, upper ? lo : hi, O);
+        v[i] = (upper ? hi : lo) + got;
+      }
+      warp_sum_values<V, Half / 2, O / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      warp_sum_values<V, 0, O / 2>(v, lane);
+    }
+  }
+}
+template <int V>
+__device__ __forceinline__ int sum_index(int lane) {
+  int idx = 0;
+#pragma unroll
+  for (int s = 0; s < 5; ++s)
+    if ((V >> (s + 1)) >= 1 && (lane & (16 >> s))) idx += V >> (s + 1);
+  return idx;
+}
+
+// The Gram pair streams X once and holds none of it: each warp forms
+// kRowsA rows of A at a time, a lane taking one 16-byte chunk of each row
+// a step (a block of 32 chunks a warp), its lanes on neighbouring chunks.
+// A lane copies its chunks into its own slots of the warp's ring with
+// 16-byte cp.async, kGramStages - 1 steps ahead of the step it computes,
+// so no register holds the bytes in flight and no barrier is needed
+// (where the rows are not 16-byte aligned, as at d = 97, it loads them
+// element by element into the same slots).  One read of a U row serves
+// kRowsA X values.
+//
+// Every entry of A is summed in one order, whatever the warps, rows or
+// tasks of the launch: a block's products over the lanes by
+// warp_sum_values, then the blocks in column order from 0, in registers.
+// The warps write a chunk of A's rows to shared memory; G and c are then
+// formed one output a thread over the chunk's rows in order (four
+// interleaved sums, carried from chunk to chunk; an output a warp, lanes
+// over the rows, was slower at every shape timed: PERF.md).  Chunks
+// start at multiples of four rows, so the chunking changes no bit
+// either, and zero rows or tasks added around a task (the serving
+// engine's padding) leave its G and c bit for bit as they are.
+template <typename T, int RC, bool kUShared>
+__global__ void __launch_bounds__(kGramMaxWarps * 32, RC == 16 ? 1 : 2)
+stream_gram_kernel(const T* __restrict__ X, const T* __restrict__ U,
+                   const T* __restrict__ Y, float* __restrict__ Gout,
+                   float* __restrict__ Cout, int tpn, int n, int d, int r,
+                   int vec, int chunk_rows) {
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int kV = kRowsA * RC;
+  constexpr int kT = kV >= 64 ? 2 : 1;       // totals a lane holds
+  constexpr int S = kGramStages;
+  const int nch = (d + kPer - 1) / kPer;     // 16-byte chunks of a row
+  const int nwarps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* us = reinterpret_cast<T*>(smem_raw);   // d x r: U_g's rows (kUShared)
+  uint4* const ring0 = reinterpret_cast<uint4*>(
+      smem_raw + (kUShared ? gram_us_bytes<T, RC>(d) : 0));
+  // [S][kRowsA][32] slots of this warp, this lane's column
+  uint4* ring = ring0 + (size_t)warp * S * kRowsA * 32 + lane;
+  float* A =   // chunk_rows x RC
+      reinterpret_cast<float*>(ring0 + (size_t)nwarps * S * kRowsA * 32);
+  float* yv = A + (size_t)chunk_rows * RC;   // chunk_rows
+  float* gs = yv + chunk_rows;               // [r r + r][4]
+  const size_t task = blockIdx.x;            // g * tpn + t
   const size_t g = task / tpn;
-  load_task<T, RC>(X + task * n * d, U + g * d * r, Y + task * n, s, n, d, r);
+  const T* x = X + task * n * d;
+  const T* u = U + g * d * r;
+  const T* yt = Y + task * n;
+
+  // U_g's rows, once
+  if constexpr (kUShared) {
+    if (vec) {
+      for (int e = threadIdx.x; e < d * r / kPer; e += blockDim.x)
+        cp_async16_mem(us + e * kPer, u + e * kPer, 16);
+    } else {
+      for (int e = threadIdx.x; e < d * r; e += blockDim.x) us[e] = u[e];
+    }
+  }
+  cp_async_commit_mem();
+
+  // Each warp walks its row groups (warp, warp + nwarps, ..), a group in
+  // steps of one block: step s has rows i0(s) .. + kRowsA and the lane's
+  // chunk base(s) + lane.  (li0, lbase) is the next step to load.  A
+  // chunk of rows holds gpc groups of each warp.
+  const int groups = (n + kRowsA - 1) / kRowsA;
+  const int per_group = (nch + 31) / 32;
+  const int my_groups =
+      warp < groups ? (groups - warp + nwarps - 1) / nwarps : 0;
+  const int steps = my_groups * per_group;
+  const int gpc = chunk_rows / (nwarps * kRowsA);
+  int li0 = warp * kRowsA, lbase = 0;
+  const auto load = [&](int slot) {
+    const int c = lbase + lane;
+#pragma unroll
+    for (int rr = 0; rr < kRowsA; ++rr) {
+      uint4* dst = ring + (slot * kRowsA + rr) * 32;
+      const bool in = c < nch && li0 + rr < n;
+      const T* src = x + (size_t)(in ? li0 + rr : 0) * d;
+      if (vec)
+        cp_async16_mem(dst, src + (in ? c * kPer : 0), in ? 16 : 0);
+      else
+        *dst = in ? load_chunk<T>(src, c, d) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    lbase += 32;
+    if (lbase >= nch) lbase = 0, li0 += nwarps * kRowsA;
+  };
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit_mem();
+  }
+  cp_async_wait_mem<S - 1>();   // U_g's rows are in
   __syncthreads();
-  form_gram<RC>(s, n, r);
-  __syncthreads();
-  for (int e = threadIdx.x; e < r * r; e += kThreads) Gout[task * r * r + e] = s.G[e];
-  for (int k = threadIdx.x; k < r; k += kThreads) Cout[task * r + k] = s.c[k];
+
+  const int idx = sum_index<kV>(lane);
+  const bool writer = kV > 16 || (lane & 1) == 0;
+  float tot[kT];
+#pragma unroll
+  for (int t = 0; t < kT; ++t) tot[t] = 0.f;
+  int i0 = warp * kRowsA, base = 0, s = 0;
+  for (int row0 = 0, ch = 0; row0 < n; row0 += chunk_rows, ++ch) {
+    const int rows = min(chunk_rows, n - row0);
+    // y_t's entry of this thread, waited on only where c is formed
+    const T yraw = (int)threadIdx.x < rows ? yt[row0 + threadIdx.x] : T(0.f);
+    const int s_end = min((ch + 1) * gpc, my_groups) * per_group;
+    for (; s < s_end; ++s) {
+      if (s + S - 1 < steps) load((s + S - 1) % S);
+      cp_async_commit_mem();
+      cp_async_wait_mem<S - 1>();   // step s's chunks are in this lane's slots
+      float acc[kV];
+#pragma unroll
+      for (int v = 0; v < kV; ++v) acc[v] = 0.f;
+      const int c = base + lane;
+      if (c < nch) {
+        uint4 q[kRowsA];
+#pragma unroll
+        for (int rr = 0; rr < kRowsA; ++rr)
+          q[rr] = ring[((s % S) * kRowsA + rr) * 32];
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          const int j = c * kPer + e;
+          if (vec || j < d) {
+            float uv[RC];
+            if constexpr (kUShared)
+              u_row<RC>(us, j, r, uv);
+            else
+              u_row_ldg<RC>(u, j, r, uv);
+#pragma unroll
+            for (int rr = 0; rr < kRowsA; ++rr) {
+              const float xv = chunk_value<T>(q[rr], e);
+#pragma unroll
+              for (int k = 0; k < RC; ++k)
+                acc[rr * RC + k] = fmaf(xv, uv[k], acc[rr * RC + k]);
+            }
+          }
+        }
+      }
+      // the block's sums over the lanes, then into the rows' running sums
+      warp_sum_values<kV, kV / 2, 16>(acc, lane);
+#pragma unroll
+      for (int t = 0; t < kT; ++t) tot[t] += acc[t];
+      base += 32;
+      if (base >= nch) {   // the group's rows are complete
+#pragma unroll
+        for (int t = 0; t < kT; ++t) {
+          const int rr = (idx + t) / RC, k = (idx + t) % RC;
+          if (writer && k < r && i0 + rr < n)
+            A[(i0 + rr - row0) * RC + k] = tot[t];
+          tot[t] = 0.f;
+        }
+        base = 0;
+        i0 += nwarps * kRowsA;
+      }
+    }
+    for (int i = threadIdx.x; i < rows; i += blockDim.x)
+      yv[i] = to_f32(i == (int)threadIdx.x ? yraw : yt[row0 + i]);
+    __syncthreads();
+    // G = A^T A and c = A^T y over the chunk's rows: one output a thread
+    // over the rows in order, four interleaved sums
+    const bool last = row0 + rows >= n;
+    for (int e = threadIdx.x; e < r * r + r; e += blockDim.x) {
+      const int a = e < r * r ? e / r : e - r * r;
+      const float* bv = e < r * r ? A + e % r : yv;
+      const int bs = e < r * r ? RC : 1;
+      float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
+      if (row0 > 0) {
+        v0 = gs[4 * e];
+        v1 = gs[4 * e + 1];
+        v2 = gs[4 * e + 2];
+        v3 = gs[4 * e + 3];
+      }
+      int i = 0;
+      for (; i + 3 < rows; i += 4) {
+        v0 = fmaf(A[i * RC + a], bv[i * bs], v0);
+        v1 = fmaf(A[(i + 1) * RC + a], bv[(i + 1) * bs], v1);
+        v2 = fmaf(A[(i + 2) * RC + a], bv[(i + 2) * bs], v2);
+        v3 = fmaf(A[(i + 3) * RC + a], bv[(i + 3) * bs], v3);
+      }
+      if (i < rows) v0 = fmaf(A[i * RC + a], bv[i * bs], v0);
+      if (i + 1 < rows) v1 = fmaf(A[(i + 1) * RC + a], bv[(i + 1) * bs], v1);
+      if (i + 2 < rows) v2 = fmaf(A[(i + 2) * RC + a], bv[(i + 2) * bs], v2);
+      if (!last) {
+        gs[4 * e] = v0;
+        gs[4 * e + 1] = v1;
+        gs[4 * e + 2] = v2;
+        gs[4 * e + 3] = v3;
+      } else {
+        const float v = (v0 + v1) + (v2 + v3);
+        if (e < r * r)
+          Gout[task * r * r + e] = v;
+        else
+          Cout[task * r + a] = v;
+      }
+    }
+    if (!last) __syncthreads();   // A's next chunk overwrites this one
+  }
 }
 
 template <typename T, int RC>
@@ -520,14 +860,14 @@ grad_tiles_kernel(const T* __restrict__ X, const T* __restrict__ U,
 enum Kind { kFused, kGram, kGrad };
 
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int tasks, size_t smem, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch(Kernel kernel, int blocks, int threads, size_t smem,
+                   cudaStream_t stream, Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<tasks, kThreads, smem, stream>>>(args...);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -563,6 +903,8 @@ cudaError_t launch_resident(int tasks, int ctas, size_t smem,
 // The fused kind counts the kernel it launched in launched[0] (resident)
 // or launched[1] (two-pass): the choice is made here only.  ctas 0 picks
 // the resident kernel's CTAs a task (resident_ctas); 1 or 2 forces it.
+// The Gram kind counts its launch in launched[0] where U_g's rows are
+// staged in shared memory, launched[1] where they are read through L1.
 template <typename T, int RC>
 cudaError_t run(Kind kind, const void* X, const void* U, const void* Bin,
                 const void* Y, void* o1, void* o2, int tasks, int tpn, int n,
@@ -585,17 +927,33 @@ cudaError_t run(Kind kind, const void* X, const void* U, const void* Bin,
       err = launch_resident<T, RC>(tasks, ctas, smem_res, stream, x, u, y,
                                    out1, out2, tpn, n, d, r, vec);
     } else {
-      err = launch(fused_iter_kernel<T, RC>, tasks, smem, stream, x, u, y,
-                   out1, out2, tpn, n, d, r);
+      err = launch(fused_iter_kernel<T, RC>, tasks, kThreads, smem, stream,
+                   x, u, y, out1, out2, tpn, n, d, r);
     }
     if (err == cudaSuccess) ++launched[resident ? 0 : 1];
     return err;
   }
-  if (kind == kGram)
-    return launch(task_gram_kernel<T, RC>, tasks, smem, stream, x, u, y,
-                  out1, out2, tpn, n, d, r);
-  return launch(grad_tiles_kernel<T, RC>, tasks, smem, stream, x, u,
-                static_cast<const float*>(Bin), y, out1, tpn, n, d, r);
+  if (kind == kGram) {
+    const int vec = ((size_t)d * sizeof(T)) % 16 == 0 &&
+                    (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(U) & 15) == 0;
+    const int warps = gram_warps(n, tasks);
+    const int rows = gram_chunk_rows(n, warps);
+    const size_t rest = gram_rest_bytes<RC>(rows, warps);
+    const size_t with_u = gram_us_bytes<T, RC>(d) + rest;
+    const bool ushared = with_u <= kResidentSmemMax;
+    const cudaError_t err =
+        ushared ? launch(stream_gram_kernel<T, RC, true>, tasks, 32 * warps,
+                         with_u, stream, x, u, y, out1, out2, tpn, n, d, r,
+                         vec, rows)
+                : launch(stream_gram_kernel<T, RC, false>, tasks, 32 * warps,
+                         rest, stream, x, u, y, out1, out2, tpn, n, d, r, vec,
+                         rows);
+    if (err == cudaSuccess) ++launched[ushared ? 0 : 1];
+    return err;
+  }
+  return launch(grad_tiles_kernel<T, RC>, tasks, kThreads, smem, stream, x,
+                u, static_cast<const float*>(Bin), y, out1, tpn, n, d, r);
 }
 
 template <typename T>
@@ -652,11 +1010,16 @@ int altgdmin_node_fused_iter(const void* X, const void* U, const void* Y,
                device, stream, ctas, launched);
 }
 
+// The Gram entry adds 1 to launched[0] where stream_gram_kernel staged
+// U_g's rows in shared memory, to launched[1] where it read them through
+// L1 (d r past the budget).
 int altgdmin_node_task_gram(const void* X, const void* U, const void* Y,
                             void* G, void* c, int L, int tpn, int n, int d,
-                            int r, int dtype, int device, void* stream) {
+                            int r, int dtype, int device, void* stream,
+                            int* launched) {
+  if (launched == nullptr) return (int)cudaErrorInvalidValue;
   return entry(kGram, X, U, nullptr, Y, G, c, L, tpn, n, d, r, dtype, device,
-               stream);
+               stream, 0, launched);
 }
 
 // B is float32 whatever the dtype of X, U and y.

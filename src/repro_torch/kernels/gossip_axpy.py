@@ -3,7 +3,11 @@
 :func:`mix_rows` replaces ``mix_rows`` of
 ``src/repro/kernels/gossip_axpy.py`` (``_mix_kernel``): Z ← W Z over the
 node axis for a precomputed dense mixer (W^{T_con}), the whole AGREE
-phase in one launch.  :func:`gossip_combine` replaces ``gossip_combine``
+phase in one launch: one trip to memory a CTA where a tile of Z and its
+rows of W fit its shared memory (``mix_tile_kernel``), an h-tiled loop
+past that (``mix_rows_kernel``); the C entry reports which it launched
+(:data:`repro_torch.kernels._build.KERNEL_LAUNCHES`).
+:func:`gossip_combine` replaces ``gossip_combine``
 (``_combine_kernel``) of the same file: one mesh gossip round's
 (K+1)-way weighted combine of a node's block with its K neighbour
 blocks.  At the paper's shapes both have little data to move, so a
@@ -21,11 +25,13 @@ from repro_torch.kernels import _build
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "gossip_mix_rows": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "gossip_mix_rows": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "gossip_combine": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _P]),
     "gossip_error_string": (ctypes.c_char_p, [_I]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels gossip_mix_rows reports in its launched[] slots
+_MIX_KERNELS = ("mix_tile_kernel", "mix_rows_kernel")
 
 
 def mix_rows(W, Z):
@@ -53,13 +59,15 @@ def mix_rows(W, Z):
     Wk = W.to(torch.float32).contiguous()
     out = torch.empty((L, M), dtype=dt, device=Z.device)
     lib = _build.load("gossip_axpy", _SIGNATURES)
+    launched = (ctypes.c_int * len(_MIX_KERNELS))()
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         err = lib.gossip_mix_rows(Wk.data_ptr(), Zk.data_ptr(),
                                   out.data_ptr(), L, M, _DTYPE_CODE[dt],
-                                  Z.device.index, stream)
+                                  Z.device.index, stream, launched)
     _build.check(lib, "gossip_error_string", err, "gossip_mix_rows")
     _build.LAUNCHES["mix_rows"] += 1
+    _build.count_kernels(_MIX_KERNELS, launched)
     return out.to(Z.dtype)
 
 

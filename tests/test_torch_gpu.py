@@ -101,18 +101,114 @@ def test_fused_iter_resident_and_two_pass_kernels_match_plain(cuda, dtype):
         _close(tiles, tiles_ref, TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,M", [(20, 2400), (100, 1000), (3, 291),
-                                 (37, 129)])
-def test_mix_rows_matches_plain(cuda, L, M, dtype):
-    from repro_torch.kernels import gossip_axpy, ref
+# gossip_mix_rows' kernels: a tile of Z and 32 rows of W in shared memory
+# (L up to about 500 in f32), or the h-tiled loop past that
+MIX_TILE, MIX_HTILED = "mix_tile_kernel", "mix_rows_kernel"
+
+
+def _mix_operands(L, M, dtype):
     g = torch.Generator(device="cuda").manual_seed(L)
     W = torch.rand((L, L), generator=g, device="cuda")
     W = W / W.sum(dim=1, keepdim=True)
-    Z = torch.randn((L, M), generator=g, device="cuda").to(dtype)
+    return W, torch.randn((L, M), generator=g, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,M,kernel", [
+    (20, 2400, MIX_TILE), (100, 1000, MIX_TILE), (3, 291, MIX_TILE),
+    (37, 129, MIX_TILE), (1, 2400, MIX_TILE), (20, 2398, MIX_TILE),
+    (300, 2400, MIX_TILE), (300, 129, MIX_TILE), (700, 600, MIX_HTILED),
+    (700, 129, MIX_HTILED)])
+def test_mix_rows_matches_plain(cuda, L, M, kernel, dtype):
+    """One node to past the one-tile kernel's shared memory, M a multiple
+    of 16 columns or not, rows 16-byte aligned or not (M = 2398: its
+    element-by-element path), each through the kernel the C entry
+    reports."""
+    from repro_torch.kernels import _build, gossip_axpy, ref
+    W, Z = _mix_operands(L, M, dtype)
+    _build.KERNEL_LAUNCHES.clear()
     out = gossip_axpy.mix_rows(W, Z)
+    assert dict(_build.KERNEL_LAUNCHES) == {kernel: 1}
     assert out.dtype == dtype
     _close(out, ref.ref_mix_rows(W, Z), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mix_rows_column_slice_and_unaligned_base(cuda, dtype):
+    """Z as a column slice of a wider array (copied to a contiguous one),
+    and as a contiguous view one element past an aligned base (the
+    one-tile kernel's element-by-element path)."""
+    from repro_torch.kernels import gossip_axpy, ref
+    W, wide = _mix_operands(20, 2401, dtype)
+    sliced = wide[:, 1:]
+    flat = torch.randn(20 * 2400 + 1, device="cuda").to(dtype)
+    shifted = flat[1:].view(20, 2400)
+    assert shifted.data_ptr() % 16 != 0
+    for Z in (sliced, shifted):
+        out = gossip_axpy.mix_rows(W, Z)
+        assert out.shape == (20, 2400) and out.dtype == dtype
+        _close(out, ref.ref_mix_rows(W, Z), TOL[dtype])
+
+
+# node_task_gram's shapes beyond SHAPES, with the form of
+# stream_gram_kernel each launches (U_g's rows in shared memory, or read
+# through L1 past the shared-memory budget): path A's fold of Experiment
+# 1, tasks past the resident fused kernel's budget (two chunks of A's
+# rows), n past 1500 in chunks of 256 rows with a ragged end, ragged d
+# in chunks, and d r past the budget on a grid of 132 tasks
+GRAM_STAGED, GRAM_L1 = "stream_gram_kernel", "stream_gram_kernel/u_from_l1"
+GRAM_SHAPES = [(s, {torch.float32: GRAM_STAGED, torch.bfloat16: GRAM_STAGED})
+               for s in SHAPES + [(20, 30, 15, 600, 4), (2, 2, 400, 600, 4),
+                                  (2, 4, 1999, 64, 4), (1, 8, 1030, 97, 8)]]
+GRAM_SHAPES += [((4, 33, 16, 4096, 16),
+                 {torch.float32: GRAM_L1, torch.bfloat16: GRAM_STAGED}),
+                ((1, 132, 16, 8192, 16),
+                 {torch.float32: GRAM_L1, torch.bfloat16: GRAM_L1})]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kernel", GRAM_SHAPES)
+def test_gram_kernel_matches_plain(cuda, shape, kernel, dtype):
+    """The streaming Gram kernel within TOL of the plain version, through
+    the form the C entry reports, at any n and d."""
+    from repro_torch.kernels import _build, altgdmin_ls, ref
+    X, U, y = _instance(shape, dtype, seed=4)
+    _build.KERNEL_LAUNCHES.clear()
+    G, c = altgdmin_ls.node_task_gram(X, U, y)
+    assert dict(_build.KERNEL_LAUNCHES) == {kernel[dtype]: 1}
+    G_ref, c_ref = ref.ref_task_gram(X, U, y)
+    _close(G, G_ref, TOL[dtype])
+    _close(c, c_ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(32, 16, 600, 4), (4, 16, 4096, 16)])
+def test_gram_kernel_repeats_bit_for_bit(cuda, shape):
+    """Fifty launches give one result, in either form: no launch reads a
+    ring slot before its copy lands or after its refill."""
+    from repro_torch.kernels import altgdmin_ls
+    X, U, y = _single(shape, torch.float32, seed=7)
+    G0, c0 = altgdmin_ls.task_gram(X, U, y)
+    runs = [altgdmin_ls.task_gram(X, U, y) for _ in range(50)]
+    assert all(torch.equal(G, G0) and torch.equal(c, c0) for G, c in runs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_kernel_ignores_zero_rows_and_other_tasks(cuda, dtype):
+    """Zero rows appended to every task and dummy tasks appended to the
+    launch (the serving engine's padding) leave the real tasks' G and c
+    bit for bit as they are, though they change the kernel's warps (eight
+    for two tasks, four for 270) and so its chunks of A's rows (256 and
+    141 rows, 256 and 144)."""
+    from repro_torch.kernels import _build, altgdmin_ls
+    X, U, y = _single((2, 397, 600, 4), dtype, seed=6)
+    _build.KERNEL_LAUNCHES.clear()
+    G, c = altgdmin_ls.task_gram(X, U, y)
+    Xp = torch.zeros((270, 400, 600), dtype=dtype, device="cuda")
+    yp = torch.zeros((270, 400), dtype=dtype, device="cuda")
+    Xp[:2, :397], yp[:2, :397] = X, y
+    Gp, cp = altgdmin_ls.task_gram(Xp, U, yp)
+    assert dict(_build.KERNEL_LAUNCHES) == {GRAM_STAGED: 2}
+    assert torch.equal(Gp[:2], G) and torch.equal(cp[:2], c)
 
 
 def test_ops_cast_f64_like_the_reference(cuda):
@@ -377,6 +473,21 @@ def test_single_basis_kernels_match_plain(cuda, shape, dtype):
     _close(G, G_ref, TOL[dtype])
     _close(c, c_ref, TOL[dtype])
     _close(tiles, ref.ref_single_grad_tiles(X, U, B, y), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SINGLE)
+def test_single_basis_gram_reports_its_kernel(cuda, shape, dtype):
+    """task_gram at the serving shapes within TOL of the plain version,
+    reported as one launch of the staged form."""
+    from repro_torch.kernels import _build, altgdmin_ls, ref
+    X, U, y = _single(shape, dtype, seed=5)
+    _build.KERNEL_LAUNCHES.clear()
+    G, c = altgdmin_ls.task_gram(X, U, y)
+    assert dict(_build.KERNEL_LAUNCHES) == {GRAM_STAGED: 1}
+    G_ref, c_ref = ref.ref_single_task_gram(X, U, y)
+    _close(G, G_ref, TOL[dtype])
+    _close(c, c_ref, TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

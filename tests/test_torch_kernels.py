@@ -201,7 +201,7 @@ def test_resolve_engine_rejects_conflicts():
         resolve_engine(eng, "cuda")
 
 
-def test_cuda_engine_has_no_sample_split_gradient_yet():
+def test_cuda_engine_sends_sample_split_gradient_to_the_kernel():
     """The sample-split gradient is ported (node_task_grad_tiles): the
     cuda engine sends it to the kernel, so CPU tensors raise rather
     than fall back to the plain version."""
