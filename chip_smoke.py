@@ -17,9 +17,10 @@ Phases, each printing one JSON line and raising on failure:
                spill bytes (none allowed at D <= 128); likewise the bf16
                ssd_scan passes (HMMA in all 12 instantiations of the two
                product passes, no spill in any of the 14 kernels); the
-               resident node_fused_iter kernel's and the streaming Gram
-               kernel's registers and spills at each dtype and rank
-               capacity (none allowed at capacity 4, the main path's);
+               resident node_fused_iter kernel's (its fused and its
+               gradient form) and the streaming Gram kernel's registers
+               and spills at each dtype and rank capacity (none allowed
+               at capacity 4, the main path's);
                then the launch floor: an empty kernel
                (torch.cuda._sleep(0)) timed back to back as the kernels
                are;
@@ -52,24 +53,33 @@ Phases, each printing one JSON line and raising on failure:
   6. slice kernels — node_task_grad_tiles against its plain version at
                the sample-split fold of Experiment 1 (n = 15), Experiment
                2 and the ragged shape, f32 and bf16 (the tolerances
-               above), f64 through ops.altgdmin_node_gradient;
+               above), through the resident gradient form (as its C
+               entry reports), the same bits on one and two CTAs a task
+               forced, f64 through ops.altgdmin_node_gradient;
                compress_topk and dequant against theirs BIT FOR BIT at
                (20, 600, 4), (100, 100, 10) and (3, 97, 3), tied rows
                included, and compress_topk on blocks with NaN rows (fewer
                and more non-NaN rows than k), +inf rows and all rows
                equal at (20, 600, 4) and (3, 97, 3), k = d/2 and d (NaN
-               compared by its bits); times as in phase 3, with
+               compared by its bits); the int8 round (int8_round, both
+               wires) against ref_int8_round BIT FOR BIT at ROUND_SHAPES,
+               f32 and bf16, with a zero, a NaN and an inf block; times
+               as in phase 3, node_task_grad_tiles' also at one and two
+               CTAs a task and in bf16, the round's beside the plain
+               round's device time at each f32 shape, with
                torch.mul(q, scale) as dequant's library call;
   7. path A — the same preset sample-split into two folds (n_folds=2),
                T_GD=500, cuda: launches node_task_gram 501,
                node_task_grad_tiles 500, mix_rows 500, node_fused_iter 0,
                and the CUDA launches by kernel as their C entries report
-               them; sd_max against torch-ref on the card (rtol 1e-4, atol
+               them (the gradient's resident form 500 times); sd_max against torch-ref on the card (rtol 1e-4, atol
                1e-5); convergence; a profile of 20 iterations;
   8. path B — dif_topk (compression_k=150, and =d), dif_quantized
                (int8) and dif_event (event_threshold=0.02) on the same
                preset, T_GD=500, T_con=10, cuda: compress_topk / dequant
-               / mix_rows at 10·T_GD launches (by kernel as in path A);
+               / mix_rows at 10·T_GD launches (by kernel as in path A;
+               dif_quantized's dequant launches are int8_round_kernel,
+               the whole round);
                finite outputs; sd_max
                below 0.65 / 0.5 / 0.6 of its first value (the
                reference's bounds); against torch-ref on the card over
@@ -77,7 +87,9 @@ Phases, each printing one JSON line and raising on failure:
                top-k at k=150, whose row selection round-off can flip
                (see PATH_B), reported over the first 50 iterations with
                the first parting iteration and held at the final sd_max
-               (within 10 %); a profile of 20 iterations each;
+               (within 10 %); a profile of 20 iterations each, with
+               its device operations, device ms and host ms an
+               iteration;
   9. gossip kernels — gossip_combine against ref_gossip_combine at the
                mesh round's shape (n = d·r = 2400, K = 2 and K = 19), the
                roll form's (n = 20·600·4, K = 2), a ragged n and bf16,
@@ -104,7 +116,9 @@ Phases, each printing one JSON line and raising on failure:
                batch (T = 32), the JAX package's kernel benchmark row
                (T = 32, n = 30), a ragged shape (T = 3, n = 20, d = 100,
                r = 8), f32 and bf16 (the tolerances of phase 3), task_gram's
-               kernel as its C entry reports it;
+               and task_grad_tiles' kernels as their C entries report
+               them, task_grad_tiles' time at one and two CTAs a task
+               forced;
                ops.altgdmin_minimize_B / altgdmin_gradient against their
                plain route at f32 and f64; times as in phase 3 (no
                single PyTorch call computes either);
@@ -179,21 +193,29 @@ flash's and ssd_scan's rows are their bf16 tensor-core kernels,
 call of the bf16 prefill step, counted by kernel, and the f32 kernel's
 ms; node_fused_iter's its times at one and two CTAs a task,
 node_task_gram's at path A's fold, task_gram's at each serving shape;
-the launch floor beside mix_rows, compress_topk, dequant and
+node_task_grad_tiles' and task_grad_tiles' their resident form and
+times at one and two CTAs a task; dequant's the int8 round's, the
+kernel dif_quantized launches, with the standalone dequant_kernel's
+beside it; the launch floor beside mix_rows, compress_topk, dequant and
 gossip_combine), the card line, and the result line.  Exits non-zero,
 printing no result, without a CUDA device or outside the repo.
 
     python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]
 
 runs none of the phases: it imports ``repro_torch`` from ``DIR``
-(default: this checkout's ``src``), builds its least-squares and mixing
-kernels there, and prints one JSON line: the card's name and power
-limit, and the device ms (device_ms) of ``mix_rows`` at Experiment 1's
-AGREE operand and tests/test_torch_gpu.py's other shapes, of
-``node_task_gram`` at SHAPES, of ``task_gram`` at SINGLE_SHAPES (f32 and
-bf16), of ``node_fused_iter`` at Experiment 1, ``node_task_grad_tiles``
-at its fold and ``task_grad_tiles`` at the serving cohort (f32), and of
-an empty kernel (the launch floor).  Only the wrappers' common
+(default: this checkout's ``src``), builds its least-squares, mixing and
+compression kernels there, and prints one JSON line: the card's name and
+power limit, and the device ms (device_ms) of ``mix_rows`` at Experiment
+1's AGREE operand and tests/test_torch_gpu.py's other shapes, of
+``node_task_gram`` at SHAPES, of ``task_gram`` and ``task_grad_tiles``
+at SINGLE_SHAPES, of ``node_task_grad_tiles`` at GRAD_TIME_SHAPES, of
+the int8 wire's round as the tree's ``refresh`` runs it on cuda at
+ROUND_SHAPES (f32 and bf16), of ``node_fused_iter`` at Experiment 1 and
+``dequant`` at (20, 600, 4) (f32), of the gradient kernel with one and
+two CTAs a task forced at path A's fold and the serving cohort (where
+the tree has that knob), and of an empty kernel (the launch floor); and
+a profile of 20 iterations of ``dif_quantized`` (int8) at Experiment 1:
+device operations, device ms and host ms an iteration.  Only the wrappers' common
 signatures are called, so an older tree of the port (its ``src`` from
 ``git archive``) can be timed by this script too: run parent, change,
 change, parent on one card, one process each.
@@ -273,6 +295,12 @@ TOPK_SHAPES = {"exp1": (20, 600, 4, 150), "exp2": (100, 100, 10, 25),
 # compress_topk's blocks with NaN, +inf and all-equal norms, at the
 # dif_topk path's shape and the ragged one
 TOPK_SPECIAL_SHAPES = ("exp1", "ragged_k1")
+# (N, d, r) of the int8 round: the dif_quantized path's (Experiment 1),
+# L = 100 at d = 1000, a ragged d at r = 16, and a node past what one CTA
+# holds (a cluster of 8 CTAs, each reading its share twice)
+ROUND_SHAPES = {"exp1": (20, 600, 4), "l100": (100, 1000, 4),
+                "ragged": (3, 291, 16), "past_cta": (3, 8192, 16)}
+ROUND_WIRES = ("int8", "int8_stochastic")
 
 
 # gossip_combine's (name, n, K, dtype, weights): the mesh round at
@@ -649,15 +677,17 @@ def profiled(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
+    kernels, device_ops = {}, 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.name] = (kernels.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us() / 1e3)
+            device_ops += 1
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / wall_ms if wall_ms else None,
+                device_ops=device_ops,
                 top_kernels_ms=[[name[:90], ms] for name, ms in top])
 
 
@@ -667,14 +697,19 @@ def profile(torch, spec, mat, *, label="profile"):
     iters = 20
     short = dataclasses.replace(
         spec, solver=dataclasses.replace(spec.solver, T_GD=iters))
-    emit("profile", path=label, iterations=iters, **profiled(
-        torch, lambda: run_experiment(short, key=0, materialized=mat)))
+    prof = profiled(torch, lambda: run_experiment(short, key=0,
+                                                  materialized=mat))
+    emit("profile", path=label, iterations=iters,
+         device_ops_per_iter=prof["device_ops"] / iters,
+         device_ms_per_iter=prof["device_busy_ms"] / iters,
+         host_ms_per_iter=prof["wall_ms"] / iters, **prof)
 
 
 def check_slice_kernels(torch):
-    """Phase 6: this slice's three kernels against their plain versions,
-    with the times of each at the shape its path gives it."""
-    from repro_torch.kernels import altgdmin_ls, compress, ops, ref
+    """Phase 6: node_task_grad_tiles, compress_topk, the int8 round and
+    dequant against their plain versions, with the times of each at the
+    shape its path gives it."""
+    from repro_torch.kernels import _build, altgdmin_ls, compress, ops, ref
 
     errs = {"node_task_grad_tiles": 0.0, "compress_topk": 0.0,
             "dequant": 0.0}
@@ -686,22 +721,45 @@ def check_slice_kernels(torch):
             X, U, y = instance(torch, shape, dtype, seed=7)
             B = torch.randn((L, tpn, r), device="cuda", generator=torch.Generator(
                 device="cuda").manual_seed(8))
-            tiles = altgdmin_ls.node_task_grad_tiles(X, U, B, y)
+            tiles, grad_kernel = reported(
+                _build, altgdmin_ls.node_task_grad_tiles, X, U, B, y)
+            require(grad_kernel == {"fused_resident_kernel/grad": 1},
+                    f"node_task_grad_tiles {sname} {dname}: launched "
+                    f"{grad_kernel}, want the resident gradient form")
             want = ref.ref_node_grad_tiles(X, U, B, y)
             e = max_err(torch, tiles, want, TOL[dname],
                         f"node_task_grad_tiles {sname} {dname}")
+            # one order of summation whatever the CTAs a task
+            for c in (1, 2):
+                require(torch.equal(altgdmin_ls.node_task_grad_tiles(
+                    X, U, B, y, ctas_per_task=c), tiles),
+                    f"node_task_grad_tiles {sname} {dname}: {c} CTAs a "
+                    f"task change the tiles")
             if dname == "float32":
                 errs["node_task_grad_tiles"] = max(
                     errs["node_task_grad_tiles"], e)
             emit("slice_kernels", kernel="node_task_grad_tiles",
-                 shape=sname, dtype=dname, max_abs_err=e)
-            if sname == "exp1_fold" and dname == "float32":
-                times["node_task_grad_tiles"] = timing(
+                 shape=sname, dtype=dname, max_abs_err=e,
+                 cuda_kernel=grad_kernel)
+            if sname == "exp1_fold":
+                t = timing(
                     torch, altgdmin_ls.node_task_grad_tiles,
                     ref.ref_node_grad_tiles, (X, U, B, y),
                     nbytes(X, U, B, y, tiles),
                     L * tpn * (2 * n * d * r + 2 * n * r + 2 * n * d
                                + d * r))
+                # the resident form with its CTAs a task forced, beside
+                # the pick
+                t["ms_by_ctas_a_task"] = {
+                    c: device_ms(torch, lambda: altgdmin_ls
+                                 .node_task_grad_tiles(X, U, B, y,
+                                                       ctas_per_task=c))
+                    for c in (1, 2)}
+                t["cuda_kernel"] = grad_kernel
+                if dname == "float32":
+                    times["node_task_grad_tiles"] = t
+                else:
+                    times["node_task_grad_tiles"]["bfloat16"] = t
         X, U, y = instance(torch, shape, torch.float64, seed=8)
         B = torch.randn((L, tpn, r), device="cuda", dtype=torch.float64)
         e64 = max_err(
@@ -747,11 +805,70 @@ def check_slice_kernels(torch):
             emit("slice_kernels", kernel="dequant", shape=sname,
                  dtype=dname, bitwise_equal=True)
             if sname == "exp1" and dname == "float32":
-                times["dequant"] = timing(
+                times["dequant_kernel"] = timing(
                     torch, compress.dequant, ref.ref_dequant, (q, scale),
                     nbytes(q, scale, out), q.numel(), library=torch.mul)
+    times["dequant"] = check_int8_round(torch)
+    times["dequant"]["dequant_kernel"] = times.pop("dequant_kernel")
     emit("slice_kernels", timing=times)
     return errs, times
+
+
+def check_int8_round(torch):
+    """The int8 wire's round (int8_round) against ref_int8_round bit for
+    bit at ROUND_SHAPES, f32 and bf16, both wires, on blocks with a zero
+    delta, a NaN and an inf appended (scale and x̂' compared with NaN
+    positions equal, q on the nodes whose scale is finite); its time
+    beside the plain round's device time at each f32 shape (int8 wire).
+    → the time at Experiment 1, with the other shapes' beside it."""
+    from repro_torch.distributed.consensus import stochastic_dither
+    from repro_torch.kernels import _build, compress, ref
+
+    def same_nan(got, want):
+        nan = torch.isnan(want)
+        bits = torch.int32 if want.element_size() == 4 else torch.int16
+        return (torch.equal(torch.isnan(got), nan)
+                and torch.equal(got.view(bits)[~nan], want.view(bits)[~nan]))
+
+    by_shape = {}
+    for sname, (N, d, r) in ROUND_SHAPES.items():
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            g = torch.Generator(device="cuda").manual_seed(N + d)
+            Z = torch.randn((N + 3, d, r), generator=g, device="cuda")
+            xhat = 0.5 * torch.randn((N + 3, d, r), generator=g,
+                                     device="cuda")
+            xhat[N] = Z[N]                          # a zero delta
+            Z[N + 1, d // 2, 0] = float("nan")
+            Z[N + 2, d - 1, r - 1] = float("inf")
+            Z, xhat = Z.to(dtype), xhat.to(dtype)
+            for wire in ROUND_WIRES:
+                u = (stochastic_dither(1, torch.arange(N + 3, device="cuda"),
+                                       (d, r), dtype)
+                     if wire == "int8_stochastic" else None)
+                (q, scale, xn), kernel = reported(
+                    _build, compress.int8_round, Z, xhat, u)
+                q0, scale0, xn0 = ref.ref_int8_round(Z, xhat, u)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(scale0.flatten())
+                require(kernel == {"int8_round_kernel": 1}
+                        and same_nan(scale, scale0) and same_nan(xn, xn0)
+                        and int(fin.sum()) == N + 1
+                        and torch.equal(q[fin], q0[fin]),
+                        f"int8_round {sname} {dname} {wire} differs from "
+                        f"its plain version (launched {kernel})")
+                emit("slice_kernels", kernel="int8_round", shape=sname,
+                     dtype=dname, wire=wire, bitwise_equal=True)
+            if dname == "float32":
+                Zt, xt = Z[:N].contiguous(), xhat[:N].contiguous()
+                q, scale, xn = compress.int8_round(Zt, xt)
+                by_shape[sname] = timing(
+                    torch, compress.int8_round, ref.ref_int8_round,
+                    (Zt, xt), nbytes(Zt, xt, q, scale, xn), 8 * Zt.numel())
+    times = dict(by_shape["exp1"], cuda_kernel="int8_round_kernel",
+                 by_shape=by_shape)
+    emit("slice_kernels", kernel="int8_round", timing=by_shape)
+    return times
 
 
 def check_topk_special(torch, compress, ref, sname, N, d, r):
@@ -844,7 +961,8 @@ def path_a(torch):
     want = {"node_task_gram": T_GD + 1, "node_task_grad_tiles": T_GD,
             "mix_rows": T_GD, "node_fused_iter": 0}
     want_kernels = {"stream_gram_kernel": T_GD + 1,
-                    "mix_tile_kernel": T_GD}
+                    "mix_tile_kernel": T_GD,
+                    "fused_resident_kernel/grad": T_GD}
     trace, trace_ref, launches, kernel_launches, run_s, ref_s = run_path(
         torch, spec, mat, want, want_kernels, name="path A")
     ok, diff, first = agree_upto(trace.sd_max, trace_ref.sd_max)
@@ -900,6 +1018,8 @@ def path_b(torch, spec, mat):
         want_kernels = {"fused_resident_kernel": T_GD,
                         "mix_tile_kernel": T_con * T_GD,
                         "stream_gram_kernel": 1}
+        if kernel == "dequant":        # the whole int8 round, one launch
+            want_kernels["int8_round_kernel"] = T_con * T_GD
         trace, trace_ref, launches, kernel_launches, run_s, ref_s = run_path(
             torch, s, mat, want, want_kernels, name=name)
         if kernel:
@@ -1133,7 +1253,7 @@ def check_serving_kernels(torch):
     from repro_torch.kernels import _build, altgdmin_ls, ops, ref
 
     errs = {"task_gram": 0.0, "task_grad_tiles": 0.0}
-    times, by_shape = {}, {}
+    times, by_shape, grad_by_shape = {}, {}, {}
     for sname, (T, n, d, r) in SINGLE_SHAPES.items():
         for dname in ("float32", "bfloat16"):
             X, U, y = (t[0] for t in instance(
@@ -1147,7 +1267,11 @@ def check_serving_kernels(torch):
                               f"task_gram {sname} {dname}")
             require(gram_kernel == {"stream_gram_kernel": 1},
                     f"task_gram {sname} {dname}: launched {gram_kernel}")
-            tiles = altgdmin_ls.task_grad_tiles(X, U, B, y)
+            tiles, grad_kernel = reported(
+                _build, altgdmin_ls.task_grad_tiles, X, U, B, y)
+            require(grad_kernel == {"fused_resident_kernel/grad": 1},
+                    f"task_grad_tiles {sname} {dname}: launched "
+                    f"{grad_kernel}")
             e_grad = max_err(torch, tiles,
                              ref.ref_single_grad_tiles(X, U, B, y),
                              TOL[dname], f"task_grad_tiles {sname} {dname}")
@@ -1167,12 +1291,21 @@ def check_serving_kernels(torch):
                         T * (2 * n * d * r + 2 * n * r + 2 * n * d + d * r))}
                 by_shape[sname] = {"task_gram": timing_["task_gram"]["ms"],
                                    "gram_kernel": gram_kernel}
+                grad_by_shape[sname] = {
+                    "ms": timing_["task_grad_tiles"]["ms"],
+                    "ms_by_ctas_a_task": {
+                        c: device_ms(torch, lambda: altgdmin_ls
+                                     .task_grad_tiles(X, U, B, y,
+                                                      ctas_per_task=c))
+                        for c in (1, 2)}}
                 if sname == "cohort":
                     times = timing_
+                    times["task_grad_tiles"]["cuda_kernel"] = grad_kernel
             emit("serving_kernels", shape=sname, T=T, n=n, d=d, r=r,
                  dtype=dname, max_abs_err={"task_gram": e_gram,
                                            "task_grad_tiles": e_grad},
-                 gram_kernel=gram_kernel, timing=timing_)
+                 gram_kernel=gram_kernel, grad_kernel=grad_kernel,
+                 timing=timing_)
         # the ops on their two routes, f32 and f64 operands
         for dname in ("float32", "float64"):
             X, U, y = (t[0] for t in instance(
@@ -1189,8 +1322,10 @@ def check_serving_kernels(torch):
             emit("serving_kernels", shape=sname, dtype=dname,
                  max_abs_err={"altgdmin_minimize_B": e_min,
                               "altgdmin_gradient": e_g})
-    # task_gram's row: beside the cohort's time, each f32 shape's
+    # task_gram's and task_grad_tiles' rows: beside the cohort's time,
+    # each f32 shape's (task_grad_tiles' with its CTAs a task forced)
     times["task_gram"]["by_shape"] = by_shape
+    times["task_grad_tiles"]["by_shape"] = grad_by_shape
     return errs, times
 
 
@@ -1477,19 +1612,20 @@ def ssd_mma_report(_build, lib) -> list[dict]:
 
 
 def altgdmin_report(_build, lib, kernel: str) -> list[dict]:
-    """``kernel`` (the resident node_fused_iter kernel, or the streaming
+    """``kernel`` (the resident node_fused_iter kernel in its two forms,
+    the fused iteration and the gradient for a given B, or the streaming
     Gram kernel in its two forms, U_g's rows in shared memory or read
     through L1) at each dtype and rank capacity (4, 8, 16): registers and
     spill bytes (sass_report).  Fails unless every instantiation is there
     and none at capacity 4 (the main path's, its registers capped for
     five or two CTAs an SM) spills."""
     rows = sass_report(_build, lib, "altgdmin_ls")
+    flag = "u_shared" if kernel == "stream_gram_kernel" else "grad_only"
     out = [{"dtype": args[0], "rank_capacity": args[1],
-            **({"u_shared": bool(args[2])} if len(args) > 2 else {}),
-            "registers": row.get("registers"),
+            flag: bool(args[2]), "registers": row.get("registers"),
             "spill_bytes": row.get("spill_bytes")}
            for (name, args), row in sorted(rows.items()) if name == kernel]
-    want = 12 if kernel == "stream_gram_kernel" else 6
+    want = 12
     require(len(out) == want,
             f"{kernel}: want {want} instantiations, got {out}")
     require(all(r["spill_bytes"] == 0 for r in out
@@ -1832,12 +1968,22 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
 MIX_TIME_SHAPES = ((20, 2400), (100, 1000), (3, 291), (37, 129))
 
 
+# (L, tpn, n, d, r) of the gradient kernel in --kernel-times beside
+# GRAD_SHAPES: tests/test_torch_gpu.py's other shapes (Experiment 1, the
+# rank capacity's edge, r = 8 and r = 16)
+GRAD_TIME_SHAPES = {**GRAD_SHAPES, "exp1": SHAPES["exp1"],
+                    "edge": (2, 2, 40, 33, 16), "r8": (2, 3, 20, 100, 8),
+                    "r16": (2, 3, 16, 600, 16)}
+
+
 def kernel_times(torch, src: Path, label: str) -> dict:
-    """--kernel-times: the device ms of the least-squares and mixing
-    kernels of the port in ``src`` (see the module docstring)."""
+    """--kernel-times: the device ms of the least-squares, mixing and
+    int8 kernels of the port in ``src`` (see the module docstring)."""
+    import inspect
     sys.path.insert(0, str(src.resolve()))
-    from repro_torch.kernels import _build, altgdmin_ls, gossip_axpy
-    _build.build(("altgdmin_ls", "gossip_axpy"))
+    from repro_torch.distributed.consensus import get_rule
+    from repro_torch.kernels import _build, altgdmin_ls, compress, gossip_axpy
+    _build.build(("altgdmin_ls", "gossip_axpy", "compress"))
     times = {"launch_floor": device_ms(torch, lambda: torch.cuda._sleep(0))}
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
@@ -1857,22 +2003,75 @@ def kernel_times(torch, src: Path, label: str) -> dict:
                                               seed=0))
             times[f"task_gram {sname} {dname}"] = device_ms(
                 torch, lambda: altgdmin_ls.task_gram(X, U, y))
+        for sname, shape in GRAD_TIME_SHAPES.items():
+            X, U, y = instance(torch, shape, dtype, seed=0)
+            B = torch.randn(shape[:2] + shape[4:], device="cuda")
+            times[f"node_task_grad_tiles {sname} {dname}"] = device_ms(
+                torch, lambda: altgdmin_ls.node_task_grad_tiles(X, U, B, y))
+        for sname, (T, n, d, r) in SINGLE_SHAPES.items():
+            X, U, y = (t[0] for t in instance(torch, (1, T, n, d, r), dtype,
+                                              seed=0))
+            B = torch.randn((T, r), device="cuda")
+            times[f"task_grad_tiles {sname} {dname}"] = device_ms(
+                torch, lambda: altgdmin_ls.task_grad_tiles(X, U, B, y))
+        # the int8 wire's round as the tree's refresh runs it on cuda
+        rule = get_rule("quantized_gossip")
+        for sname, (N, d, r) in ROUND_SHAPES.items():
+            g = torch.Generator(device="cuda").manual_seed(N)
+            Z = torch.randn((N, d, r), generator=g, device="cuda").to(dtype)
+            xhat = (0.5 * torch.randn((N, d, r), generator=g,
+                                      device="cuda")).to(dtype)
+            ids = torch.arange(N, device="cuda")
+            times[f"int8 round {sname} {dname}"] = device_ms(
+                torch, lambda: rule.refresh(Z, xhat, ids, 0, backend="cuda",
+                                            wire="int8"))
     f32 = torch.float32
     X, U, y = instance(torch, SHAPES["exp1"], f32, seed=0)
     times["node_fused_iter exp1 float32"] = device_ms(
         torch, lambda: altgdmin_ls.node_fused_iter(X, U, y))
-    shape = GRAD_SHAPES["exp1_fold"]
-    X, U, y = instance(torch, shape, f32, seed=0)
-    B = torch.randn(shape[:2] + shape[4:], device="cuda")
-    times["node_task_grad_tiles exp1_fold float32"] = device_ms(
-        torch, lambda: altgdmin_ls.node_task_grad_tiles(X, U, B, y))
-    T, n, d, r = SINGLE_SHAPES["cohort"]
-    X, U, y = (t[0] for t in instance(torch, (1, T, n, d, r), f32, seed=0))
-    B = torch.randn((T, r), device="cuda")
-    times["task_grad_tiles cohort float32"] = device_ms(
-        torch, lambda: altgdmin_ls.task_grad_tiles(X, U, B, y))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randint(-127, 128, (20, 600, 4), generator=g, device="cuda",
+                      dtype=torch.int8)
+    scale = torch.rand((20, 1, 1), generator=g, device="cuda") + 1e-3
+    times["dequant exp1 float32"] = device_ms(
+        torch, lambda: compress.dequant(q, scale))
+    # the gradient form's CTAs a task forced, where the tree has the knob
+    if "ctas_per_task" in inspect.signature(
+            altgdmin_ls.node_task_grad_tiles).parameters:
+        shape = GRAD_SHAPES["exp1_fold"]
+        X, U, y = instance(torch, shape, f32, seed=0)
+        B = torch.randn(shape[:2] + shape[4:], device="cuda")
+        T, n, d, r = SINGLE_SHAPES["cohort"]
+        Xs, Us, ys = (t[0] for t in instance(torch, (1, T, n, d, r), f32,
+                                             seed=0))
+        Bs = torch.randn((T, r), device="cuda")
+        for c in (1, 2):
+            times[f"node_task_grad_tiles exp1_fold float32 ctas={c}"] = (
+                device_ms(torch, lambda: altgdmin_ls.node_task_grad_tiles(
+                    X, U, B, y, ctas_per_task=c)))
+            times[f"task_grad_tiles cohort float32 ctas={c}"] = device_ms(
+                torch, lambda: altgdmin_ls.task_grad_tiles(
+                    Xs, Us, Bs, ys, ctas_per_task=c))
     return {"label": label, "src": str(src), "card": nvidia_smi_line(),
-            "ms": times}
+            "ms": times, "dif_quantized_profile": quantized_profile(torch)}
+
+
+def quantized_profile(torch, iters: int = 20) -> dict:
+    """dif_quantized (int8) at Experiment 1 on cuda, ``iters`` outer
+    iterations under torch.profiler (profiled): device operations, device
+    ms and host ms an iteration."""
+    from repro_torch.api import materialize, run_experiment
+    from repro_torch.configs.paper import EXPERIMENT1, to_spec
+
+    spec = to_spec(EXPERIMENT1[0], dtype="float32", backend="cuda")
+    spec = dataclasses.replace(spec, solver=dataclasses.replace(
+        spec.solver, name="dif_quantized", compression="int8", T_GD=iters))
+    mat = materialize(spec, key=0, device="cuda")
+    prof = profiled(torch, lambda: run_experiment(spec, key=0,
+                                                  materialized=mat))
+    return {"device_ops_per_iter": prof["device_ops"] / iters,
+            "device_ms_per_iter": prof["device_busy_ms"] / iters,
+            "host_ms_per_iter": prof["wall_ms"] / iters}
 
 
 def main(argv=None) -> int:
@@ -1969,6 +2168,11 @@ def main(argv=None) -> int:
     kernels[2].update(
         cuda_kernel=main_row["gram_kernel"],
         path_a_fold=rows[("exp1_fold", "float32")]["timing"]["node_task_gram"])
+    # node_task_grad_tiles' row: the resident gradient form at path A's
+    # fold, with one and two CTAs a task forced and the bf16 time beside;
+    # dequant's: the int8 round (int8_round_kernel, the launch on
+    # dif_quantized's path) at Experiment 1, its other shapes and the
+    # standalone dequant_kernel beside it
     slice_launches = {"node_task_grad_tiles":
                       launches_a["node_task_grad_tiles"], **launches_b}
     for name in ("node_task_grad_tiles", "compress_topk", "dequant"):

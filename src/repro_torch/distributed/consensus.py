@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.distributed.graphs import Graph, SparseGraph
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ref_int8_scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -688,7 +689,9 @@ class QuantizedGossipCombine(CompressedGossipCombine):
 
       * ``"bf16"`` (default) — round-to-nearest-even bfloat16 cast;
       * ``"int8"`` — per-message max-abs scale, round-half-to-even int8
-        (decoded by the ``dequant`` kernel on cuda);
+        (on cuda a sender's round, encode, decode and accumulate, is one
+        ``int8_round`` launch; a receiver's ``apply`` decodes with the
+        ``dequant`` kernel);
       * ``"int8_stochastic"`` — int8 with stochastic rounding, dithered
         by :func:`stochastic_dither` (a counter-based draw per round
         count and node id; not the JAX package's ``jax.random`` bits).
@@ -708,11 +711,7 @@ class QuantizedGossipCombine(CompressedGossipCombine):
     def _stochastic(self, compression=None, **_):
         return (compression or "bf16") == "int8_stochastic"
 
-    @staticmethod
-    def _int8_scale(delta):
-        scale = torch.amax(torch.abs(delta), dim=(-2, -1),
-                           keepdim=True) / 127.0
-        return torch.clamp(scale, min=torch.finfo(delta.dtype).tiny)
+    _int8_scale = staticmethod(ref_int8_scale)
 
     @staticmethod
     def _dequant(q, scale, *, backend):
@@ -720,22 +719,16 @@ class QuantizedGossipCombine(CompressedGossipCombine):
         return ops.dequant(q, scale, backend=cb)
 
     def refresh(self, Z, xhat, node_ids, count, *, backend, wire):
-        delta = Z - xhat                     # accumulated compression error
         if wire == "bf16":
-            q = delta.to(torch.bfloat16)
-            payload = (q,)
-            inc = q.to(Z.dtype)
-        else:
-            scale = self._int8_scale(delta)
-            if wire == "int8_stochastic":
-                u = stochastic_dither(count, node_ids, Z.shape[1:], Z.dtype)
-                qf = torch.floor(delta / scale + u)
-            else:
-                qf = torch.round(delta / scale)        # half to even
-            q = torch.clamp(qf, -127, 127).to(torch.int8)
-            payload = (q, scale)
-            inc = self._dequant(q, scale, backend=backend)
-        return payload, xhat + inc
+            q = (Z - xhat).to(torch.bfloat16)   # accumulated compression error
+            return (q,), xhat + q.to(Z.dtype)
+        # the whole int8 round (encode, decode, accumulate): one
+        # int8_round launch on cuda, ref_int8_round on torch-ref and f64
+        u = (stochastic_dither(count, node_ids, Z.shape[1:], Z.dtype)
+             if wire == "int8_stochastic" else None)
+        cb = backend if _fused_wanted(backend, Z.dtype) else "torch-ref"
+        q, scale, xhat2 = ops.int8_round(Z, xhat, u, backend=cb)
+        return (q, scale), xhat2
 
     def apply(self, payload, xhat, *, backend, wire):
         if wire == "bf16":

@@ -18,7 +18,10 @@
 * :func:`node_task_grad_tiles` replaces ``node_task_grad_tiles``
   (``_grad_kernel_nb``): the gradient tiles for a GIVEN B, the second
   launch of the sample-split path; A = X_t U_g is rebuilt on the
-  gradient fold's data with the fused kernel's own device code.
+  gradient fold's data.  Where X_t fits the shared memory of its CTAs
+  it runs the resident kernel's gradient form, which reads X once
+  (``fused_resident_kernel/grad``), else the two-pass
+  ``grad_tiles_kernel``; the C entry reports which.
 * :func:`task_gram` and :func:`task_grad_tiles` replace ``task_gram``
   (``_gram_kernel``) and ``task_grad_tiles`` (``_grad_kernel``): the
   same Gram pair and gradient tiles with ONE basis U (d, r) shared by
@@ -49,7 +52,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "altgdmin_node_fused_iter": (_I, [_P] * 5 + [_I] * 7 + [_P, _I, _P]),
     "altgdmin_node_task_gram": (_I, [_P] * 5 + [_I] * 7 + [_P, _P]),
-    "altgdmin_node_grad_tiles": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "altgdmin_node_grad_tiles": (_I, [_P] * 5 + [_I] * 7 + [_P, _I, _P]),
     "altgdmin_error_string": (ctypes.c_char_p, [_I]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,6 +60,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FUSED_KERNELS = ("fused_resident_kernel", "fused_iter_kernel")
 # altgdmin_node_task_gram's: U_g's rows in shared memory, or through L1
 _GRAM_KERNELS = ("stream_gram_kernel", "stream_gram_kernel/u_from_l1")
+# altgdmin_node_grad_tiles': the resident kernel's gradient form, or the
+# two-pass kernel
+_GRAD_KERNELS = ("fused_resident_kernel/grad", "grad_tiles_kernel")
 
 
 def _operands(X, U, y):
@@ -130,6 +136,12 @@ def _launch(fn: str, tensors, dims, code, *extra):
     _build.check(lib, "altgdmin_error_string", err, fn)
 
 
+def _check_ctas(ctas_per_task):
+    if ctas_per_task not in (None, 1, 2):
+        raise ValueError(f"ctas_per_task must be None, 1 or 2, got "
+                         f"{ctas_per_task}")
+
+
 def node_fused_iter(X, U, y, *, ctas_per_task=None):
     """One fused AltGDmin iteration for all nodes and tasks, one launch.
     X (L, tpn, n, d), U (L, d, r), y (L, tpn, n) on the card →
@@ -139,9 +151,7 @@ def node_fused_iter(X, U, y, *, ctas_per_task=None):
     picks one or two CTAs a task from the task's shared memory (``None``),
     or ``ctas_per_task`` (1 or 2) forces it, to time the pick against the
     other form."""
-    if ctas_per_task not in (None, 1, 2):
-        raise ValueError(f"ctas_per_task must be None, 1 or 2, got "
-                         f"{ctas_per_task}")
+    _check_ctas(ctas_per_task)
     X, U, y, dims, code = _operands(X, U, y)
     L, tpn, n, d, r = dims
     B = torch.empty((L, tpn, r), dtype=torch.float32, device=X.device)
@@ -173,16 +183,30 @@ def node_task_gram(X, U, y):
     return G, c
 
 
-def node_task_grad_tiles(X, U, B, y):
+def _grad_tiles(X, U, B, y, dims, code, ctas_per_task):
+    """Launch the gradient kernel on the node layout; the tiles of all
+    tasks."""
+    _check_ctas(ctas_per_task)
+    L, tpn, n, d, r = dims
+    tiles = torch.empty((L, tpn, d, r), dtype=torch.float32, device=X.device)
+    launched = (ctypes.c_int * len(_GRAD_KERNELS))()
+    _launch("altgdmin_node_grad_tiles", (X, U, B, y, tiles), dims, code,
+            ctas_per_task or 0, launched)
+    _build.count_kernels(_GRAD_KERNELS, launched)
+    return tiles
+
+
+def node_task_grad_tiles(X, U, B, y, *, ctas_per_task=None):
     """The gradient tiles of all tasks for a given B, one launch.  Same
     X, U, y as :func:`node_fused_iter`, plus B (L, tpn, r) on the card →
     tiles (L, tpn, d, r) float32, tiles[g, t] = X_tᵀ(X_t U_g b_t − y_t)
-    b_tᵀ."""
+    b_tᵀ.  The resident form picks one or two CTAs a task (``None``),
+    or ``ctas_per_task`` forces it; the tiles are the same bits either
+    way."""
     X, U, y, dims, code = _operands(X, U, y)
     L, tpn, n, d, r = dims
     B = _checked_B(B, X, (L, tpn, r))
-    tiles = torch.empty((L, tpn, d, r), dtype=torch.float32, device=X.device)
-    _launch("altgdmin_node_grad_tiles", (X, U, B, y, tiles), dims, code)
+    tiles = _grad_tiles(X, U, B, y, dims, code, ctas_per_task)
     _build.LAUNCHES["node_task_grad_tiles"] += 1
     return tiles
 
@@ -196,14 +220,14 @@ def task_gram(X, U, y):
     return G[0], c[0]
 
 
-def task_grad_tiles(X, U, B, y):
+def task_grad_tiles(X, U, B, y, *, ctas_per_task=None):
     """The gradient tiles of T tasks against one basis for a given B,
     one launch.  X (T, n, d), U (d, r), B (T, r), y (T, n) on the card →
-    tiles (T, d, r) float32, tiles[t] = X_tᵀ(X_t U b_t − y_t) b_tᵀ."""
+    tiles (T, d, r) float32, tiles[t] = X_tᵀ(X_t U b_t − y_t) b_tᵀ;
+    ``ctas_per_task`` as for :func:`node_task_grad_tiles`."""
     X, U, y, dims, code = _single_operands(X, U, y)
     _, T, n, d, r = dims
     B = _checked_B(B, X, (T, r))[None]
-    tiles = torch.empty((1, T, d, r), dtype=torch.float32, device=X.device)
-    _launch("altgdmin_node_grad_tiles", (X, U, B, y, tiles), dims, code)
+    tiles = _grad_tiles(X, U, B, y, dims, code, ctas_per_task)
     _build.LAUNCHES["task_grad_tiles"] += 1
     return tiles[0]

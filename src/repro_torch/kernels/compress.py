@@ -8,15 +8,24 @@
   that rank above it); it equals its plain version
   :func:`repro_torch.kernels.ref.ref_compress_topk` bit for bit, NaN
   and inf rows included.
-* :func:`dequant` replaces ``dequant`` (``_dequant_kernel``): the int8
-  wire payload decoded as q · scale per node block — the decode of the
-  ``quantized_gossip`` rule's int8 wires; it equals
-  :func:`repro_torch.kernels.ref.ref_dequant` exactly.
+* :func:`int8_round` and :func:`dequant` replace ``dequant``
+  (``_dequant_kernel``), the decode of the ``quantized_gossip`` rule's
+  int8 wires.  :func:`int8_round` is the whole round of those wires as
+  a sender's refresh runs it — encode Z − x̂ to int8 with a per-node
+  max-abs scale, decode, accumulate onto x̂ — in one launch
+  (``int8_round_kernel``); it equals
+  :func:`repro_torch.kernels.ref.ref_int8_round` bit for bit, NaN and
+  inf blocks included.  :func:`dequant` is the decode alone, q · scale
+  per node block (``dequant_kernel``), as a receiver applies a payload;
+  it equals :func:`repro_torch.kernels.ref.ref_dequant` exactly.  Both
+  count their launches as ``dequant`` in
+  :data:`repro_torch.kernels._build.LAUNCHES`, and under their
+  ``__global__`` function's name in ``KERNEL_LAUNCHES``.
 
-At the compressed paths' shapes both move a fraction of a megabyte, so a
-launch is bound by launch latency (see the source for the design).  Both
-take float32 or bfloat16; the consensus layer sends float64 operands to
-the plain versions, and so do these wrappers' callers — a float64
+At the compressed paths' shapes each moves a fraction of a megabyte, so
+a launch is bound by launch latency (see the source for the designs).
+All take float32 or bfloat16; the consensus layer sends float64 operands
+to the plain versions, and so do these wrappers' callers — a float64
 operand raises here.
 """
 from __future__ import annotations
@@ -28,11 +37,14 @@ import torch
 from repro_torch.kernels import _build
 
 D_MAX = 12000            # the kernel's shared-memory bound on d (kDMax)
+_DEQUANT_PER = 1024      # dequant: values a block (kDequantPer)
+_ROUND_MAX_CTAS = 8      # int8_round: CTAs a node at most (kRoundMaxCtas)
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "compress_topk": (_I, [_P, _P, _P] + [_I] * 6 + [_P]),
-    "compress_dequant": (_I, [_P, _P, _P, _LL, _LL, _I, _I, _P]),
+    "compress_dequant": (_I, [_P, _P, _P] + [_I] * 4 + [_P]),
+    "compress_int8_round": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "compress_error_string": (ctypes.c_char_p, [_I]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -100,17 +112,60 @@ def dequant(q, scale):
                          f"takes the plain version)")
     q, scale = q.contiguous(), scale.contiguous()
     out = torch.empty(q.shape, dtype=scale.dtype, device=q.device)
-    total = q.numel()
-    if total == 0:
+    N, per_node = q.shape[0], q.shape[1] * q.shape[2]
+    if q.numel() == 0:
         return out
-    if (total + 255) // 256 >= 2**31:
+    if N >= 2**31 or per_node > 65535 * _DEQUANT_PER:
         raise ValueError(f"q {tuple(q.shape)} exceeds one launch grid")
     lib = _build.load("compress", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.compress_dequant(q.data_ptr(), scale.data_ptr(),
-                                   out.data_ptr(), total // q.shape[0],
-                                   total, _DTYPE_CODE[scale.dtype],
-                                   q.device.index, _stream(q.device))
+                                   out.data_ptr(), N, per_node,
+                                   _DTYPE_CODE[scale.dtype], q.device.index,
+                                   _stream(q.device))
     _build.check(lib, "compress_error_string", err, "compress_dequant")
     _build.LAUNCHES["dequant"] += 1
+    _build.KERNEL_LAUNCHES["dequant_kernel"] += 1
     return out
+
+
+def int8_round(Z, xhat, u=None):
+    """One round of the int8 wire for node blocks Z, xhat (N, d, r) in
+    float32 or bfloat16 on the card: delta = Z − xhat, the per-node
+    scale = max(amax|delta| / 127, tiny), q = clamp(round(delta /
+    scale), −127, 127) (half to even), or clamp(floor(delta / scale + u),
+    −127, 127) given the stochastic wire's dither u (N, d, r) in Z's
+    dtype, and xhat + q · scale → (q int8, scale (N, 1, 1), xhat_new),
+    both in Z's dtype."""
+    tensors = {"Z": Z, "xhat": xhat} | ({} if u is None else {"u": u})
+    _on_card(**tensors)
+    for name, t in tensors.items():
+        if t.shape != Z.shape or t.dtype != Z.dtype:
+            raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)}, want "
+                             f"Z's {Z.dtype} {tuple(Z.shape)}")
+    if Z.ndim != 3 or min(Z.shape[1:]) < 1:
+        raise ValueError(f"int8_round wants node-batched (N, d, r) blocks, "
+                         f"got shape {tuple(Z.shape)}")
+    if Z.dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported dtype {Z.dtype} (float64 takes the "
+                         f"plain version)")
+    N, per_node = Z.shape[0], Z.shape[1] * Z.shape[2]
+    if N * _ROUND_MAX_CTAS >= 2**31 or per_node >= 2**31:
+        raise ValueError(f"Z {tuple(Z.shape)} exceeds one launch grid")
+    Z, xhat = Z.contiguous(), xhat.contiguous()
+    u = None if u is None else u.contiguous()
+    q = torch.empty(Z.shape, dtype=torch.int8, device=Z.device)
+    scale = torch.empty((N, 1, 1), dtype=Z.dtype, device=Z.device)
+    xhat_new = torch.empty_like(Z)
+    if N == 0:
+        return q, scale, xhat_new
+    lib = _build.load("compress", _SIGNATURES)
+    with torch.cuda.device(Z.device):
+        err = lib.compress_int8_round(
+            Z.data_ptr(), xhat.data_ptr(), None if u is None else u.data_ptr(),
+            q.data_ptr(), scale.data_ptr(), xhat_new.data_ptr(), N, per_node,
+            _DTYPE_CODE[Z.dtype], Z.device.index, _stream(Z.device))
+    _build.check(lib, "compress_error_string", err, "compress_int8_round")
+    _build.LAUNCHES["dequant"] += 1
+    _build.KERNEL_LAUNCHES["int8_round_kernel"] += 1
+    return q, scale, xhat_new

@@ -16,8 +16,11 @@
 //   * altgdmin_node_grad_tiles  <- node_task_grad_tiles (_grad_kernel_nb):
 //     the second half for a GIVEN B (the sample-split path, where B comes
 //     from another fold): A = X_t U_g is rebuilt, resid = A b_t - y_t, and
-//     the tile X_t^T resid b_t^T is emitted.  It shares the A build
-//     (load_task) and the tile pass (write_tiles) with the fused kernel.
+//     the tile X_t^T resid b_t^T is emitted.  Where n d fits the budget it
+//     is the resident fused kernel's gradient form (kGradOnly), which
+//     reads X_t once; past it the first port's grad_tiles_kernel, which
+//     shares the A build (load_task) and the tile pass (write_tiles) with
+//     fused_iter_kernel, streams X_t twice.
 //   * task_gram (_gram_kernel) and task_grad_tiles (_grad_kernel), ONE
 //     basis U (d, r) shared by T tasks, are the last two entries launched
 //     with L = 1, tpn = T: with one node every block's basis is U.  At the
@@ -77,6 +80,21 @@
 // Each CTA then writes its columns' rows of the tile from its shared
 // copy, once (16 bytes a row where r = 4).
 //
+// The gradient form of that kernel skips the Gram, the Cholesky and the
+// B store and reads b_t from B.  Its rows of X_t are copied in stages of
+// whole row groups, each tracked by an mbarrier that every thread's
+// copies arrive on, so each warp forms its rows of A as soon as their
+// stage has landed, while later stages are in flight, with no barrier of
+// the whole CTA.  X_t's columns are cut into two segments (one a CTA on
+// two CTAs a task, both on one); a lane sums a segment's columns in
+// order and the lanes' tree runs once a segment, and A is the segments'
+// partials added in order: each entry of A, and of the tile, has one
+// order of summation whatever the CTAs a task or the tasks of a launch.
+// grad_layout picks the CTAs a task and whether U_g's rows are staged in
+// shared memory or read through L1 by the waves of the launch: at path
+// A's fold one CTA with U_g through L1 (36 KB of X_t, five CTAs an SM,
+// the 600 tasks in one wave), at the serving batches two with U_g staged.
+//
 // Bound on the card: bytes.  At Experiment 1 (L=20, tpn=30, n=30, d=600,
 // r=4, f32) the fused kernel must move 49.2 MB (X once, the tiles once):
 // 0.0147 ms at 3.35 TB/s, while its arithmetic would take a tenth of that
@@ -85,8 +103,8 @@
 // chip_smoke.py on an NVIDIA H100 80GB HBM3 at its 700 W limit, 0.066 ms
 // per fused launch.  The gradient kernel at the sample-split fold of
 // Experiment 1 (n = 15 per fold) must move 27.4 MB (X once, the tiles
-// once; 0.0082 ms at 3.35 TB/s) and reads X twice, the second time from
-// L2 (a fold's X, 21.6 MB, fits the 50 MB L2).  Times: PERF.md.
+// once; 0.0082 ms at 3.35 TB/s); its resident form reads X once.
+// Times: PERF.md.
 // r is bounded by a template capacity of 4, 8 or 16 (R_MAX = 16) so the
 // per-lane accumulators of A stay in registers.
 
@@ -283,14 +301,50 @@ __host__ __device__ inline int cluster_cols(int d, int ctas) {
   return ((d + ctas - 1) / ctas + 7) & ~7;
 }
 
-// Shared memory of one CTA: its n x dh columns of X_t and its dh x RC rows
-// of U_g (in X's dtype, 16-byte multiples), its partial A (n x RC), then
-// the TaskSmem block.
-template <typename T, int RC>
-size_t resident_smem_bytes(int n, int d, int ctas) {
-  const size_t dh = cluster_cols(d, ctas);
-  return (size_t)n * dh * sizeof(T) + ((dh * RC * sizeof(T) + 15) & ~15) +
-         sizeof(float) * (size_t)n * RC + task_smem_bytes<RC>(n);
+// The gradient form (kGradOnly) cuts X_t's columns into two segments,
+// [0, grad_split(d)) and [grad_split(d), d); on two CTAs a task each CTA
+// holds one segment, on one CTA both.  An entry of A is the two
+// segments' partials added in order, each summed by a lane over its
+// columns in increasing order and then over the lanes in one tree: one
+// order of summation whatever the CTAs a task.  Its rows arrive in
+// stages of whole row groups, at most kGradStages, each tracked by an
+// mbarrier.
+constexpr int kGradSegments = 2;
+constexpr int kGradStages = 32;
+
+// d / 2 rounded up to a multiple of 64 (so of 32 lanes and 16 bytes)
+__host__ __device__ inline int grad_split(int d) {
+  return ((d + 1) / 2 + 63) / 64 * 64;
+}
+// Columns of X_t a CTA holds (its shared-memory row stride)
+template <bool kGradOnly>
+__host__ __device__ inline int share_cols(int d, int ctas) {
+  if (!kGradOnly) return cluster_cols(d, ctas);
+  return ctas == 1 ? (d + 7) & ~7 : grad_split(d);
+}
+
+// Shared memory of one CTA: the gradient form's stage barriers, its n x
+// dh columns of X_t and, where ushared, its dh x RC rows of U_g (in X's
+// dtype, 16-byte multiples; the gradient form reads U_g through L1
+// instead where staging it would cost a CTA an SM, as at path A's fold),
+// its partial A (n x RC; one a segment in the gradient form), then the
+// TaskSmem block.
+__host__ __device__ inline size_t resident_us_bytes(int dh, int rc,
+                                                    int tsize, int ushared) {
+  return ushared ? ((size_t)dh * rc * tsize + 15) & ~(size_t)15 : 0;
+}
+// the gradient form's stage mbarriers, ahead of X_t's columns
+template <bool kGradOnly>
+__host__ __device__ constexpr size_t resident_bars_bytes() {
+  return kGradOnly ? sizeof(unsigned long long) * kGradStages : 0;
+}
+template <typename T, int RC, bool kGradOnly>
+size_t resident_smem_bytes(int n, int d, int ctas, int ushared = 1) {
+  const size_t dh = share_cols<kGradOnly>(d, ctas);
+  const size_t parts = kGradOnly ? kGradSegments : 1;
+  return resident_bars_bytes<kGradOnly>() + (size_t)n * dh * sizeof(T) +
+         resident_us_bytes(dh, RC, sizeof(T), ushared) +
+         sizeof(float) * parts * n * RC + task_smem_bytes<RC>(n);
 }
 
 // CTAs a task: of 1 and 2, the fewest that keep the most tasks on an SM
@@ -305,7 +359,8 @@ int resident_ctas(int n, int d) {
   double best_tasks = -1.0;
   for (int c = 1; c <= kMaxCtas; ++c) {
     const size_t per_sm =
-        kSmemPerSm / (resident_smem_bytes<T, RC>(n, d, c) + kCtaReserve);
+        kSmemPerSm /
+        (resident_smem_bytes<T, RC, false>(n, d, c) + kCtaReserve);
     if ((double)per_sm / c > best_tasks) {
       best = c;
       best_tasks = (double)per_sm / c;
@@ -355,19 +410,25 @@ __device__ __forceinline__ void u_row(const __nv_bfloat16* us, int j, int r,
 // shuffles in all (not 5 RC): at offsets 16, 8, .. each lane keeps half
 // of its values and adds its partner's sums of that half, then plain
 // butterflies finish.  Returns the total of value index
-// row_sum_index<RC>(lane) (the same in every run).
+// row_sum_index<RC>(lane) (the same in every run).  Template recursion
+// keeps every index a constant, so a stays in registers (loops left a
+// at RC = 16 in local memory).
+template <int RC, int Half, int O>
+__device__ __forceinline__ void row_sum_halves(float (&a)[RC], int lane) {
+  if constexpr (Half >= 1) {
+    const bool upper = lane & O;
+#pragma unroll
+    for (int i = 0; i < Half; ++i) {
+      const float send = upper ? a[i] : a[i + Half];
+      const float keep = upper ? a[i + Half] : a[i];
+      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    row_sum_halves<RC, Half / 2, O / 2>(a, lane);
+  }
+}
 template <int RC>
 __device__ __forceinline__ float warp_row_sum(float (&a)[RC], int lane) {
-#pragma unroll
-  for (int half = RC / 2, o = 16; half >= 1; half >>= 1, o >>= 1) {
-    const bool upper = lane & o;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = upper ? a[i] : a[i + half];
-      const float keep = upper ? a[i + half] : a[i];
-      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-  }
+  row_sum_halves<RC, RC / 2, 16>(a, lane);
   float v = a[0];
 #pragma unroll
   for (int o = 16 / RC; o >= 1; o >>= 1)
@@ -383,107 +444,292 @@ __device__ __forceinline__ int row_sum_index(int lane) {
   return v;
 }
 
+// Row j of U (row stride r) as f32, 0 past r, from shared or global
+// memory alike (a generic pointer), with 16- (f32) or 8-byte (bf16) loads
+// of four values where vec4 (r = RC and the rows 16-byte aligned).
+template <int RC, typename T>
+__device__ __forceinline__ void u_row_any(const T* u, int j, int r,
+                                          bool vec4, float (&uv)[RC]) {
+  if (!vec4) {
+#pragma unroll
+    for (int k = 0; k < RC; ++k) uv[k] = k < r ? to_f32(u[j * r + k]) : 0.f;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < RC; k += 4) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(u + j * RC + k);
+      uv[k] = q.x; uv[k + 1] = q.y; uv[k + 2] = q.z; uv[k + 3] = q.w;
+    } else {
+      const uint2 q = *reinterpret_cast<const uint2*>(u + j * RC + k);
+      uv[k] = __uint_as_float(q.x << 16);
+      uv[k + 1] = __uint_as_float(q.x & 0xffff0000u);
+      uv[k + 2] = __uint_as_float(q.y << 16);
+      uv[k + 3] = __uint_as_float(q.y & 0xffff0000u);
+    }
+  }
+}
+
+// mbarriers in shared memory tracking bulk (TMA) copies: init (one
+// thread, then a fence and a barrier of the CTA), the expected bytes of
+// a phase with the one arrival it counts, a bulk copy of a contiguous
+// range (16-byte aligned, a multiple of 16 bytes) that completes its
+// bytes on the mbarrier, and a wait for the phase of parity.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(
+                   sm90::smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;\n" ::"r"(
+                   sm90::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(sm90::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(sm90::smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(sm90::smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
 // At r <= 4 the registers are capped for five CTAs an SM (Experiment 1's
 // 41 KB a CTA fits five); the larger capacities keep their Cholesky in
 // registers instead.
 // Launched with a cluster dimension of ctas (launch_resident).
-template <typename T, int RC>
+//
+// kGradOnly: the gradient form for a GIVEN B (node_task_grad_tiles), the
+// same kernel without the Gram, the Cholesky and the B store, b_t read
+// from B, U_g staged only where ushared.  Its rows of X_t come in stages
+// (an mbarrier each), and each warp forms its rows of A as soon as their
+// stage lands, while the later stages are still in flight; A is the
+// segments' partials summed in order (through distributed shared
+// memory), whatever the CTAs a task.
+template <typename T, int RC, bool kGradOnly>
 __global__ void __launch_bounds__(kThreads, RC == 4 ? 5 : 1)
 fused_resident_kernel(const T* __restrict__ X, const T* __restrict__ U,
                       const T* __restrict__ Y, float* __restrict__ B,
                       float* __restrict__ tiles, int tpn, int n, int d,
-                      int r, int vec, int ctas) {
+                      int r, int vec, int ctas, int ushared) {
   namespace cg = cooperative_groups;
   const cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int dh = cluster_cols(d, ctas);
+  const int dh = share_cols<kGradOnly>(d, ctas);
   const int j0 = rank * dh, jn = max(0, min(d, j0 + dh) - j0);
+  const int parts = kGradOnly ? kGradSegments : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);   // n x dh: this CTA's columns
+  // the gradient form's stage barriers first
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem_raw);
+  unsigned char* base = smem_raw + resident_bars_bytes<kGradOnly>();
+  T* xs = reinterpret_cast<T*>(base);       // n x dh: this CTA's columns
   T* us = xs + (size_t)n * dh;              // jn x r: U_g's rows for them
   float* a_part = reinterpret_cast<float*>(
-      smem_raw + (size_t)n * dh * sizeof(T) +
-      (((size_t)dh * RC * sizeof(T) + 15) & ~(size_t)15));  // n x RC
-  TaskSmem<RC> s(a_part + n * RC, n);
+      base + (size_t)n * dh * sizeof(T) +
+      resident_us_bytes(dh, RC, sizeof(T), ushared));  // parts x n x RC
+  TaskSmem<RC> s(a_part + (size_t)parts * n * RC, n);
   const size_t task = blockIdx.x / ctas;  // g * tpn + t
   const size_t g = task / tpn;
   const T* x = X + task * n * d + j0;
   const T* u = U + (g * d + j0) * r;
+  constexpr int kPer = 16 / sizeof(T);
 
-  // X_t's columns and U_g's rows for them, once from device memory, with
-  // 16-byte copies where every row segment is aligned (d and j0 multiples
-  // of 16 bytes, X and U aligned); y_t meanwhile
-  if (vec) {
-    constexpr int kPer = 16 / sizeof(T);
-    const int cpr = jn / kPer;   // jn, so jn r, is a multiple of kPer
-    for (int e = threadIdx.x; e < n * cpr; e += kThreads) {
-      const int i = e / cpr, c = e - i * cpr;
-      sm90::cp_async16(xs + i * dh + c * kPer, x + (size_t)i * d + c * kPer,
-                       16);
+  if constexpr (kGradOnly) {
+    // X_t's columns in stages of whole row groups, a bulk copy a row
+    // (where every row segment is 16-byte aligned) issued by the lanes of
+    // warp 0, each stage's bytes completing on its mbarrier; U_g's rows,
+    // where staged, with the first stage.  Element by element otherwise.
+    // y_t and b_t meanwhile.
+    const int groups = (n + kRowsA - 1) / kRowsA;
+    const int gps = (groups + kGradStages - 1) / kGradStages;  // a stage
+    const int stages = (groups + gps - 1) / gps;
+    const unsigned row_bytes = jn * sizeof(T), u_bytes = jn * r * sizeof(T);
+    if (vec) {
+      if (threadIdx.x < 32) {
+        if (threadIdx.x == 0) {
+          for (int st = 0; st < stages; ++st) mbar_init(bars + st, 1);
+          mbar_init_fence();
+          for (int st = 0; st < stages; ++st) {
+            const int rows = min(n, (st + 1) * gps * kRowsA) -
+                             st * gps * kRowsA;
+            mbar_expect_tx(bars + st, rows * row_bytes +
+                                          (st == 0 && ushared ? u_bytes : 0));
+          }
+        }
+        __syncwarp();
+        if (jn > 0) {
+          if (ushared && threadIdx.x == 0) bulk_copy(us, u, u_bytes, bars);
+          for (int i = threadIdx.x; i < n; i += 32)
+            bulk_copy(xs + i * dh, x + (size_t)i * d, row_bytes,
+                      bars + i / (gps * kRowsA));
+        }
+      }
+      __syncthreads();   // the barriers' init, before any warp waits
+    } else {
+      for (int e = threadIdx.x; e < n * jn; e += kThreads) {
+        const int i = e / jn, j = e - i * jn;
+        xs[i * dh + j] = x[(size_t)i * d + j];
+      }
+      if (ushared)
+        for (int e = threadIdx.x; e < jn * r; e += kThreads) us[e] = u[e];
     }
-    for (int e = threadIdx.x; e < cpr * r; e += kThreads)
-      sm90::cp_async16(us + e * kPer, u + e * kPer, 16);
-    sm90::cp_async_commit();
-  } else {
-    for (int e = threadIdx.x; e < n * jn; e += kThreads) {
-      const int i = e / jn, j = e - i * jn;
-      xs[i * dh + j] = x[(size_t)i * d + j];
-    }
-    for (int e = threadIdx.x; e < jn * r; e += kThreads) us[e] = u[e];
-  }
-  for (int i = threadIdx.x; i < n; i += kThreads) s.yv[i] = to_f32(Y[task * n + i]);
-  sm90::cp_async_wait<0>();
-  __syncthreads();
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      s.yv[i] = to_f32(Y[task * n + i]);
+    if (threadIdx.x < r) s.b[threadIdx.x] = B[task * r + threadIdx.x];
+    if (!vec) __syncthreads();
 
-  // partial A over this CTA's columns: each warp kRowsA rows, lanes
-  // strided along d
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i0 = warp * kRowsA; i0 < n; i0 += kWarps * kRowsA) {
-    const int rows = min(kRowsA, n - i0);
-    float acc[kRowsA][RC];
+    // The partial A of each segment held: each warp kRowsA rows at a
+    // time, once their stage has landed, a lane taking the segment's
+    // columns lane, lane + 32, .. in order, then the sum over the lanes;
+    // U_g's rows from shared memory, or through L1.
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int k = row_sum_index<RC>(lane);
+    const bool writer = (lane & (32 / RC - 1)) == 0 && k < r;
+    // U_g's rows: the staged copy, or device memory through L1
+    const T* usrc = ushared ? us : u;
+    const bool vec4 = r == RC && (ushared || vec);
+    const int split = ctas == 1 ? grad_split(d) : jn;  // segment 0's end
+    const int segs = ctas == 1 && d > split ? 2 : jn > 0 ? 1 : 0;
+    for (int gi = warp; gi < groups; gi += kWarps) {
+      const int i0 = gi * kRowsA, rows = min(kRowsA, n - i0);
+      if (vec) {
+        if (ushared) mbar_wait(bars, 0);   // U_g's rows came with stage 0
+        mbar_wait(bars + gi / gps, 0);
+      }
+      for (int sg = 0; sg < segs; ++sg) {
+        float acc[kRowsA][RC];
 #pragma unroll
-    for (int rr = 0; rr < kRowsA; ++rr)
+        for (int rr = 0; rr < kRowsA; ++rr)
 #pragma unroll
-      for (int k = 0; k < RC; ++k) acc[rr][k] = 0.f;
-    for (int j = lane; j < jn; j += 32) {
-      float uv[RC];
-      u_row<RC>(us, j, r, uv);
+          for (int kk = 0; kk < RC; ++kk) acc[rr][kk] = 0.f;
+        const int js = sg == 0 ? 0 : split, je = sg == 0 ? min(split, jn) : jn;
+        for (int j = js + lane; j < je; j += 32) {
+          float uv[RC];
+          u_row_any<RC>(usrc, j, r, vec4, uv);
 #pragma unroll
-      for (int rr = 0; rr < kRowsA; ++rr) {
-        if (rr < rows) {
-          const float xv = to_f32(xs[(i0 + rr) * dh + j]);
+          for (int rr = 0; rr < kRowsA; ++rr) {
+            if (rr < rows) {
+              const float xv = to_f32(xs[(i0 + rr) * dh + j]);
 #pragma unroll
-          for (int k = 0; k < RC; ++k) acc[rr][k] += xv * uv[k];
+              for (int kk = 0; kk < RC; ++kk) acc[rr][kk] += xv * uv[kk];
+            }
+          }
+        }
+        float* part = a_part + (size_t)sg * n * RC;
+#pragma unroll
+        for (int rr = 0; rr < kRowsA; ++rr) {
+          if (rr < rows) {  // uniform over the warp
+            const float v = warp_row_sum<RC>(acc[rr], lane);
+            if (writer) part[(i0 + rr) * RC + k] = v;
+          }
         }
       }
     }
-    const int k = row_sum_index<RC>(lane);
-    const bool writer = (lane & (32 / RC - 1)) == 0 && k < r;
+  } else {
+    // X_t's columns and U_g's rows for them, once from device memory,
+    // with 16-byte copies where every row segment is aligned (d and j0
+    // multiples of 16 bytes, X and U aligned); y_t meanwhile
+    if (vec) {
+      const int cpr = jn / kPer;   // jn, so jn r, is a multiple of kPer
+      for (int e = threadIdx.x; e < n * cpr; e += kThreads) {
+        const int i = e / cpr, c = e - i * cpr;
+        sm90::cp_async16(xs + i * dh + c * kPer,
+                         x + (size_t)i * d + c * kPer, 16);
+      }
+      for (int e = threadIdx.x; e < cpr * r; e += kThreads)
+        sm90::cp_async16(us + e * kPer, u + e * kPer, 16);
+      sm90::cp_async_commit();
+    } else {
+      for (int e = threadIdx.x; e < n * jn; e += kThreads) {
+        const int i = e / jn, j = e - i * jn;
+        xs[i * dh + j] = x[(size_t)i * d + j];
+      }
+      for (int e = threadIdx.x; e < jn * r; e += kThreads) us[e] = u[e];
+    }
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      s.yv[i] = to_f32(Y[task * n + i]);
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    // partial A over this CTA's columns: each warp kRowsA rows, lanes
+    // strided along d
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int i0 = warp * kRowsA; i0 < n; i0 += kWarps * kRowsA) {
+      const int rows = min(kRowsA, n - i0);
+      float acc[kRowsA][RC];
 #pragma unroll
-    for (int rr = 0; rr < kRowsA; ++rr) {
-      if (rr < rows) {  // uniform over the warp
-        const float v = warp_row_sum<RC>(acc[rr], lane);
-        if (writer) a_part[(i0 + rr) * RC + k] = v;
+      for (int rr = 0; rr < kRowsA; ++rr)
+#pragma unroll
+        for (int k = 0; k < RC; ++k) acc[rr][k] = 0.f;
+      for (int j = lane; j < jn; j += 32) {
+        float uv[RC];
+        u_row<RC>(us, j, r, uv);
+#pragma unroll
+        for (int rr = 0; rr < kRowsA; ++rr) {
+          if (rr < rows) {
+            const float xv = to_f32(xs[(i0 + rr) * dh + j]);
+#pragma unroll
+            for (int k = 0; k < RC; ++k) acc[rr][k] += xv * uv[k];
+          }
+        }
+      }
+      const int k = row_sum_index<RC>(lane);
+      const bool writer = (lane & (32 / RC - 1)) == 0 && k < r;
+#pragma unroll
+      for (int rr = 0; rr < kRowsA; ++rr) {
+        if (rr < rows) {  // uniform over the warp
+          const float v = warp_row_sum<RC>(acc[rr], lane);
+          if (writer) a_part[(i0 + rr) * RC + k] = v;
+        }
       }
     }
   }
-  // A = the CTAs' partials summed in rank order, the same in every CTA
-  // (distributed shared memory)
+
+  // A = the partials summed in order (the CTAs' in rank order; the
+  // gradient form's, the segments'), the same in every CTA (distributed
+  // shared memory)
   cluster.sync();
+  const int nparts = kGradOnly ? (d > grad_split(d) ? 2 : 1) : ctas;
   for (int e = threadIdx.x; e < n * r; e += kThreads) {
     const int i = e / r, k = e - i * r;
     float v = 0.f;
-    for (int q = 0; q < ctas; ++q)
-      v += cluster.map_shared_rank(a_part, q)[i * RC + k];
+    for (int q = 0; q < nparts; ++q) {
+      const int owner = kGradOnly && ctas == 1 ? 0 : q;
+      const int local = kGradOnly && ctas == 1 ? q : 0;
+      v += cluster.map_shared_rank(a_part, owner)[(local * n + i) * RC + k];
+    }
     s.A[i * RC + k] = v;
   }
   __syncthreads();
-  form_gram<RC>(s, n, r);
-  __syncthreads();
-  if (threadIdx.x == 0) chol_solve<RC>(s.G, s.c, s.b, r);
-  __syncthreads();
+  if constexpr (!kGradOnly) {
+    form_gram<RC>(s, n, r);
+    __syncthreads();
+    if (threadIdx.x == 0) chol_solve<RC>(s.G, s.c, s.b, r);
+    __syncthreads();
+  }
   form_resid<RC>(s, n, r);
-  if (rank == 0 && threadIdx.x < r) B[task * r + threadIdx.x] = s.b[threadIdx.x];
+  if (!kGradOnly && rank == 0 && threadIdx.x < r)
+    B[task * r + threadIdx.x] = s.b[threadIdx.x];
   __syncthreads();
 
   // this CTA's rows of the tile X_t^T resid b^T, a row of r per column
@@ -872,12 +1118,12 @@ cudaError_t launch(Kernel kernel, int blocks, int threads, size_t smem,
 }
 
 // fused_resident_kernel on clusters of ctas CTAs, ctas a task.
-template <typename T, int RC>
+template <typename T, int RC, bool kGradOnly>
 cudaError_t launch_resident(int tasks, int ctas, size_t smem,
                             cudaStream_t stream, const T* x, const T* u,
                             const T* y, float* B, float* tiles, int tpn,
-                            int n, int d, int r, int vec) {
-  const auto kernel = fused_resident_kernel<T, RC>;
+                            int n, int d, int r, int vec, int ushared) {
+  const auto kernel = fused_resident_kernel<T, RC, kGradOnly>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -896,15 +1142,64 @@ cudaError_t launch_resident(int tasks, int ctas, size_t smem,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, x, u, y, B, tiles, tpn,
-                                       n, d, r, vec, ctas);
+                                       n, d, r, vec, ctas, ushared);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The fused kind counts the kernel it launched in launched[0] (resident)
-// or launched[1] (two-pass): the choice is made here only.  ctas 0 picks
-// the resident kernel's CTAs a task (resident_ctas); 1 or 2 forces it.
-// The Gram kind counts its launch in launched[0] where U_g's rows are
-// staged in shared memory, launched[1] where they are read through L1.
+// The gradient form's layout: its CTAs a task (1 or 2; forced > 0) and
+// whether U_g's rows are staged in shared memory.  Of the layouts that
+// fit, the one whose launch takes the fewest waves of the card's SMs (as
+// many CTAs an SM as the occupancy calculator fits, by registers and
+// shared memory) for the least work a CTA, waves / ctas; on a tie one CTA
+// before two, U_g staged before read through L1.  At path A's fold (600
+// tasks) that is one CTA with U_g through L1 (five CTAs an SM: one wave),
+// at a serving batch two CTAs with U_g staged.  The order of summation
+// does not depend on the layout.  Returns ushared; ctas is set.
+template <typename T, int RC>
+int grad_layout(int n, int d, int tasks, int& ctas) {
+  const auto kernel = fused_resident_kernel<T, RC, true>;
+  int device = 0, sms = 0;
+  const int forced = ctas;
+  ctas = forced > 0 ? forced : 1;
+  if ((forced == 0 && d <= grad_split(d)) ||
+      cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kResidentSmemMax) != cudaSuccess)
+    return 1;
+  int ushared = 1;
+  double best = 0.0;
+  for (int c = 1; c <= kMaxCtas; ++c) {
+    if (forced > 0 && c != forced) continue;
+    for (int ush = 1; ush >= 0; --ush) {
+      const size_t smem = resident_smem_bytes<T, RC, true>(n, d, c, ush);
+      int per_sm = 0;
+      if (smem > kResidentSmemMax ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm, kernel, kThreads, smem) != cudaSuccess ||
+          per_sm == 0)
+        continue;
+      const long long slots = (long long)per_sm * sms;
+      const double cost =
+          (double)(((long long)tasks * c + slots - 1) / slots) / c;
+      if (best == 0.0 || cost < best) {
+        best = cost;
+        ctas = c;
+        ushared = ush;
+      }
+    }
+  }
+  return ushared;
+}
+
+// The fused and the gradient kinds count the kernel they launched in
+// launched[0] (resident) or launched[1] (two-pass): the choice is made
+// here only.  ctas 0 picks the resident kernel's CTAs a task
+// (resident_ctas, grad_layout); 1 or 2 forces it.  The Gram kind counts
+// its launch in launched[0] where U_g's rows are staged in shared
+// memory, launched[1] where they are read through L1.
 template <typename T, int RC>
 cudaError_t run(Kind kind, const void* X, const void* U, const void* Bin,
                 const void* Y, void* o1, void* o2, int tasks, int tpn, int n,
@@ -915,45 +1210,54 @@ cudaError_t run(Kind kind, const void* X, const void* U, const void* Bin,
   const T* y = static_cast<const T*>(Y);
   float* out1 = static_cast<float*>(o1);
   float* out2 = static_cast<float*>(o2);
+  const int vec = ((size_t)d * sizeof(T)) % 16 == 0 &&
+                  (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
+                  (reinterpret_cast<uintptr_t>(U) & 15) == 0;
   if (kind == kFused) {
     if (ctas == 0) ctas = resident_ctas<T, RC>(n, d);
-    const size_t smem_res = resident_smem_bytes<T, RC>(n, d, ctas);
+    const size_t smem_res = resident_smem_bytes<T, RC, false>(n, d, ctas);
     const bool resident = smem_res <= kResidentSmemMax;
-    cudaError_t err;
-    if (resident) {
-      const int vec = ((size_t)d * sizeof(T)) % 16 == 0 &&
-                      (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
-                      (reinterpret_cast<uintptr_t>(U) & 15) == 0;
-      err = launch_resident<T, RC>(tasks, ctas, smem_res, stream, x, u, y,
-                                   out1, out2, tpn, n, d, r, vec);
-    } else {
-      err = launch(fused_iter_kernel<T, RC>, tasks, kThreads, smem, stream,
-                   x, u, y, out1, out2, tpn, n, d, r);
-    }
+    const cudaError_t err =
+        resident ? launch_resident<T, RC, false>(tasks, ctas, smem_res,
+                                                 stream, x, u, y, out1, out2,
+                                                 tpn, n, d, r, vec, 1)
+                 : launch(fused_iter_kernel<T, RC>, tasks, kThreads, smem,
+                          stream, x, u, y, out1, out2, tpn, n, d, r);
     if (err == cudaSuccess) ++launched[resident ? 0 : 1];
     return err;
   }
-  if (kind == kGram) {
-    const int vec = ((size_t)d * sizeof(T)) % 16 == 0 &&
-                    (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
-                    (reinterpret_cast<uintptr_t>(U) & 15) == 0;
-    const int warps = gram_warps(n, tasks);
-    const int rows = gram_chunk_rows(n, warps);
-    const size_t rest = gram_rest_bytes<RC>(rows, warps);
-    const size_t with_u = gram_us_bytes<T, RC>(d) + rest;
-    const bool ushared = with_u <= kResidentSmemMax;
+  if (kind == kGrad) {
+    const int ushared = grad_layout<T, RC>(n, d, tasks, ctas);
+    const size_t smem_res =
+        resident_smem_bytes<T, RC, true>(n, d, ctas, ushared);
+    const bool resident = smem_res <= kResidentSmemMax;
+    // B is only read by the gradient form
+    float* b = const_cast<float*>(static_cast<const float*>(Bin));
     const cudaError_t err =
-        ushared ? launch(stream_gram_kernel<T, RC, true>, tasks, 32 * warps,
-                         with_u, stream, x, u, y, out1, out2, tpn, n, d, r,
-                         vec, rows)
-                : launch(stream_gram_kernel<T, RC, false>, tasks, 32 * warps,
-                         rest, stream, x, u, y, out1, out2, tpn, n, d, r, vec,
-                         rows);
-    if (err == cudaSuccess) ++launched[ushared ? 0 : 1];
+        resident ? launch_resident<T, RC, true>(tasks, ctas, smem_res, stream,
+                                                x, u, y, b, out1, tpn, n, d,
+                                                r, vec, ushared)
+                 : launch(grad_tiles_kernel<T, RC>, tasks, kThreads, smem,
+                          stream, x, u, static_cast<const float*>(Bin), y,
+                          out1, tpn, n, d, r);
+    if (err == cudaSuccess) ++launched[resident ? 0 : 1];
     return err;
   }
-  return launch(grad_tiles_kernel<T, RC>, tasks, kThreads, smem, stream, x,
-                u, static_cast<const float*>(Bin), y, out1, tpn, n, d, r);
+  // the Gram kind
+  const int warps = gram_warps(n, tasks);
+  const int rows = gram_chunk_rows(n, warps);
+  const size_t rest = gram_rest_bytes<RC>(rows, warps);
+  const size_t with_u = gram_us_bytes<T, RC>(d) + rest;
+  const bool ushared = with_u <= kResidentSmemMax;
+  const cudaError_t err =
+      ushared ? launch(stream_gram_kernel<T, RC, true>, tasks, 32 * warps,
+                       with_u, stream, x, u, y, out1, out2, tpn, n, d, r,
+                       vec, rows)
+              : launch(stream_gram_kernel<T, RC, false>, tasks, 32 * warps,
+                       rest, stream, x, u, y, out1, out2, tpn, n, d, r, vec,
+                       rows);
+  if (err == cudaSuccess) ++launched[ushared ? 0 : 1];
+  return err;
 }
 
 template <typename T>
@@ -1022,13 +1326,18 @@ int altgdmin_node_task_gram(const void* X, const void* U, const void* Y,
                stream, 0, launched);
 }
 
-// B is float32 whatever the dtype of X, U and y.
+// B is float32 whatever the dtype of X, U and y.  ctas and launched as
+// for the fused entry: ctas 0 is grad_layout's pick; launched[0] counts
+// the resident gradient form, launched[1] the two-pass grad_tiles_kernel
+// (n d past the budget).
 int altgdmin_node_grad_tiles(const void* X, const void* U, const void* B,
                              const void* Y, void* tiles, int L, int tpn,
                              int n, int d, int r, int dtype, int device,
-                             void* stream) {
+                             void* stream, int ctas, int* launched) {
+  if (ctas < 0 || ctas > kMaxCtas || launched == nullptr)
+    return (int)cudaErrorInvalidValue;
   return entry(kGrad, X, U, B, Y, tiles, nullptr, L, tpn, n, d, r, dtype,
-               device, stream);
+               device, stream, ctas, launched);
 }
 
 const char* altgdmin_error_string(int err) {

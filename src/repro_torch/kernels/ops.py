@@ -206,6 +206,18 @@ def dequant(q, scale, *, backend=None):
     return _cp.dequant(q, scale)
 
 
+def int8_round(Z, xhat, u=None, *, backend=None):
+    """One round of the int8 wire: delta = Z − xhat encoded with a
+    per-node max-abs scale to int8 (half to even, or floor(delta /
+    scale + u) given the stochastic wire's dither u), decoded and added
+    onto xhat.  Z, xhat (and u) (N, d, r) → (q int8, scale (N, 1, 1),
+    xhat_new), in Z's dtype."""
+    tensors = (Z, xhat) if u is None else (Z, xhat, u)
+    if _resolve_for(backend, *tensors) == "torch-ref":
+        return _ref.ref_int8_round(Z, xhat, u)
+    return _cp.int8_round(Z, xhat, u)
+
+
 # ------------------------------------------------------------ gossip
 
 def mix_nodes(Z, W, *, backend=None):

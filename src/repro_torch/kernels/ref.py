@@ -147,6 +147,37 @@ def ref_dequant(q, scale):
     return q.to(scale.dtype) * scale
 
 
+def ref_int8_scale(delta):
+    """The int8 wire's per-node scale of node blocks delta (N, d, r):
+    max(amax|delta| / 127, tiny) in delta's dtype, NaN carried through.
+    The 127 is a tensor on delta's device, so the division is an IEEE
+    division on any device: PyTorch's CUDA division by a Python number
+    may multiply by its reciprocal instead (its CPU one divides), which
+    can differ from the kernel's division in the last bit."""
+    amax = torch.amax(torch.abs(delta), dim=(-2, -1), keepdim=True)
+    return torch.clamp(amax / delta.new_full((), 127.0),
+                       min=torch.finfo(delta.dtype).tiny)
+
+
+def ref_int8_round(Z, xhat, u=None):
+    """What ``int8_round`` computes: one round of the int8 wire of the
+    ``quantized_gossip`` rule for node blocks Z, xhat (N, d, r).
+    delta = Z − xhat is quantized with :func:`ref_int8_scale` to
+    q = clamp(round(delta / scale), −127, 127), half to even, or, given
+    the stochastic wire's dither u (N, d, r), to clamp(floor(delta /
+    scale + u), −127, 127); the public copy takes the decoded increment,
+    xhat + ref_dequant(q, scale).  → (q int8, scale (N, 1, 1),
+    xhat_new), in Z's dtype."""
+    delta = Z - xhat                     # accumulated compression error
+    scale = ref_int8_scale(delta)
+    if u is None:
+        qf = torch.round(delta / scale)            # half to even
+    else:
+        qf = torch.floor(delta / scale + u)
+    q = torch.clamp(qf, -127, 127).to(torch.int8)
+    return q, scale, xhat + ref_dequant(q, scale)
+
+
 # ------------------------------------------------------------ LM kernels
 
 def ref_attention(q, k, v, *, causal=True, window=None, scale=None):

@@ -269,6 +269,59 @@ def test_small_run_through_kernels_matches_torch_ref(cuda, dtype):
     assert got.final_sd_max < 1e-2 * got.sd_max[0]
 
 
+# (L, tpn, n, d, r) of the gradient kernel's forms: path A's fold of
+# Experiment 1, the serving cohort (one node of 64 tasks), d = 97 (element
+# by element), r = 8 and 16, and n past the resident form's shared memory
+# at each dtype (FUSED_PAST_BUDGET's tasks, X_t's share 200 or 400 x 320
+# columns), which runs the two-pass kernel
+GRAD_RESIDENT, GRAD_TWO_PASS = "fused_resident_kernel/grad", "grad_tiles_kernel"
+GRAD_FORMS = [((20, 30, 15, 600, 4), GRAD_RESIDENT),
+              ((1, 64, 16, 600, 4), GRAD_RESIDENT),
+              ((3, 5, 20, 97, 3), GRAD_RESIDENT),
+              ((2, 3, 20, 100, 8), GRAD_RESIDENT),
+              ((2, 3, 16, 600, 16), GRAD_RESIDENT),
+              (FUSED_PAST_BUDGET, GRAD_TWO_PASS)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kernel", GRAD_FORMS)
+def test_grad_tiles_forms_match_plain(cuda, shape, kernel, dtype):
+    """node_task_grad_tiles within TOL of ref_node_grad_tiles through the
+    form the C entry reports; the resident form gives the same bits on
+    one and on two CTAs a task."""
+    from repro_torch.kernels import _build, altgdmin_ls, ref
+    if isinstance(shape, dict):
+        shape = shape[dtype]
+    X, U, y = _instance(shape, dtype, seed=5)
+    B = torch.randn((shape[0], shape[1], shape[4]), device="cuda")
+    _build.KERNEL_LAUNCHES.clear()
+    tiles = altgdmin_ls.node_task_grad_tiles(X, U, B, y)
+    assert dict(_build.KERNEL_LAUNCHES) == {kernel: 1}
+    _close(tiles, ref.ref_node_grad_tiles(X, U, B, y), TOL[dtype])
+    if kernel == GRAD_RESIDENT:
+        one, two = (altgdmin_ls.node_task_grad_tiles(X, U, B, y,
+                                                     ctas_per_task=c)
+                    for c in (1, 2))
+        assert torch.equal(one, tiles) and torch.equal(two, tiles)
+
+
+def test_task_grad_tiles_repeats_and_ignores_added_tasks(cuda):
+    """Fifty launches of task_grad_tiles at the serving batch give one
+    result, and the same tasks launched beside 150 zero tasks (which
+    turns the launch from two CTAs a task to one) give the same bits."""
+    from repro_torch.kernels import altgdmin_ls
+    X, U, y = _single((32, 16, 600, 4), torch.float32, seed=8)
+    B = torch.randn((32, 4), device="cuda")
+    first = altgdmin_ls.task_grad_tiles(X, U, B, y)
+    assert all(torch.equal(altgdmin_ls.task_grad_tiles(X, U, B, y), first)
+               for _ in range(50))
+    pad = 150
+    Xp = torch.cat([X, torch.zeros((pad, 16, 600), device="cuda")])
+    yp = torch.cat([y, torch.zeros((pad, 16), device="cuda")])
+    Bp = torch.cat([B, torch.zeros((pad, 4), device="cuda")])
+    assert torch.equal(altgdmin_ls.task_grad_tiles(Xp, U, Bp, yp)[:32], first)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_grad_tiles_kernel_matches_plain(cuda, shape, dtype):
@@ -336,6 +389,75 @@ def test_dequant_kernel_equals_plain(cuda, N, d, r, dtype):
     out = compress.dequant(q, scale)
     assert out.dtype == dtype
     assert torch.equal(out, ref.ref_dequant(q, scale))
+
+
+# (N, d, r) of the int8 round: the dif_quantized path's shape, Experiment
+# 2's width at L = 100, a ragged d with r = 16, a node past what one CTA
+# holds in registers (a cluster of 8, each CTA reading its share twice),
+# and d r not a multiple of the 16-byte vector (element by element)
+ROUND = [(20, 600, 4), (100, 1000, 4), (3, 291, 16), (3, 8192, 16),
+         (5, 97, 3)]
+
+
+def _round_operands(N, d, r, dtype, wire, seed=0):
+    """Z, xhat (N + 3, d, r): N random nodes, then a zero delta (the
+    scale clamps to tiny), a NaN and an inf; u the stochastic wire's
+    dither (None for round half to even)."""
+    from repro_torch.distributed.consensus import stochastic_dither
+    g = torch.Generator(device="cuda").manual_seed(seed + N + d)
+    Z = torch.randn((N + 3, d, r), generator=g, device="cuda")
+    Z[N - 1] *= 1e3
+    xhat = 0.5 * torch.randn((N + 3, d, r), generator=g, device="cuda")
+    xhat[N] = Z[N]
+    Z[N + 1, d // 2, 0] = float("nan")
+    Z[N + 2, d - 1, r - 1] = float("inf")
+    Z, xhat = Z.to(dtype), xhat.to(dtype)
+    u = (stochastic_dither(3, torch.arange(N + 3, device="cuda"),
+                           (d, r), dtype) if wire == "int8_stochastic"
+         else None)
+    return Z, xhat, u
+
+
+def _same_nan(got, want):
+    """Bit for bit, NaN positions equal (any NaN payload)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+
+
+@pytest.mark.parametrize("wire", ["int8", "int8_stochastic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d,r", ROUND)
+def test_int8_round_kernel_equals_plain(cuda, N, d, r, dtype, wire):
+    """The whole int8 round in one launch equals ref_int8_round bit for
+    bit: scale and x̂' with NaN positions equal, q on every node whose
+    scale is finite."""
+    from repro_torch.kernels import _build, compress, ref
+    Z, xhat, u = _round_operands(N, d, r, dtype, wire)
+    _build.KERNEL_LAUNCHES.clear()
+    q, scale, xn = compress.int8_round(Z, xhat, u)
+    assert dict(_build.KERNEL_LAUNCHES) == {"int8_round_kernel": 1}
+    q0, scale0, xn0 = ref.ref_int8_round(Z, xhat, u)
+    assert q.dtype == torch.int8 and scale.dtype == xn.dtype == dtype
+    assert scale.shape == (N + 3, 1, 1)
+    _same_nan(scale, scale0)
+    _same_nan(xn, xn0)
+    fin = torch.isfinite(scale0.flatten())
+    assert int(fin.sum()) == N + 1          # the NaN and the inf node
+    assert torch.equal(q[fin], q0[fin])
+
+
+@pytest.mark.parametrize("N,d,r", [(20, 600, 4), (3, 8192, 16)])
+def test_int8_round_kernel_repeats_bit_for_bit(cuda, N, d, r):
+    """Fifty launches give one result, one CTA a node or a cluster."""
+    from repro_torch.kernels import compress
+    Z, xhat, u = _round_operands(N, d, r, torch.float32, "int8_stochastic")
+    first = compress.int8_round(Z, xhat, u)
+    for _ in range(50):
+        for got, want in zip(compress.int8_round(Z, xhat, u), first):
+            assert torch.equal(_bits(got) if got.is_floating_point()
+                               else got, _bits(want)
+                               if want.is_floating_point() else want)
 
 
 COMPRESSED = {"node_fused_iter": 40, "node_task_gram": 1,
