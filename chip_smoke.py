@@ -90,18 +90,36 @@ Phases, each printing one JSON line and raising on failure:
                (within 10 %); a profile of 20 iterations each, with
                its device operations, device ms and host ms an
                iteration;
-  9. gossip kernels — gossip_combine against ref_gossip_combine at the
+  9. masked — the dropout-tolerant trio dif_partial / dif_stale /
+               dif_pushsum on the same preset, T_GD=500, cuda, always-on
+               (SystemSpec()) and under 30 % bernoulli dropout
+               (MASKED_DROPOUT, the reference's DROP30): node_fused_iter
+               T_GD and mix_rows T_con·T_GD launches (2·T_con·T_GD for
+               push-sum, whose weight column rides every round), each
+               program's DispatchBudget a iteration; sd_max against
+               torch-ref on the card over the whole trajectory (rtol
+               1e-4, atol 1e-5); always-on dif_partial's torch-ref trace
+               and iterate equal to dense dif_altgdmin's bit for bit;
+               under dropout sd_max[-1] < 0.2·sd_max[0]; a strictly
+               increasing simulated time axis; a profile of 20
+               iterations each;
+ 10. gossip kernels — gossip_combine against ref_gossip_combine at the
                mesh round's shape (n = d·r = 2400, K = 2 and K = 19), the
                roll form's (n = 20·600·4, K = 2), a ragged n and bf16,
                with the weights as Python floats and as a device tensor;
                f32 rtol = atol = 1e-6 (the reference's kernel tolerance),
-               bf16 5e-2; times as in phase 3, with torch.addmv as the
-               library call;
- 10. roll   — roll_gossip at Experiment 1 width (Z (20, 600, 4), ring
+               bf16 5e-2, and bit for bit; bit for bit also at K = 130
+               (past one shared-memory stage, f32 and bf16), K = 40 and
+               a z one element past an aligned base; each through the
+               form its C entry reports (combine_regs_kernel for K+1 <=
+               8, combine_tile_kernel, or combine_tile_kernel/staged past
+               64 rows); times as in
+               phase 3, with torch.addmv as the library call;
+ 11. roll   — roll_gossip at Experiment 1 width (Z (20, 600, 4), ring
                (−1, 1), T_con = 10) through the kernel, against torch-ref
                on the card and against stacked_product with the circulant
                W;
- 11. mesh   — L = 20 ranks on the one card, spawned once over gloo
+ 12. mesh   — L = 20 ranks on the one card, spawned once over gloo
                (staged through host memory), each running the EXPERIMENT1
                preset through run_experiment(substrate="mesh") for the six
                stateless programs (T_GD = MESH_T_GD); every sd_max trace
@@ -110,7 +128,7 @@ Phases, each printing one JSON line and raising on failure:
                dif_altgdmin's geometric decay, each rank's launch
                counts against the program's DispatchBudget, and ms per
                iteration labelled with the transport;
- 12. serving kernels — task_gram and task_grad_tiles (one basis shared by
+ 13. serving kernels — task_gram and task_grad_tiles (one basis shared by
                T tasks) against their plain versions at the serving
                phase's cohort (T = 64, n = 16, d = 600, r = 4), a serving
                batch (T = 32), the JAX package's kernel benchmark row
@@ -122,7 +140,7 @@ Phases, each printing one JSON line and raising on failure:
                ops.altgdmin_minimize_B / altgdmin_gradient against their
                plain route at f32 and f64; times as in phase 3 (no
                single PyTorch call computes either);
- 13. serving — the serving path on the card, with the launch counts set
+ 14. serving — the serving path on the card, with the launch counts set
                to 0 just before and read just after: run_experiment on
                the EXPERIMENT1 preset with checkpoint_every=100 (its
                traces and final U_nodes equal the main phase's
@@ -150,7 +168,7 @@ Phases, each printing one JSON line and raising on failure:
                dispatch and per request at batch 1, 8, 32 on cuda and
                torch-ref.
 
- 14. lm_kernels — flash_attention and ssd_scan against their plain
+ 15. lm_kernels — flash_attention and ssd_scan against their plain
                versions (ref_attention, ref_ssd) on the card at f32 and
                bf16 within the reference's tolerances (tests/
                test_kernels.py: 2e-5 / 2e-2 and 1e-4 / 5e-2): flash at
@@ -163,7 +181,7 @@ Phases, each printing one JSON line and raising on failure:
                flash's library call, timed only (ssd_scan has none);
                each kernel's worst error at bf16 (the tensor-core
                kernels) beside f32's (the CUDA-core ones);
- 15. lm_dense — qwen3-1.7b at full width, weights drawn on the card from
+ 16. lm_dense — qwen3-1.7b at full width, weights drawn on the card from
                a seed: make_prefill_step on B 4 × S 2048 at f32 through
                the kernel, with the launch counts set to 0 just before
                and read just after (28 flash_attention launches), its
@@ -179,7 +197,7 @@ Phases, each printing one JSON line and raising on failure:
                reading is printed), the error against f32, prefill
                tokens/s, decode ms a token, and the device's busy share
                over a profiled prefill step and 16 decode steps;
- 16. lm_ssm  — the same for mamba2-130m: 24 ssd_scan launches a forward,
+ 17. lm_ssm  — the same for mamba2-130m: 24 ssd_scan launches a forward,
                decode through the O(1) step ≡ prefill; the bf16 prefill
                step's CUDA launches by kernel (``KERNEL_LAUNCHES``: the
                three tensor-core passes 24 times each); its bf16 route
@@ -194,7 +212,9 @@ call of the bf16 prefill step, counted by kernel, and the f32 kernel's
 ms; node_fused_iter's its times at one and two CTAs a task,
 node_task_gram's at path A's fold, task_gram's at each serving shape;
 node_task_grad_tiles' and task_grad_tiles' their resident form and
-times at one and two CTAs a task; dequant's the int8 round's, the
+times at one and two CTAs a task; mix_rows' also the masked phase's
+launches; gossip_combine's its form and its time at every f32 case;
+dequant's the int8 round's, the
 kernel dif_quantized launches, with the standalone dequant_kernel's
 beside it; the launch floor beside mix_rows, compress_topk, dequant and
 gossip_combine), the card line, and the result line.  Exits non-zero,
@@ -210,8 +230,9 @@ power limit, and the device ms (device_ms) of ``mix_rows`` at Experiment
 ``node_task_gram`` at SHAPES, of ``task_gram`` and ``task_grad_tiles``
 at SINGLE_SHAPES, of ``node_task_grad_tiles`` at GRAD_TIME_SHAPES, of
 the int8 wire's round as the tree's ``refresh`` runs it on cuda at
-ROUND_SHAPES (f32 and bf16), of ``node_fused_iter`` at Experiment 1 and
-``dequant`` at (20, 600, 4) (f32), of the gradient kernel with one and
+ROUND_SHAPES (f32 and bf16), of ``node_fused_iter`` at Experiment 1,
+``dequant`` at (20, 600, 4) (f32) and ``gossip_combine`` at every case
+of COMBINE_CASES, of the gradient kernel with one and
 two CTAs a task forced at path A's fold and the serving cohort (where
 the tree has that knob), and of an empty kernel (the launch floor); and
 a profile of 20 iterations of ``dif_quantized`` (int8) at Experiment 1:
@@ -315,6 +336,26 @@ COMBINE_CASES = (("mesh_K2", 2400, 2, "float32", "floats"),
                  ("ragged_K2_bf16", 2401, 2, "bfloat16", "floats"))
 COMBINE_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
                "bfloat16": TOL["bfloat16"]}
+# Beyond COMBINE_CASES, each also held bit for bit: K past one
+# shared-memory stage of the tile kernel's COMBINE_STAGE_ROWS rows (three
+# staged groups; f32, and bf16 at a ragged n), a K inside one stage, and
+# z one element past an aligned base (its 4-byte copies); (name, n, K,
+# dtype, weights, elements z is offset by).  K+1 <= COMBINE_REG_ROWS
+# takes the register form.
+COMBINE_STAGE_ROWS, COMBINE_REG_ROWS = 64, 8
+COMBINE_EXTRA_CASES = (("staged_K130", 2400, 130, "float32", "tensor", 0),
+                       ("staged_K130_bf16", 2401, 130, "bfloat16", "floats",
+                        0),
+                       ("mesh_K40", 2400, 40, "float32", "tensor", 0),
+                       ("offset_z_K19", 2400, 19, "float32", "tensor", 1))
+
+# The masked phase: the dropout-tolerant trio on the dense path's
+# Experiment 1 materialization, always-on and under the reference's 30 %
+# bernoulli dropout (tests/test_system.py's DROP30), whose convergence
+# bound is that test's: sd_max[-1] < MASKED_SHRINK · sd_max[0].
+MASKED_SOLVERS = ("dif_partial", "dif_stale", "dif_pushsum")
+MASKED_DROPOUT = dict(availability="bernoulli", p_on=0.7, seed=7)
+MASKED_SHRINK = 0.2
 
 # The mesh phase: every stateless program, its outer iterations, and
 # the seconds the 20 ranks get to report.  T_GD is cut from the preset's
@@ -1061,31 +1102,152 @@ def path_b(torch, spec, mat):
     return launches_by_kernel
 
 
+def masked_phase(torch, spec, mat):
+    """Phase 9: the dropout-tolerant trio at Experiment 1 on the dense
+    path's materialization, always-on and under MASKED_DROPOUT.  Each
+    run's launches against its program's DispatchBudget (mix_rows once a
+    round, twice for push-sum); the cuda sd_max trace against torch-ref's
+    on the card over the whole run; always-on dif_partial's torch-ref
+    trace and iterate equal to dense dif_altgdmin's bit for bit;
+    convergence under dropout; a strictly increasing simulated clock; a
+    profile of 20 iterations each.  Returns the mix_rows launches of
+    each solver's dropout run."""
+    from repro_torch.api import EngineSpec, SystemSpec, run_experiment
+    from repro_torch.core.program import get_program
+    from repro_torch.distributed.consensus import get_rule
+
+    T_GD, T_con = spec.solver.T_GD, spec.solver.T_con
+    dense_ref = run_experiment(dataclasses.replace(
+        spec, engine=EngineSpec(backend="torch-ref")), key=0,
+        materialized=mat)
+    systems = (("always_on", SystemSpec()),
+               ("dropout", SystemSpec(**MASKED_DROPOUT)))
+    mix_launches, failures = {}, []
+    for name in MASKED_SOLVERS:
+        prog = get_program(name)
+        rounds = get_rule(prog.combine).signature(T_con).rounds_per_iter
+        per_iter = prog.dispatch_budget.per_iter("simulator", rounds, 0, 1)
+        n_mix = (per_iter - 1) * T_GD          # all but node_fused_iter
+        want = {"node_fused_iter": T_GD, "mix_rows": n_mix,
+                "node_task_gram": 1, "node_task_grad_tiles": 0,
+                "compress_topk": 0, "dequant": 0, "gossip_combine": 0}
+        want_kernels = {"fused_resident_kernel": T_GD,
+                        "mix_tile_kernel": n_mix, "stream_gram_kernel": 1}
+        for label, system in systems:
+            s = dataclasses.replace(spec, system=system,
+                                    solver=dataclasses.replace(spec.solver,
+                                                               name=name))
+            trace, trace_ref, launches, kernel_launches, run_s, ref_s = (
+                run_path(torch, s, mat, want, want_kernels,
+                         name=f"masked {name} {label}"))
+            require((launches["node_fused_iter"] + launches["mix_rows"])
+                    == per_iter * T_GD,
+                    f"masked {name} {label}: launches {launches}, want "
+                    f"{per_iter} an iteration by the DispatchBudget")
+            if label == "dropout":
+                mix_launches[name] = launches["mix_rows"]
+            ok, diff, first = agree_upto(trace.sd_max, trace_ref.sd_max)
+            dense_equal = None
+            if label == "always_on" and name == "dif_partial":
+                dense_equal = bool(
+                    np.array_equal(trace_ref.sd_max, dense_ref.sd_max)
+                    and torch.equal(trace_ref.U_nodes, dense_ref.U_nodes))
+                if not dense_equal:
+                    gap = np.abs(trace_ref.sd_max - dense_ref.sd_max).max()
+                    failures.append(
+                        f"always-on dif_partial on torch-ref is not dense "
+                        f"dif_altgdmin's trajectory bit for bit (max abs "
+                        f"diff {gap:.3e})")
+            clock_ok = (trace.time_axis_source == "simulated"
+                        and bool(np.all(np.diff(trace.time_axis) > 0)))
+            emit("masked", solver=name, system=label,
+                 system_spec=dataclasses.asdict(system), dtype="float32",
+                 T_GD=T_GD, T_con=T_con, launches=launches,
+                 kernel_launches=kernel_launches,
+                 dispatch_budget_per_iter=per_iter,
+                 live_share=float(system.availability_mask(
+                     T_GD, spec.problem.L).mean()),
+                 first_sd_max=float(trace.sd_max[0]),
+                 final_sd_max=trace.final_sd_max,
+                 torch_ref_final_sd_max=trace_ref.final_sd_max,
+                 sd_max_vs_torch_ref_max_abs_diff=diff,
+                 first_parting_iteration=first,
+                 torch_ref_equals_dense=dense_equal,
+                 time_axis_source=trace.time_axis_source,
+                 simulated_s=float(trace.time_axis[-1]),
+                 run_s=run_s, ms_per_iter=run_s / T_GD * 1e3,
+                 torch_ref_run_s=ref_s,
+                 torch_ref_ms_per_iter=ref_s / T_GD * 1e3)
+            if not ok:
+                failures.append(
+                    f"masked {name} {label}: sd_max disagrees with "
+                    f"torch-ref (max abs diff {diff:.3e}, first at "
+                    f"iteration {first})")
+            if not clock_ok:
+                failures.append(f"masked {name} {label}: the simulated "
+                                f"clock is not strictly increasing")
+            if label == "dropout" and not (
+                    trace.final_sd_max < MASKED_SHRINK * trace.sd_max[0]):
+                failures.append(
+                    f"masked {name} under dropout did not converge: sd_max "
+                    f"{trace.sd_max[0]:.3e} → {trace.final_sd_max:.3e}")
+            profile(torch, s, mat, label=f"masked_{name}_{label}")
+    require(not failures, "; ".join(failures))
+    return mix_launches
+
+
+
+def combine_form(K) -> str:
+    """The form gossip_combine's C entry reports for K neighbours."""
+    if K + 1 <= COMBINE_REG_ROWS:
+        return "combine_regs_kernel"
+    if K + 1 > COMBINE_STAGE_ROWS:
+        return "combine_tile_kernel/staged"
+    return "combine_tile_kernel"
+
+
+def combine_operands(torch, n, K, dname, offset=0):
+    """gossip_combine's operands for one case, from a seed: z (n,) —
+    ``offset`` elements past an aligned base — neighbours (K, n) in
+    ``dname``, and K+1 positive f32 weights summing to 1 on the card."""
+    g = torch.Generator(device="cuda").manual_seed(n + K)
+    dtype = getattr(torch, dname)
+    z = torch.randn(n + offset, generator=g, device="cuda").to(dtype)[offset:]
+    nbrs = torch.randn((K, n), generator=g, device="cuda").to(dtype)
+    wt = torch.rand(K + 1, generator=g, device="cuda")
+    return z, nbrs, wt / wt.sum()
+
 
 def check_gossip_kernel(torch):
-    """Phase 9: gossip_combine against its plain version at the mesh and
-    roll shapes; the time of each f32 case (the kernel row's numbers are
-    the mesh round's at K = 19, the Experiment 1 graph's shift count)."""
-    from repro_torch.kernels import gossip_axpy, ops, ref
+    """Phase 10: gossip_combine against its plain version at the mesh and
+    roll shapes, within COMBINE_TOL and bit for bit, and at
+    COMBINE_EXTRA_CASES bit for bit, each through the form its C entry
+    reports (registers for K+1 <= COMBINE_REG_ROWS, one shared-memory
+    stage, or stages past COMBINE_STAGE_ROWS rows); the time of each f32 case (the kernel row's numbers are the
+    mesh round's at K = 19, the Experiment 1 graph's shift count)."""
+    from repro_torch.kernels import _build, gossip_axpy, ops, ref
 
     errs, times = [], {}
-    for name, n, K, dname, wkind in COMBINE_CASES:
-        g = torch.Generator(device="cuda").manual_seed(n + K)
+    cases = [c + (0,) for c in COMBINE_CASES] + list(COMBINE_EXTRA_CASES)
+    for name, n, K, dname, wkind, offset in cases:
         dtype = getattr(torch, dname)
-        z = torch.randn(n, generator=g, device="cuda").to(dtype)
-        nbrs = torch.randn((K, n), generator=g, device="cuda").to(dtype)
-        wt = torch.rand(K + 1, generator=g, device="cuda")
-        wt = wt / wt.sum()
+        z, nbrs, wt = combine_operands(torch, n, K, dname, offset)
         w_floats = tuple(wt.tolist())
         # the op takes the case's own weights: a float tuple it uploads,
         # or the device tensor as it is
         weights = wt if wkind == "tensor" else w_floats
-        out = ops.gossip_combine(z, nbrs, weights, backend="cuda")
+        out, form = reported(_build, ops.gossip_combine, z, nbrs, weights,
+                             backend="cuda")
         want = ref.ref_gossip_combine(z, nbrs, weights)
         require(out.dtype == dtype, "gossip_combine must return z's dtype")
+        want_form = combine_form(K)
+        require(form == {want_form: 1},
+                f"gossip_combine {name}: launched {form}, want {want_form}")
         e = max_err(torch, out, want, COMBINE_TOL[dname],
                     f"gossip_combine {name}")
         bitwise = bool(torch.equal(out, want))
+        require(bitwise, f"gossip_combine {name}: not bit for bit equal to "
+                         f"ref_gossip_combine (max abs err {e:.3e})")
         if dname == "float32":
             errs.append(e)
             w0, wk = float(w_floats[0]), wt[1:]
@@ -1095,13 +1257,15 @@ def check_gossip_kernel(torch):
                 library=lambda z_, nb, _w: torch.addmv(z_, nb.T, wk,
                                                        beta=w0))
         emit("gossip_kernels", case=name, n=n, K=K, dtype=dname,
-             weights=wkind, max_abs_err=e, bitwise_equal=bitwise,
-             timing=times.get(name))
-    return max(errs), times["mesh_K19"]
+             weights=wkind, z_offset=offset, cuda_kernel=form,
+             max_abs_err=e, bitwise_equal=bitwise, timing=times.get(name))
+    row = dict(times["mesh_K19"], cuda_kernel={combine_form(19): 1},
+               by_case={k: v["ms"] for k, v in times.items()})
+    return max(errs), row
 
 
 def roll_form(torch):
-    """Phase 10: roll_gossip at Experiment 1 width through the kernel."""
+    """Phase 11: roll_gossip at Experiment 1 width through the kernel."""
     from repro_torch.distributed import mixing
     from repro_torch.distributed.consensus import stacked_product
     from repro_torch.distributed.gossip import roll_gossip
@@ -1137,7 +1301,7 @@ def roll_form(torch):
 
 def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD, L=20,
                timeout=MESH_TIMEOUT):
-    """Phase 11: the six stateless programs on an L-rank gloo mesh on the
+    """Phase 12: the six stateless programs on an L-rank gloo mesh on the
     one card, each rank running its node through run_experiment(
     substrate="mesh"); held against the port's simulator on the card.
     The kernels are built already (phase 2), so ranks only load them."""
@@ -1247,7 +1411,7 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD, L=20,
 
 
 def check_serving_kernels(torch):
-    """Phase 12: task_gram and task_grad_tiles against their plain
+    """Phase 13: task_gram and task_grad_tiles against their plain
     versions, with their times at each f32 shape (the kernel rows take the
     cohort's, the serving phase's shape)."""
     from repro_torch.kernels import _build, altgdmin_ls, ops, ref
@@ -1342,7 +1506,7 @@ def _time_s(torch, fn, reps):
 
 
 def serving_phase(torch, spec, mat, plain):
-    """Phase 13: train with checkpoint publishing, hot-swap every
+    """Phase 14: train with checkpoint publishing, hot-swap every
     published U into the serving engine, serve a fixed cohort and a
     closed loop, on the card; ``plain`` is the main phase's unsegmented
     run of the same spec on the same materialization."""
@@ -1648,7 +1812,7 @@ def ssd_inputs(torch, B, S, H, P, N, dtype):
 
 
 def check_lm_kernels(torch):
-    """Phase 14: flash_attention and ssd_scan against their plain
+    """Phase 15: flash_attention and ssd_scan against their plain
     versions at f32 and bf16; times at each dtype (the kernels line takes
     the main path's shape and dtype, bf16)."""
     import torch.nn.functional as F
@@ -2035,6 +2199,12 @@ def kernel_times(torch, src: Path, label: str) -> dict:
     scale = torch.rand((20, 1, 1), generator=g, device="cuda") + 1e-3
     times["dequant exp1 float32"] = device_ms(
         torch, lambda: compress.dequant(q, scale))
+    # gossip_combine at COMBINE_CASES (the mesh round, the roll form,
+    # ragged n, bf16), with the weights on the device
+    for name, n, K, dname, _ in COMBINE_CASES:
+        z, nbrs, wt = combine_operands(torch, n, K, dname)
+        times[f"gossip_combine {name}"] = device_ms(
+            torch, lambda: gossip_axpy.gossip_combine(z, nbrs, wt))
     # the gradient form's CTAs a task forced, where the tree has the knob
     if "ctas_per_task" in inspect.signature(
             altgdmin_ls.node_task_grad_tiles).parameters:
@@ -2136,6 +2306,7 @@ def main(argv=None) -> int:
     slice_errs, slice_timing = check_slice_kernels(torch)
     launches_a = path_a(torch)
     launches_b = path_b(torch, spec, mat)
+    launches_masked = masked_phase(torch, spec, mat)
     combine_err, combine_timing = check_gossip_kernel(torch)
     roll_form(torch)
     launches_mesh = mesh_phase(torch, spec, mat)
@@ -2165,6 +2336,8 @@ def main(argv=None) -> int:
     # floor
     kernels[0]["ms_by_ctas_a_task"] = main_row["fused_ms_by_ctas"]
     kernels[1]["launch_floor_ms"] = launch_floor_ms
+    # mix_rows' launches on the masked phase's dropout runs (a round)
+    kernels[1]["launches_masked"] = launches_masked
     kernels[2].update(
         cuda_kernel=main_row["gram_kernel"],
         path_a_fold=rows[("exp1_fold", "float32")]["timing"]["node_task_gram"])

@@ -8,10 +8,10 @@ the call-convention metadata (which topology it consumes, the combine
 rule that prices its communication, its extra SolverSpec knobs) comes
 off the program.  Registered: ``dif_altgdmin``, ``dec_altgdmin``,
 ``centralized_altgdmin``, ``dgd_altgdmin``, ``exact_diffusion``,
-``beyond_central`` and the compressed trio ``dif_topk`` /
-``dif_quantized`` / ``dif_event``.  The JAX package's masked trio
-raises NotImplementedError until a later slice of the port registers
-it.
+``beyond_central``, the compressed trio ``dif_topk`` /
+``dif_quantized`` / ``dif_event`` and the dropout-tolerant trio
+``dif_partial`` / ``dif_stale`` / ``dif_pushsum`` — all twelve of the
+JAX package's programs.
 """
 from __future__ import annotations
 
@@ -24,9 +24,6 @@ from repro_torch.core.program import (SolverProgram, get_program,
                                       program_names)
 from repro_torch.distributed.consensus import CommSignature, get_rule
 
-# The JAX package's solvers that later slices of the port bring.
-LATER_SLICE_SOLVERS = ("dif_partial", "dif_stale", "dif_pushsum")
-
 
 @dataclasses.dataclass(frozen=True)
 class SolverDef:
@@ -38,6 +35,8 @@ class SolverDef:
     center).  ``combine`` names the combine rule whose signature prices
     the wall-clock axis; ``mesh_fn`` is the one-node-per-rank mesh entry
     point; ``spec_kwargs`` the extra SolverSpec fields the solver takes;
+    ``takes_avail`` whether it consumes a (T_GD, L) availability mask
+    (the runner passes the SystemSpec's schedule as ``avail=``);
     ``program`` the source program."""
     name: str
     fn: Callable
@@ -46,6 +45,7 @@ class SolverDef:
     decentralized: bool = True
     mesh_fn: Callable | None = None
     spec_kwargs: tuple = ()
+    takes_avail: bool = False
     program: SolverProgram | None = None
 
     @property
@@ -93,17 +93,14 @@ def register_program_solver(name: str) -> SolverDef:
     return register_solver(SolverDef(
         name=p.name, fn=lower_simulator(p), topology=p.topology,
         combine=p.combine, decentralized=p.decentralized,
-        mesh_fn=lower_mesh(p), spec_kwargs=p.spec_kwargs, program=p))
+        mesh_fn=lower_mesh(p), spec_kwargs=p.spec_kwargs,
+        takes_avail=p.takes_avail, program=p))
 
 
 def get_solver(name: str) -> SolverDef:
     try:
         return SOLVERS[name]
     except KeyError:
-        if name in LATER_SLICE_SOLVERS:
-            raise NotImplementedError(
-                f"solver {name!r} is not ported yet; a later slice of the "
-                f"port brings it (ported: {sorted(SOLVERS)})") from None
         raise ValueError(f"unknown solver {name!r}; registered: "
                          f"{sorted(SOLVERS)}") from None
 

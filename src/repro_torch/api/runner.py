@@ -4,7 +4,13 @@ Port of ``src/repro/api/runner.py``.  Materializes the spec (problem →
 node view → graph/weights → spectral init → η), runs the registered
 solver on the spec's substrate, and returns a :class:`Trace` with the
 per-iteration metrics, the final iterates, the resolved η and the
-comm-model wall-clock axis.
+wall-clock axis: the comm model's closed form, or, when the spec
+carries a :class:`~repro_torch.api.spec.SystemSpec`, the event-driven
+simulated clock of :mod:`repro_torch.core.system_clock`
+(:func:`system_time_axis`).  A SystemSpec's availability schedule
+(seeded host numpy, made once per run) feeds the dropout-tolerant
+solvers ``dif_partial`` / ``dif_stale`` / ``dif_pushsum``; a schedule
+that drops nodes on any other solver raises.
 
 Substrates:
 
@@ -29,7 +35,9 @@ from CPU ``torch.Generator``s seeded from (key, 0) and (key, 1), so two
 specs sharing problem/topology/init sub-specs see identical data,
 graphs and starting bases, on the CPU and on the card alike.  These are
 not the JAX package's draws: :func:`materialized_from_arrays` carries
-that package's materialized state across instead.
+that package's materialized state across instead.  The availability
+masks, node speeds and clock draws are host numpy from the spec's seeds,
+the reference's own, so they are the JAX package's bit for bit.
 """
 from __future__ import annotations
 
@@ -40,8 +48,9 @@ import numpy as np
 import torch
 
 from repro_torch.api.registry import SolverDef, get_solver
-from repro_torch.api.spec import ExperimentSpec
+from repro_torch.api.spec import ExperimentSpec, SystemSpec
 from repro_torch.core import comm_model as _cm
+from repro_torch.core import system_clock as _sysclock
 from repro_torch.core.altgdmin import RunResult, resolve_eta
 from repro_torch.core.engine import resolve_engine
 from repro_torch.core.problem import (MTRLProblem, generate_problem,
@@ -78,9 +87,10 @@ class Trace:
     ``sd_max``/``sd_mean``/``spread`` are per-iteration numpy arrays
     (length T_GD); ``U_nodes`` (L, d, r) and ``B_nodes`` (L, tpn, r)
     stay tensors on the run's device; ``time_axis`` is the cumulative
-    emulated wall-clock under the spec's comm model; ``send_frac`` the
-    event rule's measured per-iteration send rate (None for the other
-    solvers)."""
+    emulated wall-clock, ``time_axis_source`` says which: the comm
+    model's ``"closed_form"`` or the system layer's ``"simulated"``
+    clock; ``send_frac`` the event rule's measured per-iteration send
+    rate (None for the other solvers)."""
     spec: ExperimentSpec
     U_nodes: torch.Tensor
     B_nodes: torch.Tensor
@@ -234,6 +244,63 @@ def comm_time_axis(spec: ExperimentSpec, solver: SolverDef,
         model=_COMM_MODELS[c.model], rng=c.rng())
 
 
+def _system_model(spec: ExperimentSpec) -> _cm.NetworkModel:
+    """The comm model with the SystemSpec's link overrides applied."""
+    model = _COMM_MODELS[spec.comm.model]
+    s = spec.system
+    if s is not None and (s.latency_s is not None
+                          or s.jitter_std_s is not None):
+        model = dataclasses.replace(
+            model,
+            latency_s=(model.latency_s if s.latency_s is None
+                       else s.latency_s),
+            jitter_std_s=(model.jitter_std_s if s.jitter_std_s is None
+                          else s.jitter_std_s))
+    return model
+
+
+def system_time_axis(spec: ExperimentSpec, solver: SolverDef,
+                     graph: Graph | SparseGraph,
+                     avail: np.ndarray | None = None,
+                     send_frac: np.ndarray | None = None) -> np.ndarray:
+    """Simulated wall-clock axis under the spec's :class:`SystemSpec` —
+    the event-driven clock of :mod:`repro_torch.core.system_clock`
+    replacing the closed-form pricing.  ``avail`` reuses a mask the
+    solver run already made (one fault schedule for trajectory AND
+    time); ``send_frac`` feeds the event rule's measured per-iteration
+    trigger rate into the wire pricing.  Non-gossip patterns (central /
+    no communication) keep the closed-form axis under the overridden
+    link model: the clock simulates neighbour gossip only."""
+    p, c, s = spec.problem, spec.comm, spec.system
+    T_GD = spec.solver.T_GD
+    compute = c.compute_s_per_iter
+    if "local_steps" in solver.spec_kwargs:
+        compute *= spec.solver.local_steps
+    sig = solver.signature(spec.solver.T_con, d=p.d, r=p.r,
+                           compression=spec.solver.compression,
+                           compression_k=spec.solver.compression_k,
+                           event_threshold=spec.solver.event_threshold)
+    model = _system_model(spec)
+    if sig.pattern in ("central", "none") or sig.rounds_per_iter == 0:
+        return _cm.time_axis_from_signature(
+            sig, T_GD, p.d, p.r, p.L, graph.max_degree, compute,
+            model=model, rng=c.rng())
+    if avail is None:
+        avail = (s.availability_mask(T_GD, p.L) if solver.takes_avail
+                 else np.ones((T_GD, p.L), bool))
+    entries = sig.entries_per_round
+    return _sysclock.simulated_time_axis(
+        avail=avail, rounds_per_iter=sig.rounds_per_iter,
+        neighbors=graph.neighbor_lists(), model=model,
+        compute_s_per_iter=compute, speeds=s.node_speeds(p.L),
+        straggler_prob=s.straggler_prob,
+        straggler_factor=s.straggler_factor,
+        n_entries=p.d * p.r if entries is None else entries,
+        bytes_per_entry=sig.bytes_per_entry,
+        rng=np.random.default_rng([c.seed, s.seed]),
+        send_fraction=send_frac)
+
+
 def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
                    materialized: Materialized | None = None, device=None,
                    checkpoint_every: int | None = None,
@@ -257,10 +324,11 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
     run is executed in segments of that length with the U iterate
     chained through, so a server can hot-swap to fresher U's while the
     solver keeps refining.  Solvers whose loop carries just U
-    (dif/dec/dgd/centralized) give the unsegmented run's trajectory bit
-    for bit; solvers carrying auxiliary state (exact_diffusion's ψ, the
-    compressed rules' public copies) restart that state at segment
-    boundaries, as the reference does.  Simulator substrate only;
+    (dif/dec/dgd/centralized, partial/pushsum) give the unsegmented
+    run's trajectory bit for bit; solvers carrying auxiliary state
+    (exact_diffusion's ψ, the compressed rules' public copies,
+    stale_gossip's queue) restart that state at segment boundaries, as
+    the reference does.  Simulator substrate only;
     incompatible with ``n_folds > 1`` (the fold schedule would restart
     per segment)."""
     solver = get_solver(spec.solver.name)
@@ -275,6 +343,26 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
                 f"solver {solver.name!r} does not consume {field} "
                 f"(got {field}={value}); only solvers declaring it in "
                 f"spec_kwargs honor the field")
+    # availability: the SystemSpec's fault schedule feeds the
+    # dropout-tolerant solvers; a faulty schedule on a solver with no
+    # notion of dropped nodes must raise, not silently run fault-free
+    if (spec.system is not None and not spec.system.is_always_on
+            and not solver.takes_avail):
+        raise ValueError(
+            f"spec.system schedules node dropout but solver "
+            f"{solver.name!r} cannot consume an availability mask; use "
+            f"one of the dropout-tolerant solvers (dif_partial / "
+            f"dif_stale / dif_pushsum)")
+    if spec.substrate == "mesh" and solver.takes_avail:
+        raise NotImplementedError(
+            f"solver {solver.name!r} on substrate='mesh': the masked mesh "
+            f"mixers come with a later slice of the port; use "
+            f"substrate='simulator'")
+    avail_np = None
+    if solver.takes_avail:
+        sys_spec = spec.system if spec.system is not None else SystemSpec()
+        avail_np = sys_spec.availability_mask(spec.solver.T_GD,
+                                              spec.problem.L)
     if checkpoint_every is not None:
         if checkpoint_dir is None:
             raise ValueError("checkpoint_every needs checkpoint_dir")
@@ -302,10 +390,12 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
         result = _run_mesh(spec, solver, mat, eng, eta)
     elif checkpoint_every is not None:
         result = _run_segmented(spec, solver, mat, eng, eta,
-                                every=checkpoint_every,
+                                avail=avail_np, every=checkpoint_every,
                                 directory=checkpoint_dir)
     else:
         extra = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
+        if avail_np is not None:
+            extra["avail"] = avail_np
         result = solver.call(mat.init.U0, mat.Xg, mat.yg, mat.W, mat.adj,
                              eta=eta, T_GD=spec.solver.T_GD,
                              T_con=spec.solver.T_con,
@@ -314,23 +404,30 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
     if result.send_frac is not None:
         rows.append(result.send_frac.to(result.sd_max.dtype))
     host = torch.stack(rows).cpu().numpy()            # the one host sync
+    send_frac = (host[3].astype(np.float32)
+                 if result.send_frac is not None else None)
+    if spec.system is not None:
+        time_axis = system_time_axis(spec, solver, mat.graph,
+                                     avail=avail_np, send_frac=send_frac)
+        source = "simulated"
+    else:
+        time_axis = comm_time_axis(spec, solver, mat.graph)
+        source = "closed_form"
     return Trace(spec=spec, U_nodes=result.U_nodes, B_nodes=result.B_nodes,
                  sd_max=host[0], sd_mean=host[1], spread=host[2],
-                 eta=result.eta,
-                 time_axis=comm_time_axis(spec, solver, mat.graph),
-                 materialized=mat,
-                 send_frac=(host[3].astype(np.float32)
-                            if result.send_frac is not None else None))
+                 eta=result.eta, time_axis=time_axis, materialized=mat,
+                 time_axis_source=source, send_frac=send_frac)
 
 
 def _run_segmented(spec: ExperimentSpec, solver: SolverDef,
-                   mat: Materialized, eng, eta: float, *, every: int,
+                   mat: Materialized, eng, eta: float, *,
+                   avail: np.ndarray | None, every: int,
                    directory: str) -> RunResult:
     """The checkpoint-publishing run: the solver in segments of
     ``every`` iterations, chaining the U iterate and publishing a
     serving checkpoint after each segment (plus the step-0 init).  The
-    reference also slices the masked trio's availability schedule per
-    segment; those solvers come with a later slice of the port."""
+    availability schedule is sliced per segment, so the fault sequence
+    matches the unsegmented run row for row."""
     from repro_torch.serving.publisher import publish_representation
     T_GD = spec.solver.T_GD
     extra = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
@@ -340,9 +437,12 @@ def _run_segmented(spec: ExperimentSpec, solver: SolverDef,
     done = 0
     while done < T_GD:
         seg = min(every, T_GD - done)
+        kw = dict(extra)
+        if avail is not None:
+            kw["avail"] = avail[done:done + seg]
         res = solver.call(U_cur, mat.Xg, mat.yg, mat.W, mat.adj, eta=eta,
                           T_GD=seg, T_con=spec.solver.T_con,
-                          U_star=mat.problem.U_star, engine=eng, **extra)
+                          U_star=mat.problem.U_star, engine=eng, **kw)
         done += seg
         publish_representation(directory, done, res.U_nodes)
         chunks.append(res)

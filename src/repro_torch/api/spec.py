@@ -16,13 +16,14 @@ The sub-specs mirror the run's stages:
   * :class:`EngineSpec`   — backend for the iteration engine;
   * :class:`CommSpec`     — the emulated wall-clock axis.
 
-``substrate="mesh"`` runs one node per rank of a ``torch.distributed``
-process group (:mod:`repro_torch.api.runner`).  What the port does not
-run yet is still described, so specs keep their meaning, and raises
-NotImplementedError when run: ``system`` (the fault-injection layer),
-the sparse representation, the virtual-node mesh tier (L ≠ the number
-of ranks) and the masked solvers (``dif_partial``, ``dif_stale``,
-``dif_pushsum``).
+plus :class:`SystemSpec`, the fault-injection and simulated-clock
+layer.  ``substrate="mesh"`` runs one node per rank of a
+``torch.distributed`` process group (:mod:`repro_torch.api.runner`).
+What the port does not run yet is still described, so specs keep their
+meaning, and raises NotImplementedError when run: the sparse
+representation, the virtual-node mesh tier (L ≠ the number of ranks)
+and the masked solvers (``dif_partial``, ``dif_stale``,
+``dif_pushsum``) on the mesh.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ WEIGHT_SCHEMES = ("metropolis", "equal_neighbor", "lazy", "circulant")
 REPRESENTATIONS = ("auto", "dense", "sparse")
 SUBSTRATES = ("simulator", "mesh")
 COMM_MODELS = ("ethernet-1gbps", "tpu-ici")
+AVAILABILITY_KINDS = ("always", "bernoulli", "markov")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,6 +273,105 @@ class CommSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class SystemSpec:
+    """Fault-injection and simulated-time model — the system-realism
+    layer.  When an :class:`ExperimentSpec` carries one, the runner (a)
+    samples a per-iteration node availability mask from the seeded
+    process below (consumed by the dropout-tolerant ``dif_partial`` /
+    ``dif_stale`` / ``dif_pushsum`` solvers — all ``T_con`` gossip
+    rounds of one outer iteration share the iteration's mask), and (b)
+    REPLACES the closed-form comm-model pricing with the event-driven
+    clock of :mod:`repro_torch.core.system_clock`, so ``Trace.time_axis``
+    becomes measured simulated seconds.
+
+    Availability process (``availability``):
+
+      * ``"always"``    — every node live every iteration (the
+        degenerate anchor: trajectories must match dense gossip
+        bit-for-bit);
+      * ``"bernoulli"`` — node g is live at iteration τ iid with
+        probability ``p_on``;
+      * ``"markov"``    — 2-state on/off chain per node (start on):
+        P(on→off) = ``p_drop``, P(off→on) = ``p_return``.
+
+    Heterogeneous compute: per-node speed multipliers drawn once from
+    U[1, 1+``speed_spread``], plus a straggler tail — each (iteration,
+    node) compute independently slows by ``straggler_factor`` with
+    probability ``straggler_prob``.  ``latency_s``/``jitter_std_s``
+    override the CommSpec network model's link distribution when set
+    (``None`` keeps the model's own).  All draws derive from ``seed``
+    (masks and speeds) or the CommSpec seed (clock jitter), so the layer
+    is reproducible from the spec alone.
+    """
+    availability: str = "always"
+    p_on: float = 1.0
+    p_drop: float = 0.0
+    p_return: float = 1.0
+    speed_spread: float = 0.0
+    straggler_prob: float = 0.0
+    straggler_factor: float = 1.0
+    latency_s: Optional[float] = None
+    jitter_std_s: Optional[float] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.availability not in AVAILABILITY_KINDS:
+            raise ValueError(f"unknown availability kind "
+                             f"{self.availability!r}; expected one of "
+                             f"{AVAILABILITY_KINDS}")
+        for field in ("p_on", "p_drop", "p_return", "straggler_prob"):
+            v = getattr(self, field)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{field} must be a probability in "
+                                 f"[0, 1], got {v}")
+        if self.speed_spread < 0:
+            raise ValueError(f"speed_spread must be >= 0, got "
+                             f"{self.speed_spread}")
+        if self.straggler_factor < 1:
+            raise ValueError(f"straggler_factor multiplies compute time "
+                             f"and must be >= 1, got "
+                             f"{self.straggler_factor}")
+        for field in ("latency_s", "jitter_std_s"):
+            v = getattr(self, field)
+            if v is not None and v < 0:
+                raise ValueError(f"{field} must be >= 0 (or None for the "
+                                 f"comm model's own), got {v}")
+
+    @property
+    def is_always_on(self) -> bool:
+        """True when the availability process can never drop a node —
+        the regime every solver (not just the dropout-tolerant three)
+        may run under."""
+        return (self.availability == "always"
+                or (self.availability == "bernoulli" and self.p_on == 1.0)
+                or (self.availability == "markov" and self.p_drop == 0.0))
+
+    def availability_mask(self, T_GD: int, L: int) -> np.ndarray:
+        """The seeded (T_GD, L) bool mask — True = node live.  Host
+        numpy, generated ONCE by the runner and fed identically to the
+        simulator scan and the mesh runtime (substrate determinism)."""
+        if self.is_always_on:
+            return np.ones((T_GD, L), dtype=bool)
+        rng = np.random.default_rng([self.seed, 0])
+        if self.availability == "bernoulli":
+            return rng.random((T_GD, L)) < self.p_on
+        mask = np.empty((T_GD, L), dtype=bool)
+        state = np.ones(L, dtype=bool)              # markov: start on
+        for t in range(T_GD):
+            u = rng.random(L)
+            state = np.where(state, u >= self.p_drop, u < self.p_return)
+            mask[t] = state
+        return mask
+
+    def node_speeds(self, L: int) -> np.ndarray:
+        """Per-node compute-time multipliers in [1, 1+speed_spread]."""
+        if self.speed_spread == 0:
+            return np.ones(L)
+        rng = np.random.default_rng([self.seed, 1])
+        return 1.0 + self.speed_spread * rng.random(L)
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
     """One fully-specified Dec-MTRL experiment cell."""
     problem: ProblemSpec = ProblemSpec()
@@ -279,7 +380,7 @@ class ExperimentSpec:
     solver: SolverSpec = SolverSpec()
     engine: EngineSpec = EngineSpec()
     comm: CommSpec = CommSpec()
-    system: Optional[dict] = None    # the JAX package's SystemSpec
+    system: Optional[SystemSpec] = None
     substrate: str = "simulator"
     name: str = ""
 
@@ -287,10 +388,6 @@ class ExperimentSpec:
         if self.substrate not in SUBSTRATES:
             raise ValueError(f"unknown substrate {self.substrate!r}; "
                              f"expected one of {SUBSTRATES}")
-        if self.system is not None:
-            raise NotImplementedError(
-                "spec.system (fault injection and the simulated clock) is "
-                "not ported yet; a later slice of the port brings it")
 
     # ------------------------------------------------- JSON round-trip
 
@@ -320,6 +417,7 @@ def _from_dict(cls, data):
     kwargs = {}
     for key, value in data.items():
         sub = _SUBSPEC_TYPES.get((cls, key))
+        # optional sub-specs (system) round-trip None as None
         kwargs[key] = (_from_dict(sub, value)
                        if sub is not None and value is not None else value)
     return cls(**kwargs)
@@ -332,4 +430,5 @@ _SUBSPEC_TYPES = {
     (ExperimentSpec, "solver"): SolverSpec,
     (ExperimentSpec, "engine"): EngineSpec,
     (ExperimentSpec, "comm"): CommSpec,
+    (ExperimentSpec, "system"): SystemSpec,
 }

@@ -130,6 +130,21 @@ class AltgdminEngine:
         return get_rule(rule).make_sim_state_mixer(
             W, T_con, backend=self.backend, **rule_kw)
 
+    def make_masked_mixer(self, W, T_con: int, *, rule: str):
+        """Availability-masked combine (dropout-tolerant rules):
+        ``(Z, m) ↦ Z'`` where ``m: (L,)`` is the current iteration's
+        participation mask (cuda: one ``mix_rows`` launch a round, two
+        for push-sum)."""
+        return get_rule(rule).make_sim_masked_mixer(
+            W, T_con, backend=self.backend)
+
+    def make_masked_state_mixer(self, W, T_con: int, *, rule: str,
+                                **rule_kw):
+        """Stateful availability-masked combine (``stale_gossip``):
+        ``(Z, state, m) ↦ (Z', state')``."""
+        return get_rule(rule).make_sim_masked_state_mixer(
+            W, T_con, backend=self.backend, **rule_kw)
+
 
 def resolve_engine(engine=None, backend: str | None = None, *,
                    device=None) -> AltgdminEngine:

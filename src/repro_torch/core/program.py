@@ -17,11 +17,13 @@ what rides the loop next to U (``aux``).  Two lowerings run a program:
 
 Registered: the paper's four programs ``dif_altgdmin`` (Algorithm 3),
 ``dec_altgdmin``, ``centralized_altgdmin`` and ``dgd_altgdmin``, the
-related-work combines ``exact_diffusion`` and ``beyond_central``, and
-the compressed trio ``dif_topk`` / ``dif_quantized`` / ``dif_event``,
-whose combine rules are stateful (the public copies of the
-error-feedback scheme ride the ``aux`` slot; their mesh lowering comes
-with a later slice).  The masked trio and the virtual-node mesh
+related-work combines ``exact_diffusion`` and ``beyond_central``, the
+compressed trio ``dif_topk`` / ``dif_quantized`` / ``dif_event``, whose
+combine rules are stateful (the public copies of the error-feedback
+scheme ride the ``aux`` slot), and the dropout-tolerant trio
+``dif_partial`` / ``dif_stale`` / ``dif_pushsum``, whose combines take
+the iteration's row of the availability mask (``takes_avail``).  The
+stateful and masked programs' mesh lowering and the virtual-node mesh
 lowering come with later slices of the port.
 """
 from __future__ import annotations
@@ -52,7 +54,9 @@ class ProgramCtx(NamedTuple):
     ``local_steps`` — beyond-central's local adapt epoch;
     ``all_sum`` — the fusion-center exact gradient sum (``central``
     programs only); ``send_fraction(Z, state)`` — the event rule's
-    measured trigger rate (simulator only; None elsewhere)."""
+    measured trigger rate (simulator only; None elsewhere);
+    ``where_live(m, a, b)`` — per-node freeze under an availability
+    mask (masked programs only)."""
     min_grad: Callable
     mix: Optional[Callable]
     qr: Callable
@@ -61,6 +65,7 @@ class ProgramCtx(NamedTuple):
     local_steps: int
     all_sum: Optional[Callable]
     send_fraction: Optional[Callable]
+    where_live: Optional[Callable] = None
 
 
 # ----------------------------------------------------------------------
@@ -83,9 +88,8 @@ def _refit_first(T_GD: int, local_steps: int) -> int:
     return 0
 
 
-# The mixer families ported so far (the JAX package also has masked /
-# masked_state, brought with the masked trio).
-MIXERS = ("plain", "neighbor", "central", "state")
+MIXERS = ("plain", "neighbor", "central", "state", "masked",
+          "masked_state")
 
 
 class DispatchBudget(NamedTuple):
@@ -115,16 +119,20 @@ class DispatchBudget(NamedTuple):
 class SolverProgram:
     """One AltGDmin-family solver as data.
 
-    ``update(ctx, U, aux, tau) -> (U_new, aux_new, extra)`` is the
-    per-iteration body; ``aux`` names what rides the loop next to U
-    (None | ``"iterate"`` — the previous adapt state, seeded with U0 |
-    ``"state"`` — the combine rule's ``init_state``); ``extra`` is an
-    optional per-iteration scalar recorded next to the metrics (the
-    event rule's send fraction; None elsewhere).  ``combine`` names the
-    combine rule and ``mixer`` its lowering family (``"plain"`` — a
-    stateless ``Z ↦ Z'``; ``"neighbor"`` — one self-excluding neighbour
-    average; ``"central"`` — no mix, an exact gradient sum; ``"state"``
-    — the stateful ``(Z, state) ↦ (Z', state')``).  ``stacked=False``
+    ``update(ctx, U, aux, tau[, m]) -> (U_new, aux_new, extra)`` is the
+    per-iteration body (``m``, the iteration's (L,) availability row,
+    for the ``takes_avail`` programs); ``aux`` names what rides the
+    loop next to U (None | ``"iterate"`` — the previous adapt state,
+    seeded with U0 | ``"state"`` — the combine rule's ``init_state``);
+    ``extra`` is an optional per-iteration scalar recorded next to the
+    metrics (the event rule's send fraction; None elsewhere).
+    ``combine`` names the combine rule and ``mixer`` its lowering family
+    (``"plain"`` — a stateless ``Z ↦ Z'``; ``"neighbor"`` — one
+    self-excluding neighbour average; ``"central"`` — no mix, an exact
+    gradient sum; ``"state"`` — the stateful ``(Z, state) ↦ (Z',
+    state')``; ``"masked"`` / ``"masked_state"`` — the same under the
+    iteration's availability mask, ``(Z, m) ↦ Z'`` / ``(Z, state, m) ↦
+    (Z', state')``).  ``stacked=False``
     marks the fusion-center program, whose simulator carries a single
     (d, r) iterate; ``topology`` names what the solver consumes
     (``"W"`` the mixing matrix, ``"adj"`` the adjacency, ``"none"``).
@@ -140,6 +148,7 @@ class SolverProgram:
     stacked: bool = True
     topology: str = "W"              # "W" | "adj" | "none"
     decentralized: bool = True
+    takes_avail: bool = False
     records_send_frac: bool = False
     aux: Optional[str] = None        # None | "iterate" | "state"
     spec_kwargs: tuple = ()
@@ -165,6 +174,25 @@ def _resolve_spec(program: SolverProgram, spec_kw: dict) -> dict:
     kw = dict(program.defaults)
     kw.update(spec_kw)
     return kw
+
+
+def _check_avail(program: SolverProgram, avail, T_GD: int, L: int,
+                 device):
+    """The masked programs' availability schedule as a (T_GD, L) bool
+    tensor on ``device`` (all ones when none is given); None for the
+    other programs, which refuse one."""
+    if not program.takes_avail:
+        if avail is not None:
+            raise TypeError(f"solver {program.name!r} does not take an "
+                            f"availability mask")
+        return None
+    if avail is None:
+        return torch.ones((T_GD, L), dtype=torch.bool, device=device)
+    avail = torch.as_tensor(avail, device=device).to(torch.bool)
+    if tuple(avail.shape) != (T_GD, L):
+        raise ValueError(f"availability mask {tuple(avail.shape)} does not "
+                         f"match (T_GD, L) = ({T_GD}, {L})")
+    return avail
 
 
 # ----------------------------------------------------------------------
@@ -233,6 +261,24 @@ def _upd_compressed(ctx, U, cstate, tau):
     return ctx.qr(U_tilde), cstate, sf             # projection
 
 
+def _upd_masked(ctx, U, aux, tau, m):
+    """Adapt-then-combine under an availability mask; down nodes are
+    FULLY frozen for the iteration (no adapt/combine/retraction)."""
+    _, G = ctx.min_grad(U, tau)
+    U_breve = U - ctx.eta_L * G                    # local adapt
+    U_tilde = ctx.mix(U_breve, m)
+    return ctx.where_live(m, ctx.qr(U_tilde), U), aux, None
+
+
+def _upd_masked_state(ctx, U, cstate, tau, m):
+    """The stale-copy variant: the last-published copies ride the aux
+    slot through the masked state mixer."""
+    _, G = ctx.min_grad(U, tau)
+    U_breve = U - ctx.eta_L * G                    # local adapt
+    U_tilde, cstate = ctx.mix(U_breve, cstate, m)
+    return ctx.where_live(m, ctx.qr(U_tilde), U), cstate, None
+
+
 # ----------------------------------------------------------------------
 # the simulator lowering
 # ----------------------------------------------------------------------
@@ -244,10 +290,13 @@ def lower_simulator(program: SolverProgram) -> Callable:
     (``"adj"``), or absent (``"none"``); U0 is (L, d, r), or (d, r) for
     the fusion center.  Xg (L, tpn, n, d), or (F, L, tpn, n, d)
     sample-split into F folds; ``spec_kw`` the program's
-    ``spec_kwargs``."""
+    ``spec_kwargs``.  ``avail`` (T_GD, L), the masked programs' seeded
+    availability schedule (host numpy or a tensor; all ones when
+    absent), goes to the device once; iteration τ's combine takes its
+    row τ."""
 
     def run(U0, Xg, yg, topo=None, *, eta, T_GD, T_con=1, U_star=None,
-            engine=None, backend=None, **spec_kw):
+            engine=None, backend=None, avail=None, **spec_kw):
         kw = _resolve_spec(program, spec_kw)
         rule_kw = {k: kw[k] for k in program.rule_kwargs}
         local_steps = int(kw.get("local_steps", 1))
@@ -260,6 +309,7 @@ def lower_simulator(program: SolverProgram) -> Callable:
             L = Xg.shape[0] if Xg.ndim == 4 else Xg.shape[1]
             U_star_ = U_star if U_star is not None else U0
         eta_L = eta * L
+        avail_ = _check_avail(program, avail, T_GD, L, U0.device)
         rule = get_rule(program.combine)
 
         mix = all_sum = None
@@ -270,9 +320,14 @@ def lower_simulator(program: SolverProgram) -> Callable:
         elif program.mixer == "central":
             def all_sum(G):
                 return torch.sum(G, dim=0)    # fusion-center aggregation
-        else:
+        elif program.mixer == "state":
             mix = eng.make_state_mixer(topo, T_con, rule=program.combine,
                                        **rule_kw)
+        elif program.mixer == "masked":
+            mix = eng.make_masked_mixer(topo, T_con, rule=program.combine)
+        else:
+            mix = eng.make_masked_state_mixer(topo, T_con,
+                                              rule=program.combine)
         if program.aux == "iterate":
             aux = U0
         elif program.aux == "state":
@@ -307,14 +362,20 @@ def lower_simulator(program: SolverProgram) -> Callable:
                 return sd, sd, torch.zeros((), dtype=U_new.dtype,
                                            device=U_new.device)
 
+        def where_live(m, a, b):
+            return torch.where(m[:, None, None], a, b)
+
         ctx = ProgramCtx(min_grad=min_grad, mix=mix,
                          qr=lambda M: _qr_pos(M)[0], eta=eta, eta_L=eta_L,
                          local_steps=local_steps, all_sum=all_sum,
-                         send_fraction=send_fraction)
+                         send_fraction=send_fraction, where_live=where_live)
         U = U0
         trace, extras = [], []
         for tau in range(T_GD):
-            U, aux, extra = program.update(ctx, U, aux, tau)
+            if program.takes_avail:
+                U, aux, extra = program.update(ctx, U, aux, tau, avail_[tau])
+            else:
+                U, aux, extra = program.update(ctx, U, aux, tau)
             trace.append(torch.stack(metrics(U)))
             if extra is not None:
                 extras.append(extra)
@@ -345,9 +406,9 @@ def lower_mesh(program: SolverProgram) -> Callable:
     Xg and yg are the stacked (L, ...) arrays, of which rank g keeps node
     g's rows; ``W`` (a concrete mixing matrix, for ``"adj"`` programs
     the neighbour average) or ``shifts`` / ``self_weight`` (the uniform
-    circulant) give the topology.  The stateful (``state``) mixers
-    raise NotImplementedError: their mesh lowering comes with a later
-    slice of the port."""
+    circulant) give the topology.  The stateful (``state``) and masked
+    (``masked``, ``masked_state``) mixers raise NotImplementedError:
+    their mesh lowering comes with a later slice of the port."""
 
     def run(U0, Xg, yg, mesh, *, eta, T_GD, T_con=1, shifts=(-1, 1),
             self_weight=None, W=None, engine=None, backend=None,
@@ -356,6 +417,11 @@ def lower_mesh(program: SolverProgram) -> Callable:
         if program.mixer == "state":
             raise NotImplementedError(
                 f"solver {program.name!r} mixes with the stateful "
+                f"{program.combine!r} rule, whose mesh lowering comes with "
+                f"a later slice of the port; use substrate='simulator'")
+        if program.mixer in ("masked", "masked_state"):
+            raise NotImplementedError(
+                f"solver {program.name!r} mixes with the masked "
                 f"{program.combine!r} rule, whose mesh lowering comes with "
                 f"a later slice of the port; use substrate='simulator'")
         local_steps = int(kw.get("local_steps", 1))
@@ -433,7 +499,8 @@ def program_names() -> tuple[str, ...]:
 _BUDGET_DIFFUSION = DispatchBudget(
     simulator=(2, 0, 0, 0), mesh=(1, 1, 0, 0))
 
-# The event rule: one combine launch per round on both stacked tiers.
+# Masked / event rules: one combine launch per round (the masked matrix
+# depends on the data, so nothing is hoisted) on both stacked tiers.
 _BUDGET_MASKED = DispatchBudget(
     simulator=(1, 1, 0, 0), mesh=(1, 1, 0, 0))
 
@@ -496,3 +563,20 @@ register_program(SolverProgram(
     rule_kwargs=("event_threshold", "consensus_gamma"),
     defaults=(("event_threshold", 0.0), ("consensus_gamma", 1.0)),
     dispatch_budget=_BUDGET_MASKED))
+
+register_program(SolverProgram(
+    name="dif_partial", combine="partial_gossip", update=_upd_masked,
+    mixer="masked", takes_avail=True,
+    dispatch_budget=_BUDGET_MASKED))
+
+register_program(SolverProgram(
+    name="dif_stale", combine="stale_gossip", update=_upd_masked_state,
+    mixer="masked_state", aux="state", takes_avail=True,
+    dispatch_budget=_BUDGET_MASKED))
+
+register_program(SolverProgram(
+    name="dif_pushsum", combine="push_sum_gossip", update=_upd_masked,
+    mixer="masked", takes_avail=True,
+    dispatch_budget=DispatchBudget(      # ratio consensus: the weight
+        simulator=(1, 2, 0, 0),          # column rides every round
+        mesh=(1, 1, 0, 0))))

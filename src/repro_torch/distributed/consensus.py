@@ -28,10 +28,19 @@ Precision policy: the kernels accumulate in f32, so float64 operands
 always take the exact sequential product, the exact chain and the plain
 encoders, on every backend.
 
+The dropout-tolerant rules ``partial_gossip`` / ``stale_gossip`` /
+``push_sum_gossip`` take the current outer iteration's availability
+mask (:class:`MaskedGossipCombine`).  Their masked matrix depends on
+the data, so their simulator lowering mixes round by round: one
+``mix_rows`` launch a round on cuda (two for push-sum, whose weight
+column rides the same matrix), the exact ``Weff @ flat`` chain on
+torch-ref and for float64, so that an always-on mask reproduces dense
+gossip bit for bit.
+
 Not ported yet, and raising where a caller would reach them: the sparse
 tier (padded-COO segment-sum rounds above ``SPARSE_MIN_NODES``), the
-virtual-node mesh tier (``VirtualTopology``), the compressed rules'
-mesh mixers, and the masked rules.
+virtual-node mesh tier (``VirtualTopology``), and the compressed and
+masked rules' mesh mixers.
 """
 from __future__ import annotations
 
@@ -794,11 +803,220 @@ class EventGossipCombine(CompressedGossipCombine):
 
 
 # ----------------------------------------------------------------------
+# dropout-tolerant rules (availability-masked gossip)
+# ----------------------------------------------------------------------
+
+def _index_order_sum(A, dim: int):
+    """The sum of a square matrix along ``dim`` taken in index order (the
+    last entry of a cumulative sum, sequential on the CPU): the order in
+    which the JAX package's reduction sums these masses on the CPU at
+    the node counts of the parity tests (L = 8 and 20), so the float64
+    masked matrices equal the reference's bit for bit there.  A plain
+    ``torch.sum`` vectorizes and may part in the last bit."""
+    return torch.cumsum(A, dim=dim).select(dim, -1)
+
+
+def masked_mixing_matrix(W, mask):
+    """Per-round effective mixing matrix under a participation mask
+    ``mask: (L,)`` (truthy = live).  A link is live iff BOTH endpoints
+    are; a dead link's weight folds back into the SELF weight (mass
+    redistribution over the live neighbourhood rather than row division),
+    which (a) keeps W(m) doubly stochastic whenever W is — so partial
+    gossip stays an unbiased averaging operator in expectation — and
+    (b) makes the full mask return W bit for bit (multiply by exact
+    ones, add exact zeros): the degenerate regression anchor.  A fully
+    isolated down node's row degenerates to ``e_g`` (its lost weight is
+    its whole off-diagonal mass), freezing its iterate.  The lost mass
+    is summed in index order (:func:`_index_order_sum`)."""
+    m = mask.to(W.dtype)
+    eye = torch.eye(W.shape[0], dtype=W.dtype, device=W.device)
+    keep = m[:, None] * m[None, :] * (1.0 - eye) + eye   # self link stays
+    lost = _index_order_sum(W * (1.0 - keep), dim=1)
+    return W * keep + torch.diag(lost)
+
+
+def push_sum_matrix(W, mask):
+    """Column-stochastic masked mixing matrix for push-sum: live sender
+    j distributes its mass over its LIVE out-neighbours + itself, each
+    column renormalized by its live mass ``c_j = W_jj + Σ_{i≠j} m_i m_j
+    W_ij`` — exactly column-stochastic by construction, whatever the
+    mask does to the graph (the directed, non-doubly-stochastic regime
+    push-sum's weight carry corrects).  The column mass is summed in
+    index order (:func:`_index_order_sum`)."""
+    m = mask.to(W.dtype)
+    eye = torch.eye(W.shape[0], dtype=W.dtype, device=W.device)
+    keep = m[:, None] * m[None, :] * (1.0 - eye) + eye
+    Wm = W * keep
+    c = _index_order_sum(Wm, dim=0)                      # live column mass
+    return Wm / torch.where(c > 0, c, torch.ones_like(c))[None, :]
+
+
+class MaskedGossipCombine(GossipCombine):
+    """Base of the dropout-tolerant gossip rules: per-iteration
+    availability masks enter the combine, so the stateless
+    ``make_sim_mixer`` / ``make_mesh_mixer`` entry points are forbidden
+    (they would silently drop the mask) — drivers use the ``*_masked_*``
+    forms and pass the (L,) mask of the CURRENT outer iteration (all
+    T_con rounds of one iteration share it; node churn is an
+    outer-iteration phenomenon, not a per-round one).  The masked mesh
+    mixers come with a later slice of the port."""
+
+    def make_sim_mixer(self, W, T_con, *, backend="torch-ref"):
+        raise TypeError(f"combine rule {self.name!r} is availability-"
+                        f"masked; use make_sim_masked_mixer")
+
+    def make_mesh_mixer(self, mesh, T_con, shifts=(-1, 1), self_weight=None,
+                        *, W=None, backend="torch-ref"):
+        raise TypeError(f"combine rule {self.name!r} is availability-"
+                        f"masked; use make_mesh_masked_mixer")
+
+    def make_mesh_masked_mixer(self, mesh, T_con, shifts=(-1, 1),
+                               self_weight=None, *, W=None,
+                               backend="torch-ref"):
+        raise NotImplementedError(
+            f"combine rule {self.name!r}: the masked mesh mixers come with "
+            f"a later slice of the port; use substrate='simulator'")
+
+    make_mesh_masked_state_mixer = make_mesh_masked_mixer
+
+    def signature(self, T_con: int, **params) -> CommSignature:
+        # static pricing cannot see the mask: full-participation worst
+        # case (the event-driven clock measures the real cost)
+        return CommSignature("gossip", T_con)
+
+
+class PartialGossipCombine(MaskedGossipCombine):
+    """``partial_gossip`` — per-round participation masking: only links
+    whose BOTH endpoints are live carry weight, the dead weight folds
+    into the self weight (see :func:`masked_mixing_matrix`), and down
+    nodes' rows collapse toward identity (the driver freezes their
+    iterate anyway).  With availability ≡ 1 the effective matrix IS W
+    bit for bit, so on the exact lowering trajectories reproduce dense
+    ``dif_altgdmin`` exactly — the regression anchor of the fault
+    layer."""
+
+    name = "partial_gossip"
+
+    def make_sim_masked_mixer(self, W, T_con: int, *,
+                              backend: str = "torch-ref") -> Callable:
+        """Simulator closure ``(Z (L, ...), m (L,)) ↦ Z'``: T_con rounds
+        of the masked matrix, no ``W^{T_con}`` hoist (it depends on the
+        data) — one ``mix_rows`` launch a round on cuda; on torch-ref
+        and for float64 the flattened ``Weff @ flat`` chain,
+        arithmetic-identical to :func:`stacked_product`'s rounds."""
+        W = maybe_sparsify(W)
+        if T_con == 0:
+            return lambda Z, m: Z
+
+        def mix(Z, m):
+            Weff = masked_mixing_matrix(W.to(Z.dtype), m)
+            if _fused_wanted(backend, Z.dtype):
+                for _ in range(T_con):
+                    Z = stacked_dense_mix(Z, Weff, backend=backend)
+                return Z
+            flat = Z.reshape(Z.shape[0], -1)
+            for _ in range(T_con):
+                flat = Weff @ flat
+            return flat.reshape(Z.shape)
+        return mix
+
+
+class StaleGossipCombine(MaskedGossipCombine):
+    """``stale_gossip`` — dropout tolerance on the reference-copy
+    machinery of the compressed rules: every node's PUBLIC COPY x̂
+    persists across iterations (the state rides the solver loop); a
+    LIVE node re-publishes its iterate each round (x̂ ← Z), a DOWN node
+    sends nothing new — its last-delivered copy sits in the neighbours'
+    receive queue and mixes in ONCE, in the iteration's first AGREE
+    round.  Rounds 2..T_con have no fresh packet from a down node to
+    deliver, so the down link's weight folds to the receiver's diagonal
+    exactly like ``partial_gossip``.  Down nodes neither combine (the
+    driver freezes them).  Full mask: every copy refreshes to Z, the
+    fold is a no-op, and on the exact lowering every round IS dense
+    ``W @ Z`` bit for bit."""
+
+    name = "stale_gossip"
+
+    def init_state(self, Z_nodes, **kw):
+        """Stacked public copies x̂ (L, d, r), zero — the network starts
+        with no beliefs, exactly like the compressed rules."""
+        return torch.zeros_like(Z_nodes)
+
+    def make_sim_masked_state_mixer(self, W, T_con: int, *,
+                                    backend: str = "torch-ref",
+                                    **kw) -> Callable:
+        """Simulator closure ``(Z, x̂, m) ↦ (Z', x̂')``: each round live
+        nodes publish, the copies mix (round 0 under the dense W — the
+        queued stale packet delivers once — later rounds under the
+        masked fold; one ``mix_rows`` launch a round on cuda), and down
+        nodes freeze."""
+        W = maybe_sparsify(W)
+        if T_con == 0:
+            return lambda Z, state, m: (Z, state)
+
+        def mix(Z, state, m):
+            N = Z.shape[0]
+            Wd = W.to(Z.dtype)
+            Weff = masked_mixing_matrix(Wd, m)
+            mrow = m.to(torch.bool)[:, None, None]
+            fused = _fused_wanted(backend, Z.dtype)
+            xhat = state
+            for rd in range(T_con):
+                xhat = torch.where(mrow, Z, xhat)     # live nodes publish
+                Wr = Wd if rd == 0 else Weff
+                if fused:
+                    Z2 = stacked_dense_mix(xhat, Wr, backend=backend)
+                else:
+                    Z2 = (Wr @ xhat.reshape(N, -1)).reshape(Z.shape)
+                # live g's own copy is exact (x̂_g = Z_g), so no self
+                # correction is needed; down nodes freeze outright
+                Z = torch.where(mrow, Z2, Z)
+            return Z, xhat
+        return mix
+
+
+class PushSumGossipCombine(MaskedGossipCombine):
+    """``push_sum_gossip`` — ratio consensus for the DIRECTED mixing
+    matrices dropout induces: the masked matrix (:func:`push_sum_matrix`)
+    is only column-stochastic, so plain gossip would drift toward a
+    weighted (biased) average; push-sum carries a companion weight w
+    through the same matrix (z ← Cz, w ← Cw, w₀ = 1) and reads out the
+    bias-corrected ratio z/w after the T_con rounds.  The weight resets
+    to 1 each outer iteration, so no cross-iteration state is carried.
+    Full mask on a doubly stochastic W: C ≈ W and w ≈ 1 up to the row
+    sums' round-off — dense gossip to machine precision, not bit for
+    bit.  On cuda a round is two ``mix_rows`` launches: the iterate and
+    the (L, 1) weight column."""
+
+    name = "push_sum_gossip"
+
+    def make_sim_masked_mixer(self, W, T_con: int, *,
+                              backend: str = "torch-ref") -> Callable:
+        W = maybe_sparsify(W)
+        if T_con == 0:
+            return lambda Z, m: Z
+
+        def mix(Z, m):
+            N = Z.shape[0]
+            C = push_sum_matrix(W.to(Z.dtype), m)
+            flat = Z.reshape(N, -1)
+            wv = torch.ones((N, 1), dtype=Z.dtype, device=Z.device)
+            fused = _fused_wanted(backend, Z.dtype)
+            for _ in range(T_con):
+                if fused:
+                    flat = stacked_dense_mix(flat, C, backend=backend)
+                    wv = stacked_dense_mix(wv, C, backend=backend)
+                else:
+                    flat, wv = C @ flat, C @ wv
+            out = flat / torch.where(wv > 0, wv, torch.ones_like(wv))
+            return out.reshape(Z.shape)
+        return mix
+
+
+# ----------------------------------------------------------------------
 # registry
 # ----------------------------------------------------------------------
 
-# The JAX package's other combine rules, each brought by a later slice.
-LATER_SLICE_RULES = ("partial_gossip", "stale_gossip", "push_sum_gossip")
 COMBINE_RULES: dict[str, CombineRule] = {}
 
 
@@ -813,10 +1031,6 @@ def get_rule(name: str):
     try:
         return COMBINE_RULES[name]
     except KeyError:
-        if name in LATER_SLICE_RULES:
-            raise NotImplementedError(
-                f"combine rule {name!r} is not ported yet; a later slice "
-                f"of the port brings it") from None
         raise ValueError(f"unknown combine rule {name!r}; registered: "
                          f"{sorted(COMBINE_RULES)}") from None
 
@@ -824,6 +1038,7 @@ def get_rule(name: str):
 for _rule in (GossipCombine(), NeighborCombine(), CentralCombine(),
               NoCombine(), ExactDiffusionCombine(), BeyondCentralCombine(),
               TopkGossipCombine(), QuantizedGossipCombine(),
-              EventGossipCombine()):
+              EventGossipCombine(), PartialGossipCombine(),
+              StaleGossipCombine(), PushSumGossipCombine()):
     register_rule(_rule)
 del _rule

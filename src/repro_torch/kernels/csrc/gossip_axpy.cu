@@ -35,23 +35,37 @@
 // or bfloat16, with float32 weights and accumulation and out in z's
 // dtype.
 //
-// Design.  The TPU kernel tiles z into (rows, 256) VMEM blocks; here the
-// work is one pass over n, each thread owning one element and walking
-// the K neighbour rows for it, so neighbouring threads read neighbouring
-// addresses (coalesced).  A 16-byte (float4) body is no faster at the
-// path's shapes: at the mesh shape (n = 2400, K = 19) it fills 3 blocks
-// of 256 threads and measured 0.0042 ms a launch, against 0.0035 ms for
-// this body's 10 blocks (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W).
-// The weights are read from a (K+1,) float32 device pointer, so a
-// device's own row of a W table never has to come back to the host.
-// The sum runs over k in order with __fmul_rn / __fadd_rn (no FMA
-// contraction), which is the plain version's arithmetic: the kernel
-// equals ref_gossip_combine bit for bit.
-//
 // Bound on the card: the round must move (K+2)*n*itemsize bytes plus the
 // weights; at the mesh shape (n = d*r = 2400, K = 19, f32) that is
-// 0.20 MB, 0.00006 ms at 3.35 TB/s, so a launch is bound by launch
-// latency, as mix_rows is.
+// 0.20 MB, 0.00006 ms at 3.35 TB/s, so a launch is bound by its latency:
+// the launch itself and each dependent trip to memory.  The first port
+// (one element a thread, walking the K rows in a loop of run-time length,
+// so each load waited for the one before: about K+1 memory latencies a
+// thread, on 10 blocks of 256 threads at n = 2400) took 0.0035 ms there
+// (chip_smoke.py, NVIDIA H100 80GB HBM3 at its 700 W limit).
+//
+// Design.  combine_tile_kernel makes one trip to memory, as
+// mix_tile_kernel does: a CTA of kCombThreads threads owns kCombTile
+// elements (38 CTAs at the mesh round's n = 2400) and issues every load
+// of its (K+1) x kCombTile block -- z, the K neighbour rows, and the K+1
+// weights -- into shared memory before it waits once, each thread two or
+// fewer copies at K = 19: 16-byte cp.async where n * itemsize is a
+// multiple of 16 and z and nbr are 16-byte aligned, 4-byte cp.async
+// (f32) or element by element (bf16) otherwise, since a ragged n leaves
+// rows k >= 1 misaligned.  Thread t < kCombTile then sums element t over
+// the rows in ascending order with __fmul_rn / __fadd_rn (no FMA
+// contraction), from -0.0f, so the first term is w0 * z exactly: the
+// plain version's arithmetic, and the kernel equals ref_gossip_combine
+// bit for bit.  Where the K+1 rows pass kStageRows (a complete graph at
+// large L), they are staged kStageRows at a time, double-buffered: the
+// next group's loads fly while the current group is summed, in the same
+// order.  A ring (K = 2, the roll form's n = 48000 too) needs no shared
+// memory: where K+1 <= kRegRows, combine_regs_kernel gives each thread
+// one element, its K+1 values and weights loaded into registers together
+// before the first is used, and sums them in the same order.  The
+// weights come from a (K+1,) float32 device pointer, so a device's own
+// row of a W table never has to come back to the host.  The C entry
+// reports which form it launched.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -305,33 +319,169 @@ cudaError_t run(const void* W, const void* Z, void* out, int L, int M,
   return err;
 }
 
-constexpr int kThreads = 256;
+constexpr int kCombThreads = 256;  // the combine kernels' threads a CTA
+constexpr int kRegRows = 8;        // combine_regs_kernel: K+1 at most
+constexpr int kCombTile = 64;      // combine_tile_kernel: elements a CTA
+constexpr int kStageRows = 64;     // rows (z and the K neighbours) a stage
 
+// Row j of the round's (K+1) x n block: z, then the K neighbour rows.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-combine_kernel(const T* __restrict__ z, const T* __restrict__ nbr,
-               const float* __restrict__ w, T* __restrict__ out, long long n,
-               int K) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    float acc = __fmul_rn(__ldg(w), to_f32(z[i]));
-    for (int k = 0; k < K; ++k)
-      acc = __fadd_rn(acc, __fmul_rn(__ldg(w + k + 1),
-                                     to_f32(nbr[(size_t)k * n + i])));
-    out[i] = from_f32<T>(acc);
-  }
+__device__ __forceinline__ const T* combine_row(const T* z, const T* nbr,
+                                                long long n, int j) {
+  return j == 0 ? z : nbr + (size_t)(j - 1) * n;
 }
 
+// K+1 <= kRegRows: thread i loads its element of every row and every
+// weight into registers (all the loads issued before the first is used),
+// then sums them in ascending order.
+template <typename T>
+__global__ void __launch_bounds__(kCombThreads)
+combine_regs_kernel(const T* __restrict__ z, const T* __restrict__ nbr,
+                    const float* __restrict__ w, T* __restrict__ out,
+                    long long n, int K) {
+  const long long i = (long long)blockIdx.x * kCombThreads + threadIdx.x;
+  if (i >= n) return;
+  const int R = K + 1;
+  float v[kRegRows], wv[kRegRows];
+#pragma unroll
+  for (int j = 0; j < kRegRows; ++j) {
+    v[j] = j < R ? to_f32(__ldg(combine_row(z, nbr, n, j) + i)) : 0.f;
+    wv[j] = j < R ? __ldg(w + j) : 0.f;
+  }
+  float acc = -0.0f;   // -0 + x is x for every x: the first term is w0*z
+#pragma unroll
+  for (int j = 0; j < kRegRows; ++j)
+    if (j < R) acc = __fadd_rn(acc, __fmul_rn(wv[j], v[j]));
+  out[i] = from_f32<T>(acc);
+}
+
+// Issue the loads of rows [j0, j0 + rows) of the tile at element i0 (mn
+// elements) into buf (rows x kCombTile) and their weights into wbuf, as
+// one cp.async group, without waiting for them.  The weights go first
+// (the bf16 element-by-element copies pass through registers, so what
+// follows them waits for them).  A thread owns one 16-byte piece (vec)
+// or one element of a row, in every kCombThreads / (pieces a row)-th
+// row, so its loads need no division and fly together.
+template <typename T>
+__device__ __forceinline__ void issue_rows(T* buf, float* wbuf, const T* z,
+                                           const T* nbr, const float* w,
+                                           long long n, long long i0, int mn,
+                                           int j0, int rows, int vec) {
+  for (int rr = threadIdx.x; rr < rows; rr += kCombThreads)
+    cp_async4(wbuf + rr, w + j0 + rr);
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T), kPieces = kCombTile / kPer;
+    constexpr int kRowStep = kCombThreads / kPieces;
+    const int c = (threadIdx.x % kPieces) * kPer;   // mn: a multiple of kPer
+    if (c < mn) {
+#pragma unroll 4
+      for (int rr = threadIdx.x / kPieces; rr < rows; rr += kRowStep)
+        cp_async16(buf + rr * kCombTile + c,
+                   combine_row(z, nbr, n, j0 + rr) + i0 + c);
+    }
+  } else {
+    constexpr int kRowStep = kCombThreads / kCombTile;
+    const int c = threadIdx.x % kCombTile;
+    if (c < mn) {
+#pragma unroll 4
+      for (int rr = threadIdx.x / kCombTile; rr < rows; rr += kRowStep)
+        stage(buf + rr * kCombTile + c,
+              combine_row(z, nbr, n, j0 + rr) + i0 + c);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The shared memory of a launch: one stage of `stage` rows, or two.
+template <typename T>
+size_t combine_smem_bytes(int stage, int nbuf) {
+  return (size_t)nbuf * stage * (kCombTile * sizeof(T) + sizeof(float));
+}
+
+// A CTA owns kCombTile elements: out = sum over rows j of w[j] * row_j,
+// in ascending j, in groups of `stage` rows (kStaged), or all K+1 rows in
+// one group (stage = K+1: the group loop folds away at compile time);
+// thread t < kCombTile sums element t.
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kCombThreads)
+combine_tile_kernel(const T* __restrict__ z, const T* __restrict__ nbr,
+                    const float* __restrict__ w, T* __restrict__ out,
+                    long long n, int K, int stage, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int R = K + 1;
+  const int groups = kStaged ? (R + stage - 1) / stage : 1;
+  const int nbuf = kStaged ? 2 : 1;
+  // buffer b (0 or 1): its rows at rows0 + b * row_step, their weights
+  // at wsm + b * stage, after both (or the one) row buffers
+  const size_t row_step = (size_t)stage * kCombTile;   // elements
+  T* const rows0 = reinterpret_cast<T*>(smem_raw);
+  float* const wsm = reinterpret_cast<float*>(rows0 + nbuf * row_step);
+  const long long i0 = (long long)blockIdx.x * kCombTile;
+  const int mn = (int)min((long long)kCombTile, n - i0);
+
+  issue_rows(rows0, wsm, z, nbr, w, n, i0, mn, 0, min(stage, R), vec);
+  float acc = -0.0f;   // -0 + x is x for every x: the first term is w0*z
+  for (int g = 0; g < groups; ++g) {
+    const int j0 = g * stage, rows = min(stage, R - j0);
+    if (g + 1 < groups) {   // the next group's loads fly while this sums
+      const int nb = (g + 1) & 1;
+      issue_rows(rows0 + nb * row_step, wsm + nb * stage, z, nbr, w, n, i0,
+                 mn, j0 + stage, min(stage, R - j0 - stage), vec);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x < mn) {
+      const T* b = rows0 + (g & 1) * row_step + threadIdx.x;
+      const float* wb = wsm + (g & 1) * stage;
+#pragma unroll 8
+      for (int rr = 0; rr < rows; ++rr)
+        acc = __fadd_rn(acc, __fmul_rn(wb[rr], to_f32(b[rr * kCombTile])));
+    }
+    if (g + 1 < groups) __syncthreads();   // buffer g & 1 takes group g + 2
+  }
+  if (threadIdx.x < mn) out[i0 + threadIdx.x] = from_f32<T>(acc);
+}
+
+// Registers where K+1 <= kRegRows; else the tile kernel, in one stage
+// where the K+1 rows fit kStageRows, in stages of kStageRows
+// double-buffered past that.  launched[0], [1] or [2] counts the form
+// launched: the tile in one stage, in stages, or the registers.
 template <typename T>
 cudaError_t run_combine(const void* z, const void* nbr, const void* w,
-                        void* out, long long n, int K, cudaStream_t stream) {
-  const long long want = (n + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  combine_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(z), static_cast<const T*>(nbr),
-      static_cast<const float*>(w), static_cast<T*>(out), n, K);
-  return cudaGetLastError();
+                        void* out, long long n, int K, int* launched,
+                        cudaStream_t stream) {
+  const T* zt = static_cast<const T*>(z);
+  const T* nt = static_cast<const T*>(nbr);
+  const float* wt = static_cast<const float*>(w);
+  T* ot = static_cast<T*>(out);
+  const int R = K + 1;
+  int form;
+  if (R <= kRegRows) {
+    form = 2;
+    const long long blocks = (n + kCombThreads - 1) / kCombThreads;
+    combine_regs_kernel<T><<<(unsigned)blocks, kCombThreads, 0, stream>>>(
+        zt, nt, wt, ot, n, K);
+  } else {
+    const bool staged = R > kStageRows;
+    form = staged ? 1 : 0;
+    const int stage = staged ? kStageRows : R;
+    const int vec = ((size_t)n * sizeof(T)) % 16 == 0 &&
+                    (reinterpret_cast<uintptr_t>(z) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(nbr) & 15) == 0;
+    const unsigned blocks = (unsigned)((n + kCombTile - 1) / kCombTile);
+    const size_t smem = combine_smem_bytes<T>(stage, staged ? 2 : 1);
+    if (staged)
+      combine_tile_kernel<T, true><<<blocks, kCombThreads, smem, stream>>>(
+          zt, nt, wt, ot, n, K, stage, vec);
+    else
+      combine_tile_kernel<T, false><<<blocks, kCombThreads, smem, stream>>>(
+          zt, nt, wt, ot, n, K, stage, vec);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++launched[form];
+  return err;
 }
 
 }  // namespace
@@ -356,15 +506,22 @@ int gossip_mix_rows(const void* W, const void* Z, void* out, int L, int M,
 
 // z and out: n elements; nbr: K rows of n; w: K+1 float32 weights.
 // dtype 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 = success).
+// launch (0 = success), and adds 1 to launched[0] where the K+1 rows ran
+// in one shared-memory stage of combine_tile_kernel, to launched[1] where
+// in stages of kStageRows, to launched[2] where in combine_regs_kernel's
+// registers (K+1 <= kRegRows).
 int gossip_combine(const void* z, const void* nbr, const void* w, void* out,
-                   long long n, int K, int dtype, int device, void* stream) {
+                   long long n, int K, int dtype, int device, void* stream,
+                   int* launched) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (launched == nullptr || K < 1 || n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)run_combine<float>(z, nbr, w, out, n, K, s);
+  if (dtype == 0)
+    return (int)run_combine<float>(z, nbr, w, out, n, K, launched, s);
   if (dtype == 1)
-    return (int)run_combine<__nv_bfloat16>(z, nbr, w, out, n, K, s);
+    return (int)run_combine<__nv_bfloat16>(z, nbr, w, out, n, K, launched,
+                                           s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,8 +10,14 @@ past that (``mix_rows_kernel``); the C entry reports which it launched
 :func:`gossip_combine` replaces ``gossip_combine``
 (``_combine_kernel``) of the same file: one mesh gossip round's
 (K+1)-way weighted combine of a node's block with its K neighbour
-blocks.  At the paper's shapes both have little data to move, so a
-launch is bound by launch latency.  The plain versions are
+blocks, one trip to memory a CTA (``combine_tile_kernel``: a tile of
+the K+1 rows and the weights in shared memory, in one stage, or in
+double-buffered stages of 64 rows past that; ``combine_regs_kernel``
+where K+1 <= 8, the rows in registers; the C entry reports which,
+``combine_tile_kernel``, ``combine_tile_kernel/staged`` or
+``combine_regs_kernel``).  At the
+paper's shapes both have little data to move, so a launch is bound by
+its latency.  The plain versions are
 :func:`repro_torch.kernels.ref.ref_mix_rows` and
 :func:`~repro_torch.kernels.ref.ref_gossip_combine`.
 """
@@ -26,12 +32,16 @@ from repro_torch.kernels import _build
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "gossip_mix_rows": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    "gossip_combine": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _P]),
+    "gossip_combine": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P]),
     "gossip_error_string": (ctypes.c_char_p, [_I]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels gossip_mix_rows reports in its launched[] slots
 _MIX_KERNELS = ("mix_tile_kernel", "mix_rows_kernel")
+# the forms gossip_combine reports in its launched[] slots: the K+1 rows
+# in one shared-memory stage, in stages of 64, or in registers (K+1 <= 8)
+_COMBINE_FORMS = ("combine_tile_kernel", "combine_tile_kernel/staged",
+                  "combine_regs_kernel")
 
 
 def mix_rows(W, Z):
@@ -94,6 +104,8 @@ def gossip_combine(z, neighbors, weights):
     n = z.numel()
     if n < 1:
         raise ValueError(f"empty operand z {tuple(z.shape)}")
+    if n > (2**31 - 1) * 64:                # grid (n/64,)
+        raise ValueError(f"z of {n} elements exceeds one launch grid")
     if z.dtype not in _DTYPE_CODE and z.dtype != torch.float64:
         raise ValueError(f"unsupported z dtype {z.dtype}")
     if neighbors.dtype != z.dtype:
@@ -105,11 +117,13 @@ def gossip_combine(z, neighbors, weights):
     wk = weights.to(torch.float32).contiguous()
     out = torch.empty_like(zk)
     lib = _build.load("gossip_axpy", _SIGNATURES)
+    launched = (ctypes.c_int * len(_COMBINE_FORMS))()
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = lib.gossip_combine(zk.data_ptr(), nk.data_ptr(), wk.data_ptr(),
                                  out.data_ptr(), n, K, _DTYPE_CODE[dt],
-                                 z.device.index, stream)
+                                 z.device.index, stream, launched)
     _build.check(lib, "gossip_error_string", err, "gossip_combine")
     _build.LAUNCHES["gossip_combine"] += 1
+    _build.count_kernels(_COMBINE_FORMS, launched)
     return out.to(z.dtype)

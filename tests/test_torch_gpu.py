@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version on the same inputs (``compress_topk`` and ``dequant``
-bit for bit), the dtype rules of the ops, and small end-to-end runs
-through the kernels (the dense, the sample-split and the compressed
-paths, and a 2-rank gloo mesh) against the torch-ref backend or the
-simulator, with their launch counts; the single-basis kernels and the
+PyTorch version on the same inputs (``compress_topk``, ``dequant`` and
+``gossip_combine`` bit for bit), the dtype rules of the ops, and small
+end-to-end runs through the kernels (the dense, the sample-split and the
+compressed paths, the masked trio under dropout, and a 2-rank gloo mesh)
+against the torch-ref backend or the simulator, with their launch
+counts; the single-basis kernels and the
 serving side (``ServingEngine`` against torch-ref, slot and bucket
 padding bit for bit, checkpoints of CUDA tensors, a segmented run).
 
@@ -14,8 +15,8 @@ the machine with the card:
     python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances are the reference's cross-backend ones: rtol = atol = 1e-4 at
-f32, 5e-2 at bf16; trajectories rtol 1e-4, atol 1e-5; gossip_combine's
-f32 rtol = atol = 1e-6 (the reference's kernel test).
+f32, 5e-2 at bf16; trajectories rtol 1e-4, atol 1e-5; gossip_combine
+bit for bit (its plain version's products and sums in the same order).
 """
 import dataclasses
 
@@ -115,15 +116,16 @@ def _mix_operands(L, M, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,M,kernel", [
-    (20, 2400, MIX_TILE), (100, 1000, MIX_TILE), (3, 291, MIX_TILE),
+    (20, 2400, MIX_TILE), (20, 1, MIX_TILE), (100, 1000, MIX_TILE),
+    (3, 291, MIX_TILE),
     (37, 129, MIX_TILE), (1, 2400, MIX_TILE), (20, 2398, MIX_TILE),
     (300, 2400, MIX_TILE), (300, 129, MIX_TILE), (700, 600, MIX_HTILED),
     (700, 129, MIX_HTILED)])
 def test_mix_rows_matches_plain(cuda, L, M, kernel, dtype):
     """One node to past the one-tile kernel's shared memory, M a multiple
     of 16 columns or not, rows 16-byte aligned or not (M = 2398: its
-    element-by-element path), each through the kernel the C entry
-    reports."""
+    element-by-element path), push-sum's (L, 1) weight column, each
+    through the kernel the C entry reports."""
     from repro_torch.kernels import _build, gossip_axpy, ref
     W, Z = _mix_operands(L, M, dtype)
     _build.KERNEL_LAUNCHES.clear()
@@ -510,29 +512,84 @@ def test_slice_paths_through_kernels_match_torch_ref(cuda, name, kw, counts):
     assert got.final_sd_max < got.sd_max[0]
 
 
-# (n, K): the mesh round at Experiment 1 (d·r = 2400; K = 2 on a ring,
-# 19 at ER p = 0.5), the roll form's (L·d·r, ring), ragged n, tiny n
-COMBINE = [(2400, 2), (2400, 19), (48000, 2), (2401, 19), (7, 1)]
+# (n, K, offset): the mesh round at Experiment 1 (d·r = 2400; K = 2 on a
+# ring, 19 at ER p = 0.5), the roll form's (L·d·r, ring), ragged n, tiny
+# n, the register form's edge (K = 7) and the tile's first K (8), K = 40
+# (one shared-memory stage of 64 rows), K = 130 (three staged groups,
+# aligned and ragged), and z one element past an aligned base
+COMBINE = [(2400, 2, 0), (2400, 19, 0), (48000, 2, 0), (2401, 19, 0),
+           (7, 1, 0), (2401, 7, 0), (2400, 8, 0), (2400, 40, 0),
+           (2400, 130, 0), (2401, 130, 0), (2400, 19, 1)]
+COMBINE_STAGE_ROWS, COMBINE_REG_ROWS = 64, 8
 
 
 @pytest.mark.parametrize("tensor_weights", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,K", COMBINE)
-def test_gossip_combine_matches_plain(cuda, n, K, dtype, tensor_weights):
+@pytest.mark.parametrize("n,K,offset", COMBINE)
+def test_gossip_combine_matches_plain(cuda, n, K, offset, dtype,
+                                      tensor_weights):
+    """Bit for bit equal to the plain version (the same products and
+    sums in the same order), through the form the C entry reports."""
     from repro_torch.kernels import _build, ops, ref
     g = torch.Generator(device="cuda").manual_seed(n + K)
-    z = torch.randn(n, generator=g, device="cuda").to(dtype)
+    z = torch.randn(n + offset, generator=g, device="cuda").to(dtype)[offset:]
     nbrs = torch.randn((K, n), generator=g, device="cuda").to(dtype)
     w = torch.rand(K + 1, generator=g, device="cuda")
     w = w / w.sum()
     weights = w if tensor_weights else tuple(w.tolist())
     _build.LAUNCHES.clear()
+    _build.KERNEL_LAUNCHES.clear()
     out = ops.gossip_combine(z, nbrs, weights)          # auto → cuda
     assert _build.LAUNCHES["gossip_combine"] == 1
+    form = ("combine_regs_kernel" if K + 1 <= COMBINE_REG_ROWS
+            else "combine_tile_kernel/staged" if K + 1 > COMBINE_STAGE_ROWS
+            else "combine_tile_kernel")
+    assert dict(_build.KERNEL_LAUNCHES) == {form: 1}
     assert out.dtype == dtype and out.shape == z.shape
-    tol = (dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32
-           else TOL[torch.bfloat16])
-    _close(out, ref.ref_gossip_combine(z, nbrs, weights), tol)
+    assert torch.equal(out, ref.ref_gossip_combine(z, nbrs, weights))
+
+
+@pytest.mark.parametrize("name", ["dif_partial", "dif_stale", "dif_pushsum"])
+def test_masked_trio_through_kernels_matches_torch_ref(cuda, name):
+    """The dropout-tolerant trio at the reference's TINY shape under its
+    30 % bernoulli dropout (tests/test_system.py), f32 on the card: the
+    launches per run equal the program's DispatchBudget (mix_rows once a
+    round, twice for push-sum), and the trajectory agrees with torch-ref
+    on the card."""
+    from repro_torch.api import (EngineSpec, ExperimentSpec, InitSpec,
+                                 ProblemSpec, SolverSpec, SystemSpec,
+                                 TopologySpec, materialize, run_experiment)
+    from repro_torch.core.program import get_program
+    from repro_torch.kernels import _build
+    T_GD, T_con = 30, 3
+    spec = ExperimentSpec(
+        problem=ProblemSpec(d=36, T=24, r=3, n=22, L=8, kappa=1.5,
+                            dtype="float32"),
+        topology=TopologySpec(family="erdos_renyi", p=0.5, seed=3),
+        init=InitSpec(T_pm=12, T_con=5),
+        solver=SolverSpec(name=name, T_GD=T_GD, T_con=T_con),
+        engine=EngineSpec(backend="cuda"),
+        system=SystemSpec(availability="bernoulli", p_on=0.7, seed=7))
+    mat = materialize(spec, key=0)
+    _build.LAUNCHES.clear()
+    _build.KERNEL_LAUNCHES.clear()
+    got = run_experiment(spec, key=0, materialized=mat)
+    per_iter = get_program(name).dispatch_budget.per_iter("simulator",
+                                                           T_con, 0, 1)
+    mix = (per_iter - 1) * T_GD
+    assert dict(_build.LAUNCHES) == {"node_fused_iter": T_GD,
+                                     "mix_rows": mix, "node_task_gram": 1}
+    assert dict(_build.KERNEL_LAUNCHES) == {
+        "fused_resident_kernel": T_GD, "mix_tile_kernel": mix,
+        "stream_gram_kernel": 1}
+    ref = run_experiment(dataclasses.replace(
+        spec, engine=EngineSpec(backend="torch-ref")), key=0,
+        materialized=mat)
+    np.testing.assert_allclose(got.sd_max, ref.sd_max, rtol=1e-4, atol=1e-5)
+    _close(got.U_nodes, ref.U_nodes, dict(rtol=1e-4, atol=1e-5))
+    assert got.time_axis_source == "simulated"
+    np.testing.assert_array_equal(got.time_axis, ref.time_axis)
+    assert got.final_sd_max < got.sd_max[0]
 
 
 def test_two_rank_gloo_mesh_through_the_kernels(cuda):

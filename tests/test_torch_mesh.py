@@ -403,8 +403,14 @@ def test_mesh_refusals(one_rank_group):
         with pytest.raises(NotImplementedError, match="stateful"):
             tapi.run_experiment(bad, device="cpu")
     for name in ("dif_partial", "dif_stale", "dif_pushsum"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tapi.get_solver(name)
+        bad = dataclasses.replace(one, solver=tapi.SolverSpec(name=name,
+                                                              T_GD=2))
+        with pytest.raises(NotImplementedError, match="masked mesh"):
+            tapi.run_experiment(bad, device="cpu")
+        # the lowering itself refuses the masked mixer kinds too
+        with pytest.raises(NotImplementedError, match="masked"):
+            tapi.get_solver(name).mesh_fn(None, None, None, None, eta=0.1,
+                                          T_GD=2)
 
 
 def test_one_rank_mesh_gossip_and_mean(one_rank_group):
