@@ -121,13 +121,26 @@ Phases, each printing one JSON line and raising on failure:
                W;
  12. mesh   — L = 20 ranks on the one card, spawned once over gloo
                (staged through host memory), each running the EXPERIMENT1
-               preset through run_experiment(substrate="mesh") for the six
-               stateless programs (T_GD = MESH_T_GD); every sd_max trace
-               and rank 0's final U_nodes and B_nodes against the port's
-               simulator on the card (rtol 1e-4, atol 1e-5),
-               dif_altgdmin's geometric decay, each rank's launch
-               counts against the program's DispatchBudget, and ms per
-               iteration labelled with the transport;
+               preset through run_experiment(substrate="mesh") for all
+               twelve programs: the six stateless ones (T_GD =
+               MESH_T_GD), then MESH_STATE_SOLVERS (T_GD =
+               MESH_STATE_T_GD, a cut made for time): dif_topk (k = 150),
+               dif_quantized (int8) and dif_event (θ = 0.02) as in path
+               B, and the masked trio under MASKED_DROPOUT; every rank's
+               result equal to rank 0's; rank 0's sd_max trace and final
+               U_nodes and B_nodes against the port's simulator on the
+               card under the same schedule (MESH_TOL: rtol 1e-4, atol
+               1e-5), dif_topk at k = 150 as in path B (agreement with
+               its first parting iteration, the final sd_max within
+               10 %); dif_altgdmin's geometric decay, and sd_max falling
+               for the six new ones; each rank's launches by wrapper
+               (node_fused_iter, gossip_combine, compress_topk, dequant)
+               against the program's DispatchBudget, its CUDA launches
+               (gossip_combine's form; dif_quantized's int8_round_kernel
+               once a round and dequant_kernel once a round a shift) and
+               its point-to-point sends against R·K·wire_mesh; ms per
+               iteration labelled with the transport, staging and wire ms
+               and sends per iteration;
  13. serving kernels — task_gram and task_grad_tiles (one basis shared by
                T tasks) against their plain versions at the serving
                phase's cohort (T = 64, n = 16, d = 600, r = 4), a serving
@@ -216,8 +229,10 @@ times at one and two CTAs a task; mix_rows' also the masked phase's
 launches; gossip_combine's its form and its time at every f32 case;
 dequant's the int8 round's, the
 kernel dif_quantized launches, with the standalone dequant_kernel's
-beside it; the launch floor beside mix_rows, compress_topk, dequant and
-gossip_combine), the card line, and the result line.  Exits non-zero,
+beside it; compress_topk's and dequant's rank-0 launches on the mesh,
+gossip_combine's per mesh program; the launch floor beside mix_rows,
+compress_topk, dequant and gossip_combine), the card line, and the
+result line.  Exits non-zero,
 printing no result, without a CUDA device or outside the repo.
 
     python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]
@@ -240,6 +255,19 @@ device operations, device ms and host ms an iteration.  Only the wrappers' commo
 signatures are called, so an older tree of the port (its ``src`` from
 ``git archive``) can be timed by this script too: run parent, change,
 change, parent on one card, one process each.
+
+    python3 chip_smoke.py --grad-oracle [--src DIR] [--label NAME]
+
+likewise runs none of the phases: it builds the least-squares kernels of
+the port in ``DIR`` and prints one JSON line holding
+``node_task_grad_tiles`` and its plain version (ref_node_grad_tiles, f32
+on the card) each against an f64 oracle of the same inputs, f32: at the
+two-pass kernel's tasks (GRAD_ORACLE_SHAPES, n = 200 and 400,
+GRAD_ORACLE_DRAWS seeded B draws) and over a seeded sweep of B at every
+f32 case of tests/test_torch_gpu.py's two gradient tests
+(GRAD_SWEEP_CASES): per case the worst error of each against the oracle,
+and the worst reading of |kernel − plain| against the tests' tolerance
+with its draw and the two errors of that draw.
 """
 from __future__ import annotations
 
@@ -366,6 +394,23 @@ MASKED_SHRINK = 0.2
 MESH_SOLVERS = ("dif_altgdmin", "dec_altgdmin", "dgd_altgdmin",
                 "exact_diffusion", "beyond_central", "centralized_altgdmin")
 MESH_T_GD = 120
+# The stateful and masked programs in the same spawn, with path B's knobs
+# and the masked phase's dropout: (solver, knobs, system, whether rank
+# 0's sd_max trace and final U_nodes and B_nodes are held to the
+# simulator's over the whole run at MESH_TOL).  dif_topk at k = 150 is
+# held as in path B instead (its row selection can flip on round-off:
+# agreement reported with the first parting iteration, the final sd_max
+# within 10 %).  Their T_GD is cut from the preset's 500 to
+# MESH_STATE_T_GD for time: the wire-2 programs send twice the messages
+# of the stateless ones, whose iterations take 0.37-0.44 s on 20 ranks.
+MESH_STATE_SOLVERS = (
+    ("dif_topk", {"compression_k": 150}, None, False),
+    ("dif_quantized", {"compression": "int8"}, None, True),
+    ("dif_event", {"event_threshold": 0.02}, None, True),
+    ("dif_partial", {}, MASKED_DROPOUT, True),
+    ("dif_stale", {}, MASKED_DROPOUT, True),
+    ("dif_pushsum", {}, MASKED_DROPOUT, True))
+MESH_STATE_T_GD = 30
 MESH_TIMEOUT = 600
 # rank 0's final U_nodes and B_nodes against the simulator's on the card:
 # the trajectory tolerance the sd_max traces are held to
@@ -1299,13 +1344,20 @@ def roll_form(torch):
     return launches["gossip_combine"]
 
 
-def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD, L=20,
-               timeout=MESH_TIMEOUT):
-    """Phase 12: the six stateless programs on an L-rank gloo mesh on the
-    one card, each rank running its node through run_experiment(
-    substrate="mesh"); held against the port's simulator on the card.
-    The kernels are built already (phase 2), so ranks only load them."""
-    from repro_torch.api import run_experiment
+def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD,
+               state_T_GD=MESH_STATE_T_GD, L=20, timeout=MESH_TIMEOUT):
+    """Phase 12: all twelve programs on an L-rank gloo mesh on the one
+    card, in one spawn, each rank running its node through
+    run_experiment(substrate="mesh"): the six stateless ones (T_GD), the
+    compressed trio and the masked trio under MASKED_DROPOUT
+    (state_T_GD).  Each held against the port's simulator on the card
+    under the same schedule; each rank's launches by kernel against the
+    program's DispatchBudget, its sends against R·K·wire_mesh.  The
+    kernels are built already (phase 2), so ranks only load them.
+    Returns rank 0's launches of gossip_combine (dif_altgdmin's run, and
+    every program's), compress_topk (dif_topk's) and dequant
+    (dif_quantized's, with its CUDA launches by kernel)."""
+    from repro_torch.api import SystemSpec, run_experiment
     from repro_torch.api.runner import run_on_mesh
     from repro_torch.core.program import get_program
     from repro_torch.distributed.consensus import (get_rule,
@@ -1314,10 +1366,14 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD, L=20,
 
     require(spec.problem.L == L, f"the preset has L={spec.problem.L}")
     device = mat.Xg.device.type
-    specs = [dataclasses.replace(spec, substrate="mesh",
-                                 solver=dataclasses.replace(
-                                     spec.solver, name=name, T_GD=T_GD))
-             for name in MESH_SOLVERS]
+    runs = [(name, {}, None, True, T_GD) for name in MESH_SOLVERS] + [
+        (name, kw, system, held, state_T_GD)
+        for name, kw, system, held in MESH_STATE_SOLVERS]
+    specs = [dataclasses.replace(
+        spec, substrate="mesh",
+        system=SystemSpec(**system) if system is not None else None,
+        solver=dataclasses.replace(spec.solver, name=name, T_GD=T, **kw))
+        for name, kw, system, _, T in runs]
     t0 = time.perf_counter()
     ranks = spawn(run_on_mesh, L, args=(device, [s.to_dict() for s in specs],
                                         0),
@@ -1325,30 +1381,57 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD, L=20,
     spawn_s = time.perf_counter() - t0
     K = {"W": len(mesh_weights_from_matrix(mat.W)[0]),
          "adj": len(mesh_weights_from_matrix(mat.adj)[0]), "none": 0}
-    failures, launches_combine = [], 0
-    for i, s in enumerate(specs):
-        name = s.solver.name
+    failures = []
+    out = {"gossip_combine_by_program": {}}
+    for i, (s, (name, kw, system, held, T)) in enumerate(zip(specs, runs)):
         hw = ranks[0][i]
+        label = f"{name} {kw}" if kw else name
         for g in range(1, L):
             require(np.array_equal(ranks[g][i]["U_nodes"], hw["U_nodes"])
+                    and np.array_equal(ranks[g][i]["B_nodes"],
+                                       hw["B_nodes"])
                     and np.array_equal(ranks[g][i]["sd_max"], hw["sd_max"]),
-                    f"mesh {name}: rank {g}'s result differs from rank 0's")
+                    f"mesh {label}: rank {g}'s result differs from rank 0's")
         prog = get_program(name)
+        k = K[prog.topology]
         rounds = get_rule(prog.combine).signature(s.solver.T_con).rounds_per_iter
-        per_iter = prog.dispatch_budget.per_iter("mesh", rounds,
-                                                 K[prog.topology], 1)
-        n_combine = T_GD * rounds if prog.mixer != "central" else 0
-        want = {"node_fused_iter": T_GD, "node_task_gram": 1,
-                "gossip_combine": n_combine}
+        budget = prog.dispatch_budget
+        per_iter = budget.per_iter("mesh", rounds, k, 1)
+        n_round = T * rounds if prog.mixer != "central" else 0
+        want = {"node_fused_iter": T, "node_task_gram": 1,
+                "gossip_combine": n_round,
+                "compress_topk": n_round if name == "dif_topk" else 0,
+                # the int8 round, then one decode a shift
+                "dequant": n_round * (1 + k) if name == "dif_quantized"
+                else 0}
+        want_kernels = {combine_form(k): n_round} if n_round else {}
+        if name == "dif_quantized":
+            want_kernels.update(int8_round_kernel=n_round,
+                                dequant_kernel=n_round * k)
+        want_sends = n_round * k * budget.wire_mesh
         for g in range(L):
             got = ranks[g][i]["launches"]
-            require(all(got.get(k, 0) == v for k, v in want.items())
-                    and got.get("node_fused_iter", 0)
-                    + got.get("gossip_combine", 0) == per_iter * T_GD,
-                    f"mesh {name} rank {g}: launches {got}, want {want} "
-                    f"({per_iter} a iteration by the DispatchBudget)")
+            got_k = ranks[g][i]["kernel_launches"]
+            require(all(got.get(key, 0) == v for key, v in want.items())
+                    and sum(got.get(key, 0) for key in want
+                            if key != "node_task_gram") == per_iter * T
+                    and all(got_k.get(key, 0) == v
+                            for key, v in want_kernels.items()),
+                    f"mesh {label} rank {g}: launches {got}, CUDA launches "
+                    f"{got_k}, want {want} and {want_kernels} ({per_iter} an "
+                    f"iteration by the DispatchBudget)")
+            require(ranks[g][i]["sends"] == want_sends,
+                    f"mesh {label} rank {g}: {ranks[g][i]['sends']} sends, "
+                    f"want R·K·wire_mesh·T_GD = {want_sends}")
+        out["gossip_combine_by_program"][name] = hw["launches"].get(
+            "gossip_combine", 0)
         if name == "dif_altgdmin":
-            launches_combine = hw["launches"].get("gossip_combine", 0)
+            out["gossip_combine"] = hw["launches"].get("gossip_combine", 0)
+        elif name == "dif_topk":
+            out["compress_topk"] = hw["launches"].get("compress_topk", 0)
+        elif name == "dif_quantized":
+            out["dequant"] = hw["launches"].get("dequant", 0)
+            out["dequant_kernels"] = hw["kernel_launches"]
         sim = run_experiment(dataclasses.replace(s, substrate="simulator"),
                              key=0, materialized=mat)
         sd, sd_sim = hw["sd_max"], sim.sd_max
@@ -1366,48 +1449,69 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD, L=20,
                 and bool(np.allclose(got_f, want_f, **MESH_TOL)),
                 float(np.abs(got_f - want_f).max())
                 if got_f.shape == want_f.shape else float("inf"))
-        require(sd.shape == (T_GD,) and bool(np.isfinite(sd).all())
+        require(sd.shape == (T,) and bool(np.isfinite(sd).all())
                 and hw["U_nodes"].shape == tuple(mat.init.U0.shape)
-                and bool(np.isfinite(hw["U_nodes"]).all()),
-                f"mesh {name}: outputs of the wrong shape or not finite")
-        emit("mesh", solver=name, L=L, T_GD=T_GD, T_con=s.solver.T_con,
+                and bool(np.isfinite(hw["U_nodes"]).all())
+                and bool(np.isfinite(hw["B_nodes"]).all()),
+                f"mesh {label}: outputs of the wrong shape or not finite")
+        final_rel = abs(float(sd[-1]) - float(sd_sim[-1])) / float(sd_sim[-1])
+        emit("mesh", solver=name, knobs=kw,
+             system=(dataclasses.asdict(s.system) if s.system is not None
+                     else None),
+             live_share=(float(s.system.availability_mask(T, L).mean())
+                         if s.system is not None else None),
+             L=L, T_GD=T, T_con=s.solver.T_con,
              preset_T_GD=spec.solver.T_GD,
              T_GD_cut=(f"from the preset's {spec.solver.T_GD} to fit the "
-                       f"script's time limit" if T_GD != spec.solver.T_GD
+                       f"script's time limit" if T != spec.solver.T_GD
                        else None),
              transport=hw["transport"],
-             ms_per_iter=hw["seconds"] / T_GD * 1e3,
+             ms_per_iter=hw["seconds"] / T * 1e3,
              ms_per_iter_label=f"rank 0, {hw['transport']}",
              stage_ms_per_iter=hw["transport_s"].get("stage_s", 0.0)
-             / T_GD * 1e3,
+             / T * 1e3,
              wire_ms_per_iter=hw["transport_s"].get("wire_s", 0.0)
-             / T_GD * 1e3,
+             / T * 1e3,
+             sends_per_iter=hw["sends"] / T,
+             wire_mesh=budget.wire_mesh, shifts=k,
+             dispatch_budget_per_iter=per_iter,
              launches_rank0=hw["launches"],
+             kernel_launches_rank0=hw["kernel_launches"],
              first_sd_max=float(sd[0]), final_sd_max=float(sd[-1]),
              sim_final_sd_max=float(sd_sim[-1]),
+             final_rel_diff_vs_simulator=final_rel,
+             trajectory_held=held,
              sd_max_vs_simulator_max_abs_diff=diff,
              first_parting_iteration=first,
              U_nodes_vs_simulator_max_abs_diff=mats["U_nodes"][1],
              B_nodes_vs_simulator_max_abs_diff=mats["B_nodes"][1],
              spawn_s=spawn_s)
-        if not ok:
-            failures.append(f"{name}: sd_max disagrees with the simulator "
-                            f"(max abs diff {diff:.3e}, first at {first})")
-        for field, (close, err) in mats.items():
-            if not close:
-                failures.append(f"{name}: {field} disagrees with the "
-                                f"simulator (max abs diff {err:.3e})")
+        if held:
+            if not ok:
+                failures.append(f"{label}: sd_max disagrees with the "
+                                f"simulator (max abs diff {diff:.3e}, "
+                                f"first at {first})")
+            for field, (close, err) in mats.items():
+                if not close:
+                    failures.append(f"{label}: {field} disagrees with the "
+                                    f"simulator (max abs diff {err:.3e})")
+        elif final_rel > 0.1:
+            failures.append(f"{label}: final sd_max {float(sd[-1]):.3e} vs "
+                            f"the simulator's {float(sd_sim[-1]):.3e}")
+        if name not in MESH_SOLVERS and not sd[-1] < sd[0]:
+            failures.append(f"{label}: sd_max did not fall, {sd[0]:.3e} → "
+                            f"{sd[-1]:.3e}")
         if name == "dif_altgdmin":
-            if not (T_GD > 100 and sd[50] < 0.5 * sd[0]
+            if not (T > 100 and sd[50] < 0.5 * sd[0]
                     and sd[100] < 0.5 * sd[50]):
                 failures.append(f"dif_altgdmin: no geometric decay, sd_max "
-                                f"{sd[0]:.3e} / {sd[min(50, T_GD - 1)]:.3e} "
-                                f"/ {sd[min(100, T_GD - 1)]:.3e}")
-            if T_GD == 500 and not sd[-1] < 1e-3 * sd[0]:
+                                f"{sd[0]:.3e} / {sd[min(50, T - 1)]:.3e} "
+                                f"/ {sd[min(100, T - 1)]:.3e}")
+            if T == 500 and not sd[-1] < 1e-3 * sd[0]:
                 failures.append(f"dif_altgdmin did not converge: {sd[0]:.3e}"
                                 f" → {sd[-1]:.3e}")
     require(not failures, "; ".join(failures))
-    return launches_combine
+    return out
 
 
 def check_serving_kernels(torch):
@@ -2134,10 +2238,12 @@ MIX_TIME_SHAPES = ((20, 2400), (100, 1000), (3, 291), (37, 129))
 
 # (L, tpn, n, d, r) of the gradient kernel in --kernel-times beside
 # GRAD_SHAPES: tests/test_torch_gpu.py's other shapes (Experiment 1, the
-# rank capacity's edge, r = 8 and r = 16)
+# rank capacity's edge, r = 8 and r = 16, and n = 400, past the resident
+# form's shared memory: the two-pass kernel)
 GRAD_TIME_SHAPES = {**GRAD_SHAPES, "exp1": SHAPES["exp1"],
                     "edge": (2, 2, 40, 33, 16), "r8": (2, 3, 20, 100, 8),
-                    "r16": (2, 3, 16, 600, 16)}
+                    "r16": (2, 3, 16, 600, 16),
+                    "two_pass_n400": (2, 2, 400, 600, 4)}
 
 
 def kernel_times(torch, src: Path, label: str) -> dict:
@@ -2226,6 +2332,92 @@ def kernel_times(torch, src: Path, label: str) -> dict:
             "ms": times, "dif_quantized_profile": quantized_profile(torch)}
 
 
+# --grad-oracle: the gradient kernel's tasks past the resident form's
+# shared memory at f32 (n = 200, the smallest, and n = 400), with
+# GRAD_ORACLE_DRAWS seeded B draws each; and the seeded sweep of B over
+# tests/test_torch_gpu.py's f32 gradient cases, with the X seed each
+# test uses (GRAD_SWEEP_DRAWS draws at Experiment 1's two shapes,
+# GRAD_ORACLE_DRAWS at the others)
+GRAD_ORACLE_SHAPES = {"two_pass_n200": (2, 2, 200, 600, 4),
+                      "two_pass_n400": (2, 2, 400, 600, 4)}
+GRAD_SWEEP_CASES = (
+    ("kernel_matches_plain exp1", (20, 30, 30, 600, 4), 1),
+    ("kernel_matches_plain exp2", (100, 1, 50, 100, 10), 1),
+    ("kernel_matches_plain ragged", (3, 5, 20, 97, 3), 1),
+    ("kernel_matches_plain edge", (2, 2, 40, 33, 16), 1),
+    ("forms_match_plain exp1_fold", (20, 30, 15, 600, 4), 5),
+    ("forms_match_plain cohort", (1, 64, 16, 600, 4), 5),
+    ("forms_match_plain ragged", (3, 5, 20, 97, 3), 5),
+    ("forms_match_plain r8", (2, 3, 20, 100, 8), 5),
+    ("forms_match_plain r16", (2, 3, 16, 600, 16), 5),
+    ("forms_match_plain two_pass_n200", (2, 2, 200, 600, 4), 5),
+    ("forms_match_plain two_pass_n400", (2, 2, 400, 600, 4), 5))
+GRAD_ORACLE_DRAWS = 32
+GRAD_SWEEP_DRAWS = 256
+
+
+def grad_oracle(torch, src: Path, label: str) -> dict:
+    """--grad-oracle: node_task_grad_tiles of the port in ``src`` and its
+    plain version (ref_node_grad_tiles, f32 on the card) each held
+    against an f64 oracle of the same inputs; per case the worst of each
+    error over the draws, and the worst reading of |kernel − plain|
+    against the tests' tolerance (atol + rtol·|plain|, 1e-4 each: > 1 is
+    past it) with its draw and the two errors of that draw."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.kernels import _build, altgdmin_ls, ref
+    _build.build(("altgdmin_ls",))
+    tol = TOL["float32"]
+
+    def oracle(X, U, B, y):
+        Xd, Bd = X.double(), B.double()
+        resid = ((Xd @ U.double()[:, None]) @ Bd[..., None])[..., 0] \
+            - y.double()
+        return (Xd.mT @ resid[..., None]) * Bd[:, :, None, :]
+
+    def case(shape, x_seed, draws):
+        X, U, y = instance(torch, shape, torch.float32, seed=x_seed)
+        worst = {"kernel_vs_oracle": 0.0, "plain_vs_oracle": 0.0,
+                 "ratio_vs_plain": 0.0, "ratio_vs_oracle": 0.0}
+        kernels = {}
+        for b_seed in range(draws):
+            g = torch.Generator(device="cuda").manual_seed(b_seed)
+            B = torch.randn(shape[:2] + shape[4:], generator=g,
+                            device="cuda")
+            _build.KERNEL_LAUNCHES.clear()
+            got = altgdmin_ls.node_task_grad_tiles(X, U, B, y).double()
+            kernels.update(_build.KERNEL_LAUNCHES)
+            plain = ref.ref_node_grad_tiles(X, U, B, y).double()
+            want = oracle(X, U, B, y)
+            k_err = float((got - want).abs().max())
+            p_err = float((plain - want).abs().max())
+            r_plain = float(((got - plain).abs()
+                             / (tol["atol"] + tol["rtol"] * plain.abs()))
+                            .max())
+            r_oracle = float(((got - want).abs()
+                              / (tol["atol"] + tol["rtol"] * want.abs()))
+                             .max())
+            worst["kernel_vs_oracle"] = max(worst["kernel_vs_oracle"],
+                                            k_err)
+            worst["plain_vs_oracle"] = max(worst["plain_vs_oracle"], p_err)
+            worst["ratio_vs_oracle"] = max(worst["ratio_vs_oracle"],
+                                           r_oracle)
+            if r_plain >= worst["ratio_vs_plain"]:
+                worst.update(ratio_vs_plain=r_plain, worst_draw=b_seed,
+                             worst_draw_kernel_vs_oracle=k_err,
+                             worst_draw_plain_vs_oracle=p_err)
+        return {"shape": shape, "x_seed": x_seed, "draws": draws,
+                "kernels": kernels, **worst}
+
+    out = {"label": label, "src": str(src), "card": nvidia_smi_line(),
+           "oracle": {name: case(shape, 5, GRAD_ORACLE_DRAWS)
+                      for name, shape in GRAD_ORACLE_SHAPES.items()},
+           "sweep": {name: case(shape, x_seed,
+                                GRAD_SWEEP_DRAWS if "exp1" in name
+                                else GRAD_ORACLE_DRAWS)
+                     for name, shape, x_seed in GRAD_SWEEP_CASES}}
+    return out
+
+
 def quantized_profile(torch, iters: int = 20) -> dict:
     """dif_quantized (int8) at Experiment 1 on cuda, ``iters`` outer
     iterations under torch.profiler (profiled): device operations, device
@@ -2248,11 +2440,15 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernel-times", action="store_true",
                         help="only time the least-squares and mixing kernels")
+    parser.add_argument("--grad-oracle", action="store_true",
+                        help="only hold the gradient kernel and its plain "
+                             "version against an f64 oracle")
     parser.add_argument("--src", type=Path, default=SRC,
-                        help="with --kernel-times: the src directory of the "
-                             "tree to time")
+                        help="with --kernel-times or --grad-oracle: the src "
+                             "directory of the tree to run")
     parser.add_argument("--label", default="this checkout",
-                        help="with --kernel-times: the name of the tree")
+                        help="with --kernel-times or --grad-oracle: the name "
+                             "of the tree")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -2262,7 +2458,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    src = args.src if args.kernel_times else SRC
+    src = args.src if args.kernel_times or args.grad_oracle else SRC
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: run from the repository root ({src}/repro_torch "
               f"is missing)", file=sys.stderr)
@@ -2273,6 +2469,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.kernel_times:
         print(json.dumps(kernel_times(torch, src, args.label)), flush=True)
+        return 0
+    if args.grad_oracle:
+        print(json.dumps(grad_oracle(torch, src, args.label)), flush=True)
         return 0
     sys.path.insert(0, str(SRC))
 
@@ -2356,10 +2555,18 @@ def main(argv=None) -> int:
                         **slice_timing[name]})
         if name != "node_task_grad_tiles":
             kernels[-1]["launch_floor_ms"] = launch_floor_ms
+    # compress_topk's and dequant's rank-0 launches on the mesh beside
+    # their path B counts
+    kernels[-2]["launches_mesh"] = launches_mesh["compress_topk"]
+    kernels[-1]["launches_mesh"] = launches_mesh["dequant"]
+    kernels[-1]["cuda_launches_mesh"] = launches_mesh["dequant_kernels"]
     kernels.append({"name": "gossip_combine", "route": "cuda",
                     "source": SOURCES["gossip_combine"],
                     "replaces": REPLACES["gossip_combine"],
-                    "launches": launches_mesh, "max_abs_err": combine_err,
+                    "launches": launches_mesh["gossip_combine"],
+                    "launches_mesh_by_program":
+                        launches_mesh["gossip_combine_by_program"],
+                    "max_abs_err": combine_err,
                     "launch_floor_ms": launch_floor_ms, **combine_timing})
     for name in ("task_gram", "task_grad_tiles"):
         kernels.append({"name": name, "route": "cuda",

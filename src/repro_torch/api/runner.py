@@ -21,7 +21,10 @@ Substrates:
     materializes the same problem and runs its own node, the combine
     crossing the wire by ``ppermute`` (any weight scheme: circulant
     weights as shared scalars, any other W decomposed into per-shift,
-    per-node weights).  Every rank returns the same :class:`Trace`.
+    per-node weights).  The dropout-tolerant solvers mix under the
+    spec's availability schedule, which every rank draws alike (host
+    numpy from the spec's seed).  Every rank returns the same
+    :class:`Trace`.
     :func:`run_on_mesh` is the rank function that
     :func:`repro_torch.distributed.mesh.spawn` runs for a batch of
     specs.
@@ -353,11 +356,6 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
             f"{solver.name!r} cannot consume an availability mask; use "
             f"one of the dropout-tolerant solvers (dif_partial / "
             f"dif_stale / dif_pushsum)")
-    if spec.substrate == "mesh" and solver.takes_avail:
-        raise NotImplementedError(
-            f"solver {solver.name!r} on substrate='mesh': the masked mesh "
-            f"mixers come with a later slice of the port; use "
-            f"substrate='simulator'")
     avail_np = None
     if solver.takes_avail:
         sys_spec = spec.system if spec.system is not None else SystemSpec()
@@ -387,7 +385,7 @@ def run_experiment(spec: ExperimentSpec, key=None, *, engine=None,
     eta = _resolve_spec_eta(spec, mat.init)
     eng = resolve_engine(engine, spec.engine.backend, device=mat.Xg.device)
     if spec.substrate == "mesh":
-        result = _run_mesh(spec, solver, mat, eng, eta)
+        result = _run_mesh(spec, solver, mat, eng, eta, avail=avail_np)
     elif checkpoint_every is not None:
         result = _run_segmented(spec, solver, mat, eng, eta,
                                 avail=avail_np, every=checkpoint_every,
@@ -460,9 +458,11 @@ def _run_segmented(spec: ExperimentSpec, solver: SolverDef,
 
 
 def _run_mesh(spec: ExperimentSpec, solver: SolverDef, mat: Materialized,
-              eng, eta: float):
+              eng, eta: float, avail: np.ndarray | None = None):
     """This rank's share of a mesh run: node ``rank`` of the default
-    process group, on the materialization's device."""
+    process group, on the materialization's device.  ``avail`` is the
+    masked programs' seeded schedule, host numpy drawn from the spec, so
+    every rank holds the same one."""
     topo, p = spec.topology, spec.problem
     if not solver.mesh_capable:
         raise ValueError(f"solver {solver.name!r} has no mesh runtime; "
@@ -478,6 +478,8 @@ def _run_mesh(spec: ExperimentSpec, solver: SolverDef, mat: Materialized,
             f"(L a multiple of the ranks) comes with a later slice of the "
             f"port")
     kw = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
+    if avail is not None:
+        kw.update(avail=avail)
     if topo.weights == "circulant":
         # mesh-native uniform weights: each shift one ppermute
         kw.update(shifts=topo.shifts, self_weight=topo.self_weight)
@@ -506,10 +508,13 @@ def run_on_mesh(device, specs, key=0, arrays=None, dtype=None) -> list:
     kernel launch counts set to 0 just before and read just after.
     Returns, per spec, a dict of host values: the traces (``sd_max``,
     ``sd_mean``, ``spread``, ``time_axis``), ``U_nodes``, ``B_nodes``,
-    ``launches`` (this rank's), ``seconds`` (the run, ended by a device
-    synchronize), ``transport`` and ``transport_s`` (this rank's
-    :data:`~repro_torch.distributed.mesh.TRANSPORT` seconds of the
-    run)."""
+    ``launches`` (this rank's, by wrapper) and ``kernel_launches`` (by
+    ``__global__`` function, as the C entries report them), ``seconds``
+    (the run, ended by a device synchronize), ``transport``,
+    ``transport_s`` (this rank's
+    :data:`~repro_torch.distributed.mesh.TRANSPORT` seconds of the run)
+    and ``sends`` (its point-to-point sends,
+    :data:`~repro_torch.distributed.mesh.SENDS`)."""
     specs = [ExperimentSpec.from_dict(s) for s in specs]
     if arrays is None:
         mat = materialize(specs[0], key, device=device)
@@ -522,7 +527,9 @@ def run_on_mesh(device, specs, key=0, arrays=None, dtype=None) -> list:
             raise ValueError(f"run_on_mesh runs substrate='mesh' specs, "
                              f"got {spec.substrate!r}")
         _build.LAUNCHES.clear()
+        _build.KERNEL_LAUNCHES.clear()
         _mesh.TRANSPORT.clear()
+        _mesh.SENDS.clear()
         t0 = time.perf_counter()
         trace = run_experiment(spec, key, materialized=mat)
         if mat.Xg.is_cuda:
@@ -533,6 +540,9 @@ def run_on_mesh(device, specs, key=0, arrays=None, dtype=None) -> list:
             "spread": trace.spread, "time_axis": trace.time_axis,
             "U_nodes": trace.U_nodes.cpu().numpy(),
             "B_nodes": trace.B_nodes.cpu().numpy(),
-            "launches": dict(_build.LAUNCHES), "seconds": seconds,
-            "transport": transport, "transport_s": dict(_mesh.TRANSPORT)})
+            "launches": dict(_build.LAUNCHES),
+            "kernel_launches": dict(_build.KERNEL_LAUNCHES),
+            "seconds": seconds, "transport": transport,
+            "transport_s": dict(_mesh.TRANSPORT),
+            "sends": _mesh.SENDS["p2p"]})
     return out

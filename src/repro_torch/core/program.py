@@ -22,9 +22,9 @@ compressed trio ``dif_topk`` / ``dif_quantized`` / ``dif_event``, whose
 combine rules are stateful (the public copies of the error-feedback
 scheme ride the ``aux`` slot), and the dropout-tolerant trio
 ``dif_partial`` / ``dif_stale`` / ``dif_pushsum``, whose combines take
-the iteration's row of the availability mask (``takes_avail``).  The
-stateful and masked programs' mesh lowering and the virtual-node mesh
-lowering come with later slices of the port.
+the iteration's row of the availability mask (``takes_avail``).  All
+twelve lower to both substrates; the virtual-node mesh lowering comes
+with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -56,7 +56,8 @@ class ProgramCtx(NamedTuple):
     programs only); ``send_fraction(Z, state)`` — the event rule's
     measured trigger rate (simulator only; None elsewhere);
     ``where_live(m, a, b)`` — per-node freeze under an availability
-    mask (masked programs only)."""
+    mask (masked programs only; on the mesh it picks by the rank's
+    entry of m)."""
     min_grad: Callable
     mix: Optional[Callable]
     qr: Callable
@@ -105,9 +106,16 @@ class DispatchBudget(NamedTuple):
     (the fused min-B + gradient; the hoisted combine), ``b``/``c`` the
     per-round and per-round-per-shift ones, ``d`` the local adapt
     epoch.  The final B refit, one launch outside the loop, is not
-    counted."""
+    counted.
+
+    ``wire_mesh`` prices the mesh's gossip structure: the point-to-point
+    sends of an outer iteration are R·K·wire_mesh — 1 where a round
+    sends the value, 2 where a second leaf rides with each message
+    (top-k indices, the int8 scale, push-sum's weight), 0 for the
+    fusion center's psum."""
     simulator: tuple
     mesh: tuple
+    wire_mesh: int = 1
 
     def per_iter(self, substrate: str, rounds: int, n_shifts: int,
                  local_steps: int) -> int:
@@ -402,31 +410,26 @@ def lower_mesh(program: SolverProgram) -> Callable:
     """One-node-per-rank lowering on the shared
     :func:`~repro_torch.core.runtime._altgdmin_mesh` skeleton, called on
     every rank of the mesh: ``run(U0, Xg, yg, mesh, *, eta, T_GD, T_con,
-    shifts, self_weight, W, engine, backend, U_star, **spec_kw)``.  U0,
-    Xg and yg are the stacked (L, ...) arrays, of which rank g keeps node
-    g's rows; ``W`` (a concrete mixing matrix, for ``"adj"`` programs
-    the neighbour average) or ``shifts`` / ``self_weight`` (the uniform
-    circulant) give the topology.  The stateful (``state``) and masked
-    (``masked``, ``masked_state``) mixers raise NotImplementedError:
-    their mesh lowering comes with a later slice of the port."""
+    shifts, self_weight, W, engine, backend, U_star, avail,
+    **spec_kw)``.  U0, Xg and yg are the stacked (L, ...) arrays, of
+    which rank g keeps node g's rows; ``W`` (a concrete mixing matrix,
+    for ``"adj"`` programs the neighbour average) or ``shifts`` /
+    ``self_weight`` (the uniform circulant) give the topology.  The
+    stateful programs' public copies ride the loop as the rule's
+    ``init_mesh_state`` (one neighbour copy a distinct shift); the masked
+    programs take ``avail`` (T_GD, L), the same seeded schedule on every
+    rank (all ones when absent), and iteration τ mixes under its row
+    τ."""
 
     def run(U0, Xg, yg, mesh, *, eta, T_GD, T_con=1, shifts=(-1, 1),
             self_weight=None, W=None, engine=None, backend=None,
-            U_star=None, **spec_kw):
+            U_star=None, avail=None, **spec_kw):
         kw = _resolve_spec(program, spec_kw)
-        if program.mixer == "state":
-            raise NotImplementedError(
-                f"solver {program.name!r} mixes with the stateful "
-                f"{program.combine!r} rule, whose mesh lowering comes with "
-                f"a later slice of the port; use substrate='simulator'")
-        if program.mixer in ("masked", "masked_state"):
-            raise NotImplementedError(
-                f"solver {program.name!r} mixes with the masked "
-                f"{program.combine!r} rule, whose mesh lowering comes with "
-                f"a later slice of the port; use substrate='simulator'")
+        rule_kw = {k: kw[k] for k in program.rule_kwargs}
         local_steps = int(kw.get("local_steps", 1))
         eta_L = eta * mesh.size
         rule = get_rule(program.combine)
+        xs = _check_avail(program, avail, T_GD, mesh.size, mesh.device)
         if not program.stacked:
             # fusion center: every node starts (and stays) on node 0's
             # iterate — the psum keeps the rows identical
@@ -442,23 +445,56 @@ def lower_mesh(program: SolverProgram) -> Callable:
                 # structurally ignored by the rule
                 mix = rule.make_mesh_mixer(mesh, 1, shifts, W=W,
                                            backend=eng.backend)
-            else:
+            elif program.mixer == "central":
                 all_sum = mesh.psum
+            elif program.mixer == "state":
+                mix = rule.make_mesh_state_mixer(
+                    mesh, T_con, shifts, self_weight, W=W,
+                    backend=eng.backend, **rule_kw)
+            elif program.mixer == "masked":
+                mix = rule.make_mesh_masked_mixer(
+                    mesh, T_con, shifts, self_weight, W=W,
+                    backend=eng.backend)
+            else:
+                mix = rule.make_mesh_masked_state_mixer(
+                    mesh, T_con, shifts, self_weight, W=W,
+                    backend=eng.backend)
 
-            def update(U, aux, mg):
+            def where_live(m, a, b):
+                return torch.where(m[mesh.axis_index()], a, b)
+
+            def update(U, aux, mg, xt=None):
                 ctx = ProgramCtx(min_grad=lambda U_, fold: mg(U_), mix=mix,
                                  qr=lambda M: _qr_pos(M)[0], eta=eta,
                                  eta_L=eta_L, local_steps=local_steps,
-                                 all_sum=all_sum, send_fraction=None)
-                U_new, aux_new, _ = program.update(ctx, U, aux, 0)
+                                 all_sum=all_sum, send_fraction=None,
+                                 where_live=where_live)
+                if program.takes_avail:
+                    U_new, aux_new, _ = program.update(ctx, U, aux, 0, xt)
+                else:
+                    U_new, aux_new, _ = program.update(ctx, U, aux, 0)
                 return U_new, aux_new
             return update
 
-        init_aux = (lambda U: U) if program.aux == "iterate" else None
+        if program.aux == "iterate":
+            def init_aux(U):
+                return U
+        elif program.mixer == "state":
+            # one neighbour copy a distinct cyclic shift
+            n_shifts = len(rule._mesh_weights(mesh.size, shifts,
+                                              self_weight, W)[0])
+
+            def init_aux(U):
+                return rule.init_mesh_state(U, n_shifts, **rule_kw)
+        elif program.aux == "state":
+            def init_aux(U):
+                return rule.init_mesh_state(U)
+        else:
+            init_aux = None
         return _altgdmin_mesh(U0, Xg, yg, mesh, eta=eta, T_GD=T_GD,
                               make_update=make_update, engine=engine,
                               backend=backend, U_star=U_star,
-                              init_aux=init_aux)
+                              init_aux=init_aux, xs=xs)
 
     run.__name__ = run.__qualname__ = f"{program.name}__mesh"
     run.__doc__ = (f"Mesh lowering of the {program.name!r} solver "
@@ -516,8 +552,8 @@ register_program(SolverProgram(
     name="centralized_altgdmin", combine="central", update=_upd_central,
     mixer="central", stacked=False, topology="none", decentralized=False,
     refit=_refit_first,
-    dispatch_budget=DispatchBudget(
-        simulator=(1, 0, 0, 0), mesh=(1, 0, 0, 0))))  # fusion center: psum
+    dispatch_budget=DispatchBudget(      # fusion center: psum, no gossip
+        simulator=(1, 0, 0, 0), mesh=(1, 0, 0, 0), wire_mesh=0)))
 
 register_program(SolverProgram(
     name="dgd_altgdmin", combine="neighbor", update=_upd_dgd,
@@ -544,8 +580,9 @@ register_program(SolverProgram(
     spec_kwargs=("compression_k", "consensus_gamma"),
     rule_kwargs=("compression_k", "consensus_gamma"),
     defaults=(("compression_k", 0), ("consensus_gamma", 1.0)),
-    dispatch_budget=DispatchBudget(      # encode + combine per round
-        simulator=(1, 2, 0, 0), mesh=(1, 2, 0, 0))))
+    dispatch_budget=DispatchBudget(      # encode + combine per round;
+        simulator=(1, 2, 0, 0),          # indices ride the wire (w=2)
+        mesh=(1, 2, 0, 0), wire_mesh=2)))
 
 register_program(SolverProgram(
     name="dif_quantized", combine="quantized_gossip",
@@ -553,8 +590,9 @@ register_program(SolverProgram(
     spec_kwargs=("compression", "consensus_gamma"),
     rule_kwargs=("compression", "consensus_gamma"),
     defaults=(("compression", None), ("consensus_gamma", 1.0)),
-    dispatch_budget=DispatchBudget(      # per-shift dequant on mesh
-        simulator=(1, 2, 0, 0), mesh=(1, 2, 1, 0))))
+    dispatch_budget=DispatchBudget(      # per-shift dequant on mesh;
+        simulator=(1, 2, 0, 0),          # scales ride the wire (w=2)
+        mesh=(1, 2, 1, 0), wire_mesh=2)))
 
 register_program(SolverProgram(
     name="dif_event", combine="event_gossip", update=_upd_compressed,
@@ -578,5 +616,5 @@ register_program(SolverProgram(
     name="dif_pushsum", combine="push_sum_gossip", update=_upd_masked,
     mixer="masked", takes_avail=True,
     dispatch_budget=DispatchBudget(      # ratio consensus: the weight
-        simulator=(1, 2, 0, 0),          # column rides every round
-        mesh=(1, 1, 0, 0))))
+        simulator=(1, 2, 0, 0),          # column rides every round,
+        mesh=(1, 1, 0, 0), wire_mesh=2)))  # with every message (w=2)

@@ -11,7 +11,7 @@ program's update — whose combine crosses the wire by ``ppermute`` or
 wire; X_g, y_g and B_g stay on the node.
 
 The skeleton knows no solver: the update arrives as ``make_update(eng)
--> update(U, aux, min_grad)`` from
+-> update(U, aux, min_grad[, x_t])`` from
 :func:`repro_torch.core.program.lower_mesh`.  The virtual-node tier
 (``_altgdmin_virtual_mesh``) comes with a later slice of the port.
 """
@@ -26,7 +26,7 @@ from repro_torch.core.metrics import consensus_spread, subspace_distance
 
 def _altgdmin_mesh(U0, Xg, yg, mesh, *, eta: float, T_GD: int, make_update,
                    engine=None, backend: str | None = None, U_star=None,
-                   init_aux=None) -> RunResult:
+                   init_aux=None, xs=None) -> RunResult:
     """Run T_GD iterations on this rank's node; return the whole run's
     :class:`RunResult`, the same on every rank.
 
@@ -36,7 +36,11 @@ def _altgdmin_mesh(U0, Xg, yg, mesh, *, eta: float, T_GD: int, make_update,
     per-iteration update from the resolved engine; ``min_grad(U) -> (B,
     G)`` is the node's fused min-B + gradient (one kernel launch per call
     on cuda); ``init_aux(U)`` seeds the auxiliary state (e.g. exact
-    diffusion's ψ) from the node's starting iterate.
+    diffusion's ψ, the compressed rules' public copies) from the node's
+    starting iterate.  ``xs`` (T_GD, ...), when given, holds a row per
+    iteration on the node's device (the masked programs' availability
+    schedule, the same on every rank); iteration τ then calls
+    ``update(U, aux, min_grad, xs[τ])``.
 
     With ``U_star`` the per-iteration metrics are kept: each node's
     SD₂(U_g, U*), and the consensus spread through one ``all_gather`` of
@@ -62,8 +66,11 @@ def _altgdmin_mesh(U0, Xg, yg, mesh, *, eta: float, T_GD: int, make_update,
 
     aux = init_aux(U) if init_aux is not None else None
     sd, spread = [], []
-    for _ in range(T_GD):
-        U, aux = update(U, aux, mg)
+    for tau in range(T_GD):
+        if xs is None:
+            U, aux = update(U, aux, mg)
+        else:
+            U, aux = update(U, aux, mg, xs[tau])
         if U_star is not None:
             sd.append(subspace_distance(U, U_star))
             spread.append(consensus_spread(mesh.all_gather(U)))

@@ -37,10 +37,17 @@ column rides the same matrix), the exact ``Weff @ flat`` chain on
 torch-ref and for float64, so that an always-on mask reproduces dense
 gossip bit for bit.
 
+On the mesh the compressed rules keep, beside the node's own public
+copy, a copy of each shift-neighbour's (built from that neighbour's
+payloads alone); a round refreshes the own copy, sends the compact
+payload (:meth:`NodeMesh.ppermute_many` of its leaves), applies what
+arrives to the stored copies and combines the exact self block with
+them in one :func:`combine_blocks`.  The masked rules derive the node's
+(K+1,) combine weights from the iteration's mask on the device.
+
 Not ported yet, and raising where a caller would reach them: the sparse
-tier (padded-COO segment-sum rounds above ``SPARSE_MIN_NODES``), the
-virtual-node mesh tier (``VirtualTopology``), and the compressed and
-masked rules' mesh mixers.
+tier (padded-COO segment-sum rounds above ``SPARSE_MIN_NODES``) and the
+virtual-node mesh tier (``VirtualTopology``).
 """
 from __future__ import annotations
 
@@ -277,17 +284,23 @@ class CombineRule:
             return shifts_, tuple(float(x) for x in table[0])
         return shifts_, table
 
+    @staticmethod
+    def _node_weights(placed, mesh, backend: str, dtype):
+        """This node's combine weights from :func:`place_weights`'s pair:
+        the float32 ones where the kernel combines, else the exact ones;
+        a per-node table's row indexed by the node's rank on the device,
+        never read back to the host."""
+        exact, f32 = placed
+        w = f32 if _fused_wanted(backend, dtype) else exact
+        if not isinstance(w, tuple) and w.ndim == 2:
+            w = w[mesh.axis_index()]
+        return w
+
     @classmethod
     def _mesh_round(cls, z, mesh, shifts, placed, backend: str):
         """One gossip round on the mesh: the K neighbour blocks fetched by
-        ``ppermute``, then ONE (K+1)-way combine (the kernel on cuda).
-        ``placed`` is :func:`place_weights`'s pair; a per-node table is
-        indexed by the node's rank on the device, never read back to the
-        host."""
-        exact, f32 = placed
-        w = f32 if _fused_wanted(backend, z.dtype) else exact
-        if not isinstance(w, tuple) and w.ndim == 2:
-            w = w[mesh.axis_index()]
+        ``ppermute``, then ONE (K+1)-way combine (the kernel on cuda)."""
+        w = cls._node_weights(placed, mesh, backend, z.dtype)
         nbrs = mesh.ppermute_many(z, shifts)
         return combine_blocks(z, nbrs, w, backend=backend)
 
@@ -589,6 +602,15 @@ class CompressedGossipCombine(GossipCombine):
         xhat = torch.zeros_like(Z_nodes)
         return (xhat, 0) if self._stochastic(**kw) else xhat
 
+    def init_mesh_state(self, z_local, n_shifts: int, **kw):
+        """A rank's mesh state: ``(x̂_own (1, d, r), x̂_nbrs (n_shifts, 1,
+        d, r))`` — the node's public copy and its copy of each
+        shift-neighbour's (what that neighbour's payloads have built up),
+        all zero — plus the round counter for the stochastic rules."""
+        own = torch.zeros_like(z_local[None])
+        nbrs = own.new_zeros((n_shifts,) + tuple(own.shape))
+        return (own, nbrs, 0) if self._stochastic(**kw) else (own, nbrs)
+
     def _stochastic(self, **kw) -> bool:
         return False
 
@@ -600,8 +622,8 @@ class CompressedGossipCombine(GossipCombine):
 
     def make_mesh_mixer(self, mesh, T_con, shifts=(-1, 1), self_weight=None,
                         *, W=None, backend="torch-ref"):
-        raise TypeError(f"combine rule {self.name!r} is stateful; its mesh "
-                        f"state mixer comes with a later slice of the port")
+        raise TypeError(f"combine rule {self.name!r} is stateful; use "
+                        f"make_mesh_state_mixer / init_mesh_state")
 
     def make_sim_state_mixer(self, W, T_con: int, *,
                              backend: str = "torch-ref", **kw) -> Callable:
@@ -643,6 +665,53 @@ class CompressedGossipCombine(GossipCombine):
                 Z = Z2
                 state = (xhat2, count + 1) if stochastic else xhat2
             return Z, state
+        return mix
+
+    def make_mesh_state_mixer(self, mesh, T_con: int, shifts=(-1, 1),
+                              self_weight: float | None = None, *, W=None,
+                              backend: str = "torch-ref",
+                              **kw) -> Callable:
+        """Per-rank closure ``(z (d, r), state) ↦ (z', state')`` with
+        ``state`` from :meth:`init_mesh_state`.  Each round: ``refresh``
+        of the node's own copy (node id = the rank, so the stochastic
+        wire draws the simulator's dither for this node), ONE
+        ``ppermute_many`` of the payload's leaves over the distinct
+        shifts, ``apply`` to each stored neighbour copy, then ONE
+        (K+1)-way combine of the exact self block and the K refreshed
+        copies (one ``gossip_combine`` launch on cuda).
+        ``consensus_gamma`` relaxes each round as on the simulator
+        (γ = 1 skipped)."""
+        gamma = float(kw.pop("consensus_gamma", 1.0))
+        stochastic = self._stochastic(**kw)
+        shifts_, weights = self._mesh_weights(mesh.size, shifts, self_weight,
+                                              W)
+        if T_con == 0:
+            return lambda z, state: (z, state)
+        placed = place_weights(weights, mesh.device)
+        ids = torch.tensor([mesh.axis_index()], device=mesh.device)
+
+        def mix(z, state):
+            params = self.resolve_params(z.shape[0], z.shape[1], **kw)
+            w = self._node_weights(placed, mesh, backend, z.dtype)
+            for _ in range(T_con):
+                own, copies = state[:2]
+                count = state[2] if stochastic else None
+                payload, own2 = self.refresh(z[None], own, ids, count,
+                                             backend=backend, **params)
+                recv = mesh.ppermute_many(payload, shifts_)
+                copies2 = torch.stack([
+                    self.apply(tuple(leaf[k] for leaf in recv), copies[k],
+                               backend=backend, **params)
+                    for k in range(len(shifts_))]) if shifts_ else copies
+                # the node's own block goes in exact, its neighbours as
+                # their refreshed public copies
+                z2 = combine_blocks(z, copies2[:, 0], w, backend=backend)
+                if gamma != 1.0:
+                    z2 = z + gamma * (z2 - z)      # CHOCO relaxation
+                z = z2
+                state = ((own2, copies2, count + 1) if stochastic
+                         else (own2, copies2))
+            return z, state
         return mix
 
 
@@ -858,8 +927,7 @@ class MaskedGossipCombine(GossipCombine):
     (they would silently drop the mask) — drivers use the ``*_masked_*``
     forms and pass the (L,) mask of the CURRENT outer iteration (all
     T_con rounds of one iteration share it; node churn is an
-    outer-iteration phenomenon, not a per-round one).  The masked mesh
-    mixers come with a later slice of the port."""
+    outer-iteration phenomenon, not a per-round one)."""
 
     def make_sim_mixer(self, W, T_con, *, backend="torch-ref"):
         raise TypeError(f"combine rule {self.name!r} is availability-"
@@ -870,19 +938,44 @@ class MaskedGossipCombine(GossipCombine):
         raise TypeError(f"combine rule {self.name!r} is availability-"
                         f"masked; use make_mesh_masked_mixer")
 
-    def make_mesh_masked_mixer(self, mesh, T_con, shifts=(-1, 1),
-                               self_weight=None, *, W=None,
-                               backend="torch-ref"):
-        raise NotImplementedError(
-            f"combine rule {self.name!r}: the masked mesh mixers come with "
-            f"a later slice of the port; use substrate='simulator'")
-
-    make_mesh_masked_state_mixer = make_mesh_masked_mixer
-
     def signature(self, T_con: int, **params) -> CommSignature:
         # static pricing cannot see the mask: full-participation worst
         # case (the event-driven clock measures the real cost)
         return CommSignature("gossip", T_con)
+
+    # ---------------------------------------------------- mesh shared
+
+    @classmethod
+    def _mesh_node(cls, mesh, shifts_, weights, backend: str):
+        """What a masked mesh mixer fixes when it is built, on the node's
+        device: ``node(m, dtype) -> (w, keep)``, the node's dense (K+1,)
+        weight row (float32 where the kernel combines, else exact) and
+        the liveness of each of its shift links under the (L,) mask ``m``,
+        keep_k = m_g · m_{(g+s_k) mod L}, in ``w``'s dtype.  Both stay on
+        the device: the mask is indexed by the rank there and never read
+        back to the host."""
+        placed = place_weights(weights, mesh.device)
+        if isinstance(placed[0], tuple):
+            placed = (torch.tensor(placed[0], dtype=torch.float64,
+                                   device=mesh.device), placed[1])
+        g = mesh.axis_index()
+        nbr = torch.tensor([(g + s) % mesh.size for s in shifts_],
+                           dtype=torch.long, device=mesh.device)
+
+        def node(m, dtype):
+            w = cls._node_weights(placed, mesh, backend, dtype)
+            mf = m.to(w.dtype)
+            return w, mf[g] * mf[nbr]
+        return node
+
+    @staticmethod
+    def _fold(w, keep):
+        """The node's row of :func:`masked_mixing_matrix` in shift form:
+        dead links zeroed, their weight folded into the self weight.
+        Under a full mask ``w·1`` and ``w₀ + 0`` keep the dense weights
+        bit for bit."""
+        return torch.cat([w[:1] + torch.sum(w[1:] * (1.0 - keep)),
+                          w[1:] * keep])
 
 
 class PartialGossipCombine(MaskedGossipCombine):
@@ -920,6 +1013,27 @@ class PartialGossipCombine(MaskedGossipCombine):
             return flat.reshape(Z.shape)
         return mix
 
+    def make_mesh_masked_mixer(self, mesh, T_con: int, shifts=(-1, 1),
+                               self_weight: float | None = None, *, W=None,
+                               backend: str = "torch-ref") -> Callable:
+        """Per-rank closure ``(z (d, r), m (L,)) ↦ z'``: T_con rounds,
+        each the K neighbour blocks by ``ppermute`` and ONE combine under
+        the node's folded weights (one ``gossip_combine`` launch on
+        cuda), derived from the iteration's mask once a call."""
+        shifts_, weights = self._mesh_weights(mesh.size, shifts, self_weight,
+                                              W)
+        if T_con == 0:
+            return lambda z, m: z
+        node = self._mesh_node(mesh, shifts_, weights, backend)
+
+        def mix(z, m):
+            w_eff = self._fold(*node(m, z.dtype))
+            for _ in range(T_con):
+                nbrs = mesh.ppermute_many(z, shifts_)
+                z = combine_blocks(z, nbrs, w_eff, backend=backend)
+            return z
+        return mix
+
 
 class StaleGossipCombine(MaskedGossipCombine):
     """``stale_gossip`` — dropout tolerance on the reference-copy
@@ -941,6 +1055,12 @@ class StaleGossipCombine(MaskedGossipCombine):
         """Stacked public copies x̂ (L, d, r), zero — the network starts
         with no beliefs, exactly like the compressed rules."""
         return torch.zeros_like(Z_nodes)
+
+    def init_mesh_state(self, z_local, n_shifts: int = 0, **kw):
+        """A rank's mesh state: its own public copy (1, d, r), zero.  No
+        neighbour copies are kept: a round's payload IS the sender's
+        current copy."""
+        return torch.zeros_like(z_local[None])
 
     def make_sim_masked_state_mixer(self, W, T_con: int, *,
                                     backend: str = "torch-ref",
@@ -972,6 +1092,36 @@ class StaleGossipCombine(MaskedGossipCombine):
                 # correction is needed; down nodes freeze outright
                 Z = torch.where(mrow, Z2, Z)
             return Z, xhat
+        return mix
+
+    def make_mesh_masked_state_mixer(self, mesh, T_con: int, shifts=(-1, 1),
+                                     self_weight: float | None = None, *,
+                                     W=None, backend: str = "torch-ref",
+                                     **kw) -> Callable:
+        """Per-rank closure ``(z, x̂_own, m) ↦ (z', x̂_own')``: each round
+        a live node publishes z into its copy and every node sends its
+        copy (a down node's carries its last-published value); round 0
+        combines the exact self block with the K delivered copies under
+        the dense weights (the queued stale packet delivers once), later
+        rounds under the folded ones; a down node freezes."""
+        shifts_, weights = self._mesh_weights(mesh.size, shifts, self_weight,
+                                              W)
+        if T_con == 0:
+            return lambda z, state, m: (z, state)
+        node = self._mesh_node(mesh, shifts_, weights, backend)
+        g = mesh.axis_index()
+
+        def mix(z, own, m):
+            w, keep = node(m, z.dtype)
+            w_fold = self._fold(w, keep)
+            live = m.to(torch.bool)[g]
+            for rd in range(T_con):
+                own = torch.where(live, z[None], own)      # publish if live
+                nbrs = mesh.ppermute_many(own[0], shifts_)
+                z2 = combine_blocks(z, nbrs, w if rd == 0 else w_fold,
+                                    backend=backend)
+                z = torch.where(live, z2, z)               # down: freeze
+            return z, own
         return mix
 
 
@@ -1010,6 +1160,51 @@ class PushSumGossipCombine(MaskedGossipCombine):
                     flat, wv = C @ flat, C @ wv
             out = flat / torch.where(wv > 0, wv, torch.ones_like(wv))
             return out.reshape(Z.shape)
+        return mix
+
+    def make_mesh_masked_mixer(self, mesh, T_con: int, shifts=(-1, 1),
+                               self_weight: float | None = None, *, W=None,
+                               backend: str = "torch-ref") -> Callable:
+        """Per-rank push-sum ``(z (d, r), m (L,)) ↦ z'``: the sender
+        normalizes by its OWN column's live mass c (from its row, which
+        is its column because W must be symmetric), sends the pre-scaled
+        pair (z/c, w/c) in one ``ppermute_many``, and receivers combine
+        under their masked row (``gossip_combine`` on cuda for z, the
+        chain for the weight); after T_con rounds z/w.  Raises
+        ValueError on an asymmetric W, or on shifts not closed under
+        negation: the sender-side column exchange that those would need
+        is not implemented."""
+        if W is not None:
+            Wn = W.detach().cpu().numpy() if torch.is_tensor(W) \
+                else np.asarray(W)
+            if not np.allclose(Wn, Wn.T):
+                raise ValueError(
+                    "push_sum_gossip's mesh lowering computes each "
+                    "sender's column normalizer from its own row, which "
+                    "requires a symmetric mixing matrix")
+        elif set(shifts) != {-s for s in shifts}:
+            raise ValueError(
+                f"push_sum_gossip's mesh lowering needs symmetric "
+                f"circulant shifts (closed under negation), got "
+                f"{tuple(shifts)}")
+        shifts_, weights = self._mesh_weights(mesh.size, shifts, self_weight,
+                                              W)
+        if T_con == 0:
+            return lambda z, m: z
+        node = self._mesh_node(mesh, shifts_, weights, backend)
+
+        def mix(z, m):
+            w, keep = node(m, z.dtype)
+            c = w[0] + torch.sum(w[1:] * keep)     # own column's live mass
+            c = torch.where(c > 0, c, torch.ones_like(c)).to(z.dtype)
+            w_eff = torch.cat([w[:1], w[1:] * keep])
+            wv = torch.ones((1,), dtype=z.dtype, device=z.device)
+            for _ in range(T_con):
+                zs, ws = z / c, wv / c             # pre-scaled payload
+                nz, nw = mesh.ppermute_many((zs, ws), shifts_)
+                z = combine_blocks(zs, nz, w_eff, backend=backend)
+                wv = combine_blocks(ws, nw, w_eff, backend="torch-ref")
+            return z / torch.where(wv > 0, wv, torch.ones_like(wv))
         return mix
 
 

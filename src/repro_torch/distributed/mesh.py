@@ -7,7 +7,8 @@ runs inside ``shard_map``; here a node is a rank of an initialized
 ``torch.distributed`` process group, and every rank runs the same
 program on its own node (SPMD).  :class:`NodeMesh` gives that program
 the mesh axis's collectives: its index, ``ppermute`` over cyclic
-shifts (:meth:`NodeMesh.ppermute_many`), ``psum`` and ``all_gather``.
+shifts (:meth:`NodeMesh.ppermute_many`, one tensor or a tuple of them:
+a compressed payload, push-sum's pair), ``psum`` and ``all_gather``.
 
 Transport.  A ``gloo`` group moves CPU tensors only, so on such a group
 CUDA tensors are staged through host buffers (a copy to the host before
@@ -15,7 +16,8 @@ the send, back to the card after the receive), while the node's compute
 stays on its device.  An ``nccl`` group passes CUDA tensors as they are.
 The choice follows the group's backend and is reported as
 :attr:`NodeMesh.transport`, never guessed.  :data:`TRANSPORT` adds up
-the host seconds a rank spends in each half of its collectives.
+the host seconds a rank spends in each half of its collectives, and
+:data:`SENDS` its point-to-point sends.
 
 :func:`spawn` starts one process per rank (``spawn`` start method, a
 ``FileStore`` rendezvous in a temporary directory, no TCP port), runs a
@@ -44,6 +46,10 @@ import torch.distributed as dist
 # the host first waits for the work that produced the tensor), "wire_s"
 # the backend's exchange itself.
 TRANSPORT: collections.Counter = collections.Counter()
+# Point-to-point sends of this process ("p2p"), one a leaf a shift of
+# NodeMesh.ppermute_many: R·K·wire an outer iteration of a gossip
+# program (the DispatchBudget's wire_mesh).
+SENDS: collections.Counter = collections.Counter()
 
 
 class NodeMesh:
@@ -108,27 +114,35 @@ class NodeMesh:
         """For each shift s, the block of node (g + s) mod L, received by
         every node g (``lax.ppermute`` with ``perm = [(i, (i − s) % L)]``),
         all in flight together in one ``batch_isend_irecv``, stacked: →
-        (len(shifts), *z.shape).  Shift k's messages carry tag k, so two
-        shifts between the same pair of ranks cannot be confused.  A
-        shift that is a multiple of L is the node's own block, copied
-        without a message."""
-        send = self._out(z)
-        recv = torch.empty((len(shifts),) + tuple(send.shape),
-                           dtype=send.dtype, device=send.device)
+        (len(shifts), *z.shape).  ``z`` may be a tuple of tensors (a
+        payload's leaves, each in its own dtype); then a tuple of such
+        stacks comes back.  The message of shift k and leaf i carries tag
+        k·(leaves) + i, so no two messages between the same pair of ranks
+        can be confused.  A shift that is a multiple of L is the node's
+        own block, copied without a message."""
+        leaves = z if isinstance(z, tuple) else (z,)
+        sends = [self._out(x) for x in leaves]
+        recvs = [torch.empty((len(shifts),) + tuple(x.shape), dtype=x.dtype,
+                             device=x.device) for x in sends]
         ops = []
         for k, s in enumerate(shifts):
-            if s % self.size == 0:
-                recv[k].copy_(send)
-                continue
-            ops.append(dist.P2POp(dist.isend, send, (self.rank - s) % self.size,
-                                  self.group, tag=k))
-            ops.append(dist.P2POp(dist.irecv, recv[k],
-                                  (self.rank + s) % self.size, self.group,
-                                  tag=k))
+            for i, (send, recv) in enumerate(zip(sends, recvs)):
+                if s % self.size == 0:
+                    recv[k].copy_(send)
+                    continue
+                tag = k * len(leaves) + i
+                ops.append(dist.P2POp(dist.isend, send,
+                                      (self.rank - s) % self.size,
+                                      self.group, tag=tag))
+                ops.append(dist.P2POp(dist.irecv, recv[k],
+                                      (self.rank + s) % self.size,
+                                      self.group, tag=tag))
         if ops:
+            SENDS["p2p"] += len(ops) // 2
             self._timed(lambda: [req.wait()
                                  for req in dist.batch_isend_irecv(ops)])
-        return self._back(recv)
+        out = tuple(self._back(r) for r in recvs)
+        return out if isinstance(z, tuple) else out[0]
 
     def psum(self, z):
         """The sum of every node's ``z`` (``lax.psum``), the same on

@@ -257,14 +257,19 @@ __device__ void form_resid(TaskSmem<RC>& s, int n, int r) {
 
 // The gradient tile X_t^T resid b^T (d x r): threads along d, so a warp
 // reads 32 neighbouring columns of a row of X_t (coalesced); the ragged
-// end of d is masked by the loop bound.
+// end of d is masked by the loop bound.  The sum over the n rows runs in
+// f64 (each f32 product is exact there) and is rounded once: these
+// kernels take the tasks past the resident form's shared memory, the
+// longest sums, where an f32 running sum drifts past 1e-4 at n = 400.
 template <typename T, int RC>
 __device__ void write_tiles(const T* __restrict__ x, TaskSmem<RC>& s,
                             float* __restrict__ out, int n, int d, int r) {
   for (int j = threadIdx.x; j < d; j += kThreads) {
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i) acc += to_f32(x[(size_t)i * d + j]) * s.resid[i];
-    for (int k = 0; k < r; ++k) out[(size_t)j * r + k] = acc * s.b[k];
+    double acc = 0.0;
+    for (int i = 0; i < n; ++i)
+      acc += (double)to_f32(x[(size_t)i * d + j]) * (double)s.resid[i];
+    const float a = (float)acc;
+    for (int k = 0; k < r; ++k) out[(size_t)j * r + k] = a * s.b[k];
   }
 }
 

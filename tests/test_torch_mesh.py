@@ -395,22 +395,17 @@ def test_mesh_refusals(one_rank_group):
         spec.problem, n_folds=2))
     with pytest.raises(ValueError, match="sample splitting"):
         tapi.run_experiment(folded, device="cpu")
-    one = dataclasses.replace(spec, problem=dataclasses.replace(
-        spec.problem, L=1, T=2))
+    # the stateful and masked rules refuse the stateless mesh entry point
+    # (it would drop their state or their mask)
+    mesh = NodeMesh("cpu")
     for name in ("dif_topk", "dif_quantized", "dif_event"):
-        bad = dataclasses.replace(one, solver=tapi.SolverSpec(name=name,
-                                                              T_GD=2))
-        with pytest.raises(NotImplementedError, match="stateful"):
-            tapi.run_experiment(bad, device="cpu")
+        rule = tcons.get_rule(tapi.get_solver(name).combine)
+        with pytest.raises(TypeError, match="make_mesh_state_mixer"):
+            rule.make_mesh_mixer(mesh, 2)
     for name in ("dif_partial", "dif_stale", "dif_pushsum"):
-        bad = dataclasses.replace(one, solver=tapi.SolverSpec(name=name,
-                                                              T_GD=2))
-        with pytest.raises(NotImplementedError, match="masked mesh"):
-            tapi.run_experiment(bad, device="cpu")
-        # the lowering itself refuses the masked mixer kinds too
-        with pytest.raises(NotImplementedError, match="masked"):
-            tapi.get_solver(name).mesh_fn(None, None, None, None, eta=0.1,
-                                          T_GD=2)
+        rule = tcons.get_rule(tapi.get_solver(name).combine)
+        with pytest.raises(TypeError, match="availability-masked"):
+            rule.make_mesh_mixer(mesh, 2)
 
 
 def test_one_rank_mesh_gossip_and_mean(one_rank_group):

@@ -116,13 +116,14 @@ def test_specs_round_trip_between_packages():
 def test_later_slice_features_raise_not_implemented():
     spec = _port_spec(SPEC, None)
     for name in ("dif_partial", "dif_stale", "dif_pushsum"):
-        # registered on the simulator; the masked mesh mixers come later,
-        # and the mesh run refuses before it looks for a process group
+        # the masked trio lowers to the mesh too: outside a process group
+        # its mesh run stops where every program's does
         assert tapi.get_solver(name).takes_avail
+        assert tapi.get_solver(name).mesh_capable
         bad = dataclasses.replace(spec, substrate="mesh",
                                   solver=dataclasses.replace(spec.solver,
                                                              name=name))
-        with pytest.raises(NotImplementedError, match=name):
+        with pytest.raises(RuntimeError, match="process group"):
             tapi.run_experiment(bad, device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
         tapi.get_solver("no_such_solver")
