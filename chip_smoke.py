@@ -141,6 +141,23 @@ Phases, each printing one JSON line and raising on failure:
                its point-to-point sends against R·K·wire_mesh; ms per
                iteration labelled with the transport, staging and wire ms
                and sends per iteration;
+ 12b. virtual_mesh — the same twelve programs on the virtual-node tier:
+               VIRTUAL_RANKS = 4 gloo ranks on the one card, each holding
+               a block of 5 nodes (cross-rank classes (−1, 1, 2) of the
+               preset's W), in one spawn (VIRTUAL_TIMEOUT): dif_altgdmin
+               at the preset's T_GD = 500, the other stateless ones at
+               MESH_T_GD, the compressed and masked trios at
+               MESH_STATE_T_GD; held as in phase 12 (every rank equal to
+               rank 0, MESH_TOL against the simulator on the card,
+               dif_topk at k = 150 as in path B, dif_altgdmin's
+               convergence over the whole run), each rank's launches by
+               wrapper and CUDA kernel against the virtual
+               DispatchBudget (node_fused_iter once an iteration over the
+               block, compress_topk / int8_round_kernel once a round, no
+               gossip_combine, mix_rows or dequant_kernel, nothing else)
+               and its sends against R·K·wire_virtual; each program's
+               line carries phase 12's ms, staging and wire ms, sends an
+               iteration and spawn seconds beside its own;
  13. serving kernels — task_gram and task_grad_tiles (one basis shared by
                T tasks) against their plain versions at the serving
                phase's cohort (T = 64, n = 16, d = 600, r = 4), a serving
@@ -387,13 +404,15 @@ MASKED_SHRINK = 0.2
 
 # The mesh phase: every stateless program, its outer iterations, and
 # the seconds the 20 ranks get to report.  T_GD is cut from the preset's
-# 500 to 120 (≥ 101, for dif_altgdmin's decay check at iteration 100):
-# 20 ranks time-sharing one card take 0.15-0.41 s an iteration, so 500
-# iterations of the six programs would not fit the script's time limit
-# (PERF.md).
+# 500 to 50: 20 ranks time-sharing one card take 0.16-0.54 s an
+# iteration (PERF.md), so 500 iterations of the six programs would not
+# fit the script's time limit, and at 120 the whole script came within
+# 83 s of it on a slow host.  dif_altgdmin's decay is checked over the
+# run's halves, and over the preset's whole 500 iterations in the
+# virtual_mesh phase.
 MESH_SOLVERS = ("dif_altgdmin", "dec_altgdmin", "dgd_altgdmin",
                 "exact_diffusion", "beyond_central", "centralized_altgdmin")
-MESH_T_GD = 120
+MESH_T_GD = 50
 # The stateful and masked programs in the same spawn, with path B's knobs
 # and the masked phase's dropout: (solver, knobs, system, whether rank
 # 0's sd_max trace and final U_nodes and B_nodes are held to the
@@ -402,7 +421,11 @@ MESH_T_GD = 120
 # agreement reported with the first parting iteration, the final sd_max
 # within 10 %).  Their T_GD is cut from the preset's 500 to
 # MESH_STATE_T_GD for time: the wire-2 programs send twice the messages
-# of the stateless ones, whose iterations take 0.37-0.44 s on 20 ranks.
+# of the stateless ones, whose iterations take 0.37-0.54 s on 20 ranks.
+# Not below 30: dif_quantized's int8 rounding parts from the simulator's
+# on round-off, and its U_nodes come back within MESH_TOL only as the
+# run converges (on an H100: 1.3e-5 from the simulator's at 20
+# iterations, 4.5e-6 at 30).
 MESH_STATE_SOLVERS = (
     ("dif_topk", {"compression_k": 150}, None, False),
     ("dif_quantized", {"compression": "int8"}, None, True),
@@ -412,6 +435,12 @@ MESH_STATE_SOLVERS = (
     ("dif_pushsum", {}, MASKED_DROPOUT, True))
 MESH_STATE_T_GD = 30
 MESH_TIMEOUT = 600
+# The virtual_mesh phase: Experiment 1 on VIRTUAL_RANKS gloo ranks on the
+# one card, a block of L / VIRTUAL_RANKS = 5 nodes a rank (cross-rank
+# classes (-1, 1, 2) of its W), the same programs as the mesh phase,
+# dif_altgdmin at the preset's whole T_GD = 500.
+VIRTUAL_RANKS = 4
+VIRTUAL_TIMEOUT = 300
 # rank 0's final U_nodes and B_nodes against the simulator's on the card:
 # the trajectory tolerance the sd_max traces are held to
 MESH_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -1344,29 +1373,16 @@ def roll_form(torch):
     return launches["gossip_combine"]
 
 
-def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD,
-               state_T_GD=MESH_STATE_T_GD, L=20, timeout=MESH_TIMEOUT):
-    """Phase 12: all twelve programs on an L-rank gloo mesh on the one
-    card, in one spawn, each rank running its node through
-    run_experiment(substrate="mesh"): the six stateless ones (T_GD), the
-    compressed trio and the masked trio under MASKED_DROPOUT
-    (state_T_GD).  Each held against the port's simulator on the card
-    under the same schedule; each rank's launches by kernel against the
-    program's DispatchBudget, its sends against R·K·wire_mesh.  The
-    kernels are built already (phase 2), so ranks only load them.
-    Returns rank 0's launches of gossip_combine (dif_altgdmin's run, and
-    every program's), compress_topk (dif_topk's) and dequant
-    (dif_quantized's, with its CUDA launches by kernel)."""
-    from repro_torch.api import SystemSpec, run_experiment
-    from repro_torch.api.runner import run_on_mesh
-    from repro_torch.core.program import get_program
-    from repro_torch.distributed.consensus import (get_rule,
-                                                   mesh_weights_from_matrix)
-    from repro_torch.distributed.mesh import spawn
+def program_runs(spec, T_GD, state_T_GD, *, full=()):
+    """The mesh phases' runs, all twelve programs: (solver, knobs,
+    system, held, T_GD) — the six stateless ones at ``T_GD`` (the
+    programs of ``full`` at the preset's own), then MESH_STATE_SOLVERS
+    at ``state_T_GD`` — and their mesh specs."""
+    from repro_torch.api import SystemSpec
 
-    require(spec.problem.L == L, f"the preset has L={spec.problem.L}")
-    device = mat.Xg.device.type
-    runs = [(name, {}, None, True, T_GD) for name in MESH_SOLVERS] + [
+    runs = [(name, {}, None, True,
+             spec.solver.T_GD if name in full else T_GD)
+            for name in MESH_SOLVERS] + [
         (name, kw, system, held, state_T_GD)
         for name, kw, system, held in MESH_STATE_SOLVERS]
     specs = [dataclasses.replace(
@@ -1374,55 +1390,82 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD,
         system=SystemSpec(**system) if system is not None else None,
         solver=dataclasses.replace(spec.solver, name=name, T_GD=T, **kw))
         for name, kw, system, _, T in runs]
-    t0 = time.perf_counter()
-    ranks = spawn(run_on_mesh, L, args=(device, [s.to_dict() for s in specs],
-                                        0),
-                  backend="gloo", device=device, timeout=timeout)
-    spawn_s = time.perf_counter() - t0
-    K = {"W": len(mesh_weights_from_matrix(mat.W)[0]),
-         "adj": len(mesh_weights_from_matrix(mat.adj)[0]), "none": 0}
+    return runs, specs
+
+
+def hold_programs(phase, spec, mat, runs, specs, ranks, *, tier, K, spawn_s,
+                  extra=None):
+    """Hold each program's mesh run (``ranks``, every rank's results of
+    run_on_mesh) as phases 12 and 12b do, emit a ``phase`` line a
+    program, and raise on any failure.  ``tier`` is the DispatchBudget
+    substrate ("mesh" or "virtual"), ``K`` the shift classes by the
+    program's topology; ``extra(name)`` adds fields to a program's line.
+    Returns rank 0's launches (gossip_combine's by program,
+    compress_topk's and dequant's) and each program's timings."""
+    from repro_torch.api import run_experiment
+    from repro_torch.core.program import get_program
+    from repro_torch.distributed.consensus import get_rule
+
+    n_ranks = len(ranks)
+    L = spec.problem.L
     failures = []
-    out = {"gossip_combine_by_program": {}}
+    out = {"gossip_combine_by_program": {}, "per_program": {}}
     for i, (s, (name, kw, system, held, T)) in enumerate(zip(specs, runs)):
         hw = ranks[0][i]
         label = f"{name} {kw}" if kw else name
-        for g in range(1, L):
+        for g in range(1, n_ranks):
             require(np.array_equal(ranks[g][i]["U_nodes"], hw["U_nodes"])
                     and np.array_equal(ranks[g][i]["B_nodes"],
                                        hw["B_nodes"])
                     and np.array_equal(ranks[g][i]["sd_max"], hw["sd_max"]),
-                    f"mesh {label}: rank {g}'s result differs from rank 0's")
+                    f"{phase} {label}: rank {g}'s result differs from rank "
+                    f"0's")
         prog = get_program(name)
         k = K[prog.topology]
         rounds = get_rule(prog.combine).signature(s.solver.T_con).rounds_per_iter
         budget = prog.dispatch_budget
-        per_iter = budget.per_iter("mesh", rounds, k, 1)
+        per_iter = budget.per_iter(tier, rounds, k, 1)
         n_round = T * rounds if prog.mixer != "central" else 0
-        want = {"node_fused_iter": T, "node_task_gram": 1,
-                "gossip_combine": n_round,
-                "compress_topk": n_round if name == "dif_topk" else 0,
-                # the int8 round, then one decode a shift
-                "dequant": n_round * (1 + k) if name == "dif_quantized"
-                else 0}
-        want_kernels = {combine_form(k): n_round} if n_round else {}
-        if name == "dif_quantized":
-            want_kernels.update(int8_round_kernel=n_round,
-                                dequant_kernel=n_round * k)
-        want_sends = n_round * k * budget.wire_mesh
-        for g in range(L):
+        if tier == "mesh":
+            want = {"node_fused_iter": T, "node_task_gram": 1,
+                    "gossip_combine": n_round,
+                    "compress_topk": n_round if name == "dif_topk" else 0,
+                    # the int8 round, then one decode a shift
+                    "dequant": n_round * (1 + k) if name == "dif_quantized"
+                    else 0}
+            want_kernels = {combine_form(k): n_round} if n_round else {}
+            if name == "dif_quantized":
+                want_kernels.update(int8_round_kernel=n_round,
+                                    dequant_kernel=n_round * k)
+            wire = budget.wire_mesh
+        else:
+            # the virtual combine is segment sums and whole-block sends:
+            # no mixing kernel; a compressed rule refreshes its whole
+            # block in one launch a round, and ships it refreshed
+            want = {"node_fused_iter": T, "node_task_gram": 1,
+                    "gossip_combine": 0, "mix_rows": 0,
+                    "compress_topk": n_round if name == "dif_topk" else 0,
+                    "dequant": n_round if name == "dif_quantized" else 0}
+            want_kernels = ({"int8_round_kernel": n_round,
+                             "dequant_kernel": 0}
+                            if name == "dif_quantized" else {})
+            wire = budget.wire_virtual
+        want_sends = n_round * k * wire
+        for g in range(n_ranks):
             got = ranks[g][i]["launches"]
             got_k = ranks[g][i]["kernel_launches"]
             require(all(got.get(key, 0) == v for key, v in want.items())
                     and sum(got.get(key, 0) for key in want
                             if key != "node_task_gram") == per_iter * T
+                    and (tier == "mesh" or set(got) <= set(want))
                     and all(got_k.get(key, 0) == v
                             for key, v in want_kernels.items()),
-                    f"mesh {label} rank {g}: launches {got}, CUDA launches "
-                    f"{got_k}, want {want} and {want_kernels} ({per_iter} an "
-                    f"iteration by the DispatchBudget)")
+                    f"{phase} {label} rank {g}: launches {got}, CUDA "
+                    f"launches {got_k}, want {want} and {want_kernels} "
+                    f"({per_iter} an iteration by the DispatchBudget)")
             require(ranks[g][i]["sends"] == want_sends,
-                    f"mesh {label} rank {g}: {ranks[g][i]['sends']} sends, "
-                    f"want R·K·wire_mesh·T_GD = {want_sends}")
+                    f"{phase} {label} rank {g}: {ranks[g][i]['sends']} "
+                    f"sends, want R·K·wire·T_GD = {want_sends}")
         out["gossip_combine_by_program"][name] = hw["launches"].get(
             "gossip_combine", 0)
         if name == "dif_altgdmin":
@@ -1453,27 +1496,33 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD,
                 and hw["U_nodes"].shape == tuple(mat.init.U0.shape)
                 and bool(np.isfinite(hw["U_nodes"]).all())
                 and bool(np.isfinite(hw["B_nodes"]).all()),
-                f"mesh {label}: outputs of the wrong shape or not finite")
+                f"{phase} {label}: outputs of the wrong shape or not finite")
         final_rel = abs(float(sd[-1]) - float(sd_sim[-1])) / float(sd_sim[-1])
-        emit("mesh", solver=name, knobs=kw,
+        timing = {
+            "T_GD": T, "ms_per_iter": hw["seconds"] / T * 1e3,
+            "stage_ms_per_iter": hw["transport_s"].get("stage_s", 0.0)
+            / T * 1e3,
+            "wire_ms_per_iter": hw["transport_s"].get("wire_s", 0.0)
+            / T * 1e3,
+            "sends_per_iter": hw["sends"] / T}
+        out["per_program"][name] = timing
+        emit(phase, solver=name, knobs=kw,
              system=(dataclasses.asdict(s.system) if s.system is not None
                      else None),
              live_share=(float(s.system.availability_mask(T, L).mean())
                          if s.system is not None else None),
-             L=L, T_GD=T, T_con=s.solver.T_con,
+             L=L, ranks=n_ranks, T_GD=T, T_con=s.solver.T_con,
              preset_T_GD=spec.solver.T_GD,
              T_GD_cut=(f"from the preset's {spec.solver.T_GD} to fit the "
                        f"script's time limit" if T != spec.solver.T_GD
                        else None),
              transport=hw["transport"],
-             ms_per_iter=hw["seconds"] / T * 1e3,
+             ms_per_iter=timing["ms_per_iter"],
              ms_per_iter_label=f"rank 0, {hw['transport']}",
-             stage_ms_per_iter=hw["transport_s"].get("stage_s", 0.0)
-             / T * 1e3,
-             wire_ms_per_iter=hw["transport_s"].get("wire_s", 0.0)
-             / T * 1e3,
-             sends_per_iter=hw["sends"] / T,
-             wire_mesh=budget.wire_mesh, shifts=k,
+             stage_ms_per_iter=timing["stage_ms_per_iter"],
+             wire_ms_per_iter=timing["wire_ms_per_iter"],
+             sends_per_iter=timing["sends_per_iter"],
+             **{f"wire_{tier}": wire}, shifts=k,
              dispatch_budget_per_iter=per_iter,
              launches_rank0=hw["launches"],
              kernel_launches_rank0=hw["kernel_launches"],
@@ -1485,7 +1534,7 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD,
              first_parting_iteration=first,
              U_nodes_vs_simulator_max_abs_diff=mats["U_nodes"][1],
              B_nodes_vs_simulator_max_abs_diff=mats["B_nodes"][1],
-             spawn_s=spawn_s)
+             spawn_s=spawn_s, **(extra(name) if extra else {}))
         if held:
             if not ok:
                 failures.append(f"{label}: sd_max disagrees with the "
@@ -1502,16 +1551,93 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD,
             failures.append(f"{label}: sd_max did not fall, {sd[0]:.3e} → "
                             f"{sd[-1]:.3e}")
         if name == "dif_altgdmin":
-            if not (T > 100 and sd[50] < 0.5 * sd[0]
-                    and sd[100] < 0.5 * sd[50]):
+            # halving or better over each of two spans of h iterations
+            h = min(50, (T - 1) // 2)
+            if not (h >= 20 and sd[h] < 0.5 * sd[0]
+                    and sd[2 * h] < 0.5 * sd[h]):
                 failures.append(f"dif_altgdmin: no geometric decay, sd_max "
-                                f"{sd[0]:.3e} / {sd[min(50, T - 1)]:.3e} "
-                                f"/ {sd[min(100, T - 1)]:.3e}")
+                                f"{sd[0]:.3e} / {sd[h]:.3e} / "
+                                f"{sd[2 * h]:.3e}")
             if T == 500 and not sd[-1] < 1e-3 * sd[0]:
                 failures.append(f"dif_altgdmin did not converge: {sd[0]:.3e}"
                                 f" → {sd[-1]:.3e}")
-    require(not failures, "; ".join(failures))
+    require(not failures, f"{phase}: " + "; ".join(failures))
+    out["spawn_s"] = spawn_s
     return out
+
+
+def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD,
+               state_T_GD=MESH_STATE_T_GD, L=20, timeout=MESH_TIMEOUT):
+    """Phase 12: all twelve programs on an L-rank gloo mesh on the one
+    card, in one spawn, each rank running its node through
+    run_experiment(substrate="mesh"): the six stateless ones (T_GD), the
+    compressed trio and the masked trio under MASKED_DROPOUT
+    (state_T_GD).  Each held against the port's simulator on the card
+    under the same schedule; each rank's launches by kernel against the
+    program's DispatchBudget, its sends against R·K·wire_mesh.  The
+    kernels are built already (phase 2), so ranks only load them.
+    Returns rank 0's launches of gossip_combine (dif_altgdmin's run, and
+    every program's), compress_topk (dif_topk's) and dequant
+    (dif_quantized's, with its CUDA launches by kernel), and each
+    program's timings."""
+    from repro_torch.api.runner import run_on_mesh
+    from repro_torch.distributed.consensus import mesh_weights_from_matrix
+    from repro_torch.distributed.mesh import spawn
+
+    require(spec.problem.L == L, f"the preset has L={spec.problem.L}")
+    device = mat.Xg.device.type
+    runs, specs = program_runs(spec, T_GD, state_T_GD)
+    t0 = time.perf_counter()
+    ranks = spawn(run_on_mesh, L, args=(device, [s.to_dict() for s in specs],
+                                        0),
+                  backend="gloo", device=device, timeout=timeout)
+    spawn_s = time.perf_counter() - t0
+    K = {"W": len(mesh_weights_from_matrix(mat.W)[0]),
+         "adj": len(mesh_weights_from_matrix(mat.adj)[0]), "none": 0}
+    return hold_programs("mesh", spec, mat, runs, specs, ranks, tier="mesh",
+                         K=K, spawn_s=spawn_s)
+
+
+def virtual_mesh_phase(torch, spec, mat, mesh_out, *, D=VIRTUAL_RANKS,
+                       timeout=VIRTUAL_TIMEOUT):
+    """Phase 12b: all twelve programs on the virtual-node tier, D gloo
+    ranks on the one card each holding a block of L / D nodes, in one
+    spawn: dif_altgdmin at the preset's T_GD, the other stateless ones
+    at MESH_T_GD, the compressed and masked trios at MESH_STATE_T_GD.
+    Held as phase 12 holds them, against the virtual DispatchBudget
+    (no gossip_combine, mix_rows or dequant_kernel) and R·K·wire_virtual
+    sends, K the cross-rank edge classes; each program's line carries
+    phase 12's timings of the same program beside its own (``mesh_*``,
+    from ``mesh_out``)."""
+    from repro_torch.api.runner import run_on_mesh
+    from repro_torch.distributed.consensus import (VirtualTopology,
+                                                   neighbor_average_matrix)
+    from repro_torch.distributed.mesh import spawn
+
+    L = spec.problem.L
+    require(L % D == 0, f"{D} ranks do not divide L={L}")
+    device = mat.Xg.device.type
+    runs, specs = program_runs(spec, MESH_T_GD, MESH_STATE_T_GD,
+                               full=("dif_altgdmin",))
+    vts = {"W": VirtualTopology.from_weights(mat.W.cpu().numpy(), D),
+           "adj": VirtualTopology.from_weights(
+               neighbor_average_matrix(mat.adj).cpu().numpy(), D)}
+    t0 = time.perf_counter()
+    ranks = spawn(run_on_mesh, D, args=(device, [s.to_dict() for s in specs],
+                                        0),
+                  backend="gloo", device=device, timeout=timeout)
+    spawn_s = time.perf_counter() - t0
+    K = {"W": len(vts["W"].dev_shifts), "adj": len(vts["adj"].dev_shifts),
+         "none": 0}
+
+    def beside(name):
+        m = mesh_out["per_program"][name]
+        return {"block": L // D, "dev_shifts": list(vts["W"].dev_shifts),
+                "dev_shifts_adj": list(vts["adj"].dev_shifts),
+                **{f"mesh_{key}": v for key, v in m.items()},
+                "mesh_ranks": L, "mesh_spawn_s": mesh_out["spawn_s"]}
+    return hold_programs("virtual_mesh", spec, mat, runs, specs, ranks,
+                         tier="virtual", K=K, spawn_s=spawn_s, extra=beside)
 
 
 def check_serving_kernels(torch):
@@ -2509,6 +2635,7 @@ def main(argv=None) -> int:
     combine_err, combine_timing = check_gossip_kernel(torch)
     roll_form(torch)
     launches_mesh = mesh_phase(torch, spec, mat)
+    virtual_mesh_phase(torch, spec, mat, launches_mesh)
     single_errs, single_timing = check_serving_kernels(torch)
     launches_serving = serving_phase(torch, spec, mat, trace)
     serving_frontier(torch, trace.U_nodes[0])

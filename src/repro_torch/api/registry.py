@@ -3,15 +3,15 @@ convention.
 
 Port of ``src/repro/api/registry.py``.  Every registered solver is
 derived from a :class:`~repro_torch.core.program.SolverProgram`: its
-simulator and mesh entry points are the program's two lowerings, and
-the call-convention metadata (which topology it consumes, the combine
-rule that prices its communication, its extra SolverSpec knobs) comes
-off the program.  Registered: ``dif_altgdmin``, ``dec_altgdmin``,
-``centralized_altgdmin``, ``dgd_altgdmin``, ``exact_diffusion``,
-``beyond_central``, the compressed trio ``dif_topk`` /
-``dif_quantized`` / ``dif_event`` and the dropout-tolerant trio
-``dif_partial`` / ``dif_stale`` / ``dif_pushsum`` — all twelve of the
-JAX package's programs.
+simulator, mesh and virtual-mesh entry points are the program's three
+lowerings, and the call-convention metadata (which topology it consumes,
+the combine rule that prices its communication, its extra SolverSpec
+knobs) comes off the program.  Registered: ``dif_altgdmin``,
+``dec_altgdmin``, ``centralized_altgdmin``, ``dgd_altgdmin``,
+``exact_diffusion``, ``beyond_central``, the compressed trio
+``dif_topk`` / ``dif_quantized`` / ``dif_event`` and the
+dropout-tolerant trio ``dif_partial`` / ``dif_stale`` / ``dif_pushsum``
+— all twelve of the JAX package's programs.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Callable
 from repro_torch.core.altgdmin import RunResult
 from repro_torch.core.program import (SolverProgram, get_program,
                                       lower_mesh, lower_simulator,
-                                      program_names)
+                                      lower_virtual_mesh, program_names)
 from repro_torch.distributed.consensus import CommSignature, get_rule
 
 
@@ -34,7 +34,9 @@ class SolverDef:
     ``"W"`` (mixing matrix), ``"adj"`` (adjacency), ``"none"`` (fusion
     center).  ``combine`` names the combine rule whose signature prices
     the wall-clock axis; ``mesh_fn`` is the one-node-per-rank mesh entry
-    point; ``spec_kwargs`` the extra SolverSpec fields the solver takes;
+    point and ``virtual_mesh_fn`` the virtual-node tier's (a block of
+    nodes a rank); ``spec_kwargs`` the extra SolverSpec fields the
+    solver takes;
     ``takes_avail`` whether it consumes a (T_GD, L) availability mask
     (the runner passes the SystemSpec's schedule as ``avail=``);
     ``program`` the source program."""
@@ -44,6 +46,7 @@ class SolverDef:
     combine: str = "gossip"
     decentralized: bool = True
     mesh_fn: Callable | None = None
+    virtual_mesh_fn: Callable | None = None
     spec_kwargs: tuple = ()
     takes_avail: bool = False
     program: SolverProgram | None = None
@@ -87,13 +90,14 @@ def register_solver(solver: SolverDef) -> SolverDef:
 
 def register_program_solver(name: str) -> SolverDef:
     """Derive and register a SolverDef from a registered program: its
-    simulator and mesh entry points from the program's lowerings, the
-    call convention from its fields."""
+    simulator, mesh and virtual-mesh entry points from the program's
+    lowerings, the call convention from its fields."""
     p = get_program(name)
     return register_solver(SolverDef(
         name=p.name, fn=lower_simulator(p), topology=p.topology,
         combine=p.combine, decentralized=p.decentralized,
-        mesh_fn=lower_mesh(p), spec_kwargs=p.spec_kwargs,
+        mesh_fn=lower_mesh(p), virtual_mesh_fn=lower_virtual_mesh(p),
+        spec_kwargs=p.spec_kwargs,
         takes_avail=p.takes_avail, program=p))
 
 

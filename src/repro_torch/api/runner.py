@@ -15,16 +15,19 @@ that drops nodes on any other solver raises.
 Substrates:
 
   * ``"simulator"`` — the single-process node-batched simulator;
-  * ``"mesh"`` — one node per rank of an initialized
-    ``torch.distributed`` process group whose size is L: every rank
-    calls :func:`run_experiment` with the same spec and key,
-    materializes the same problem and runs its own node, the combine
-    crossing the wire by ``ppermute`` (any weight scheme: circulant
-    weights as shared scalars, any other W decomposed into per-shift,
-    per-node weights).  The dropout-tolerant solvers mix under the
-    spec's availability schedule, which every rank draws alike (host
-    numpy from the spec's seed).  Every rank returns the same
-    :class:`Trace`.
+  * ``"mesh"`` — the ranks of an initialized ``torch.distributed``
+    process group: every rank calls :func:`run_experiment` with the same
+    spec and key, materializes the same problem and runs its share of
+    the nodes.  With L ranks, one node a rank, the combine crossing the
+    wire by ``ppermute`` (any weight scheme: circulant weights as shared
+    scalars, any other W decomposed into per-shift, per-node weights);
+    with D ranks, D dividing L, the virtual-node tier: rank g holds nodes
+    g·V … g·V+V−1 (V = L / D), co-located edges mix on the device and
+    each cross-rank edge class sends the whole block once a round
+    (:class:`~repro_torch.distributed.consensus.VirtualTopology`).  The
+    dropout-tolerant solvers mix under the spec's availability schedule,
+    which every rank draws alike (host numpy from the spec's seed).
+    Every rank returns the same :class:`Trace`.
     :func:`run_on_mesh` is the rank function that
     :func:`repro_torch.distributed.mesh.spawn` runs for a batch of
     specs.
@@ -63,6 +66,7 @@ from repro_torch.distributed import consensus as _consensus
 from repro_torch.distributed.graphs import Graph, SparseGraph
 from repro_torch.distributed import mesh as _mesh
 from repro_torch.distributed.mesh import NodeMesh
+from repro_torch.distributed.mixing import SparseWeights
 from repro_torch.kernels import _build
 
 _COMM_MODELS = {"ethernet-1gbps": _cm.ETHERNET_1GBPS,
@@ -459,10 +463,11 @@ def _run_segmented(spec: ExperimentSpec, solver: SolverDef,
 
 def _run_mesh(spec: ExperimentSpec, solver: SolverDef, mat: Materialized,
               eng, eta: float, avail: np.ndarray | None = None):
-    """This rank's share of a mesh run: node ``rank`` of the default
-    process group, on the materialization's device.  ``avail`` is the
-    masked programs' seeded schedule, host numpy drawn from the spec, so
-    every rank holds the same one."""
+    """This rank's share of a mesh run, on the materialization's device:
+    node ``rank`` of the default process group when it has L ranks, the
+    rank's block of the virtual-node tier when its D ranks divide L.
+    ``avail`` is the masked programs' seeded schedule, host numpy drawn
+    from the spec, so every rank holds the same one."""
     topo, p = spec.topology, spec.problem
     if not solver.mesh_capable:
         raise ValueError(f"solver {solver.name!r} has no mesh runtime; "
@@ -471,15 +476,17 @@ def _run_mesh(spec: ExperimentSpec, solver: SolverDef, mat: Materialized,
         raise ValueError("substrate='mesh' does not support sample "
                          "splitting (n_folds > 1)")
     mesh = NodeMesh(mat.Xg.device)
-    if p.L != mesh.size:
-        raise NotImplementedError(
-            f"substrate='mesh' runs one node per rank: L={p.L} but the "
-            f"process group has {mesh.size} ranks; the virtual-node tier "
-            f"(L a multiple of the ranks) comes with a later slice of the "
-            f"port")
     kw = {k: getattr(spec.solver, k) for k in solver.spec_kwargs}
     if avail is not None:
         kw.update(avail=avail)
+    if p.L != mesh.size:
+        if solver.virtual_mesh_fn is not None and p.L % mesh.size == 0:
+            return _run_virtual_mesh(spec, solver, mat, eng, eta, mesh, kw)
+        raise ValueError(
+            f"substrate='mesh' needs one rank per node or a rank count that "
+            f"divides L: L={p.L} but the process group has {mesh.size} "
+            f"ranks (solver {solver.name!r}, combine rule "
+            f"{solver.combine!r})")
     if topo.weights == "circulant":
         # mesh-native uniform weights: each shift one ppermute
         kw.update(shifts=topo.shifts, self_weight=topo.self_weight)
@@ -496,6 +503,27 @@ def _run_mesh(spec: ExperimentSpec, solver: SolverDef, mat: Materialized,
                           engine=eng, U_star=mat.problem.U_star, **kw)
 
 
+def _run_virtual_mesh(spec: ExperimentSpec, solver: SolverDef,
+                      mat: Materialized, eng, eta: float, mesh: NodeMesh,
+                      kw: dict) -> RunResult:
+    """The virtual-node tier: L = D × V, a contiguous block of V nodes on
+    each of the D ranks.  W is the one the simulator mixes with (for
+    ``"adj"`` solvers the same row-stochastic neighbour average), put in
+    sparse form (``SparseWeights.from_dense``) and decomposed over the
+    ranks, so the trajectories agree with the simulator's.  ``kw`` are
+    the solver's spec knobs and availability schedule."""
+    if solver.topology == "adj":
+        W = _consensus.neighbor_average_matrix(mat.adj)
+    else:
+        W = mat.W
+    sw = SparseWeights.from_dense(W.cpu().numpy())
+    vt = _consensus.VirtualTopology.from_weights(sw, mesh.size)
+    return solver.virtual_mesh_fn(
+        mat.init.U0, mat.Xg, mat.yg, mesh, vt=vt, eta=eta,
+        T_GD=spec.solver.T_GD, T_con=spec.solver.T_con, engine=eng,
+        U_star=mat.problem.U_star, **kw)
+
+
 def run_on_mesh(device, specs, key=0, arrays=None, dtype=None) -> list:
     """One rank's share of a batch of mesh runs — the function
     :func:`repro_torch.distributed.mesh.spawn` runs on every rank.
@@ -505,8 +533,10 @@ def run_on_mesh(device, specs, key=0, arrays=None, dtype=None) -> list:
     :func:`materialized_from_arrays` (in ``dtype``).  Then runs every
     spec (``ExperimentSpec.to_dict()`` dicts sharing the problem,
     topology and init sub-specs) on substrate ``"mesh"``, each with the
-    kernel launch counts set to 0 just before and read just after.
-    Returns, per spec, a dict of host values: the traces (``sd_max``,
+    kernel launch counts set to 0 just before and read just after, on
+    whichever tier the group's size gives (one node a rank, or a block a
+    rank when it divides L).  Returns, per spec, a dict of host values:
+    the traces (``sd_max``,
     ``sd_mean``, ``spread``, ``time_axis``), ``U_nodes``, ``B_nodes``,
     ``launches`` (this rank's, by wrapper) and ``kernel_launches`` (by
     ``__global__`` function, as the C entries report them), ``seconds``

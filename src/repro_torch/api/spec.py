@@ -17,13 +17,13 @@ The sub-specs mirror the run's stages:
   * :class:`CommSpec`     — the emulated wall-clock axis.
 
 plus :class:`SystemSpec`, the fault-injection and simulated-clock
-layer.  ``substrate="mesh"`` runs one node per rank of a
-``torch.distributed`` process group (:mod:`repro_torch.api.runner`).
-What the port does not run yet is still described, so specs keep their
-meaning, and raises NotImplementedError when run: the sparse
-representation, the virtual-node mesh tier (L ≠ the number of ranks)
-and the masked solvers (``dif_partial``, ``dif_stale``,
-``dif_pushsum``) on the mesh.
+layer.  ``substrate="mesh"`` runs every solver on the ranks of a
+``torch.distributed`` process group (:mod:`repro_torch.api.runner`):
+one node a rank when there are L ranks, a block of L / D nodes a rank
+(the virtual-node tier) when the D ranks divide L; any other rank count
+raises ValueError.  What the port does not run yet is still described,
+so specs keep their meaning, and raises NotImplementedError when run:
+the sparse representation.
 """
 from __future__ import annotations
 

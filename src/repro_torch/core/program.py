@@ -13,7 +13,10 @@ what rides the loop next to U (``aux``).  Two lowerings run a program:
   * :func:`lower_mesh` — one node per rank of a
     :class:`~repro_torch.distributed.mesh.NodeMesh`, on the
     :func:`~repro_torch.core.runtime._altgdmin_mesh` skeleton, the
-    combine crossing the wire by ``ppermute`` (or ``psum``).
+    combine crossing the wire by ``ppermute`` (or ``psum``);
+  * :func:`lower_virtual_mesh` — a block of L / D nodes per rank, on the
+    :func:`~repro_torch.core.runtime._altgdmin_virtual_mesh` skeleton,
+    the combine the rule's ``make_virtual_mesh_*`` mixer.
 
 Registered: the paper's four programs ``dif_altgdmin`` (Algorithm 3),
 ``dec_altgdmin``, ``centralized_altgdmin`` and ``dgd_altgdmin``, the
@@ -23,8 +26,7 @@ combine rules are stateful (the public copies of the error-feedback
 scheme ride the ``aux`` slot), and the dropout-tolerant trio
 ``dif_partial`` / ``dif_stale`` / ``dif_pushsum``, whose combines take
 the iteration's row of the availability mask (``takes_avail``).  All
-twelve lower to both substrates; the virtual-node mesh lowering comes
-with a later slice of the port.
+twelve lower to all three.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import torch
 from repro_torch.core.altgdmin import RunResult, _metrics, _select
 from repro_torch.core.engine import resolve_engine
 from repro_torch.core.metrics import subspace_distance
-from repro_torch.core.runtime import _altgdmin_mesh
+from repro_torch.core.runtime import _altgdmin_mesh, _altgdmin_virtual_mesh
 from repro_torch.core.spectral import _qr_pos
 from repro_torch.distributed.consensus import (ExactDiffusionCombine,
                                                get_rule,
@@ -57,7 +59,7 @@ class ProgramCtx(NamedTuple):
     measured trigger rate (simulator only; None elsewhere);
     ``where_live(m, a, b)`` — per-node freeze under an availability
     mask (masked programs only; on the mesh it picks by the rank's
-    entry of m)."""
+    entry of m, on the virtual tier by its block's rows)."""
     min_grad: Callable
     mix: Optional[Callable]
     qr: Callable
@@ -108,14 +110,19 @@ class DispatchBudget(NamedTuple):
     epoch.  The final B refit, one launch outside the loop, is not
     counted.
 
-    ``wire_mesh`` prices the mesh's gossip structure: the point-to-point
-    sends of an outer iteration are R·K·wire_mesh — 1 where a round
-    sends the value, 2 where a second leaf rides with each message
+    On the virtual tier K is the number of cross-rank edge classes
+    (``VirtualTopology.dev_shifts``).
+
+    ``wire_mesh`` / ``wire_virtual`` price the gossip structure: the
+    point-to-point sends of an outer iteration are R·K·wire — 1 where a
+    round sends the value, 2 where a second leaf rides with each message
     (top-k indices, the int8 scale, push-sum's weight), 0 for the
     fusion center's psum."""
     simulator: tuple
     mesh: tuple
+    virtual: tuple
     wire_mesh: int = 1
+    wire_virtual: int = 1
 
     def per_iter(self, substrate: str, rounds: int, n_shifts: int,
                  local_steps: int) -> int:
@@ -406,6 +413,24 @@ def lower_simulator(program: SolverProgram) -> Callable:
     return run
 
 
+def _rank_update(program: SolverProgram, **ctx_kw) -> Callable:
+    """A mesh rank's per-iteration update ``update(U, aux, min_grad[,
+    x_t]) -> (U', aux')``: the program's body on a ProgramCtx of the
+    rank's ``min_grad`` and the closures in ``ctx_kw`` (``mix``,
+    ``all_sum``, ``where_live``, ``eta``, ``eta_L``, ``local_steps``);
+    the mesh has no fold axis, so every iteration takes fold 0."""
+    def update(U, aux, mg, xt=None):
+        ctx = ProgramCtx(min_grad=lambda U_, fold: mg(U_),
+                         qr=lambda M: _qr_pos(M)[0], send_fraction=None,
+                         **ctx_kw)
+        if program.takes_avail:
+            U_new, aux_new, _ = program.update(ctx, U, aux, 0, xt)
+        else:
+            U_new, aux_new, _ = program.update(ctx, U, aux, 0)
+        return U_new, aux_new
+    return update
+
+
 def lower_mesh(program: SolverProgram) -> Callable:
     """One-node-per-rank lowering on the shared
     :func:`~repro_torch.core.runtime._altgdmin_mesh` skeleton, called on
@@ -463,18 +488,9 @@ def lower_mesh(program: SolverProgram) -> Callable:
             def where_live(m, a, b):
                 return torch.where(m[mesh.axis_index()], a, b)
 
-            def update(U, aux, mg, xt=None):
-                ctx = ProgramCtx(min_grad=lambda U_, fold: mg(U_), mix=mix,
-                                 qr=lambda M: _qr_pos(M)[0], eta=eta,
-                                 eta_L=eta_L, local_steps=local_steps,
-                                 all_sum=all_sum, send_fraction=None,
-                                 where_live=where_live)
-                if program.takes_avail:
-                    U_new, aux_new, _ = program.update(ctx, U, aux, 0, xt)
-                else:
-                    U_new, aux_new, _ = program.update(ctx, U, aux, 0)
-                return U_new, aux_new
-            return update
+            return _rank_update(program, mix=mix, all_sum=all_sum,
+                                where_live=where_live, eta=eta, eta_L=eta_L,
+                                local_steps=local_steps)
 
         if program.aux == "iterate":
             def init_aux(U):
@@ -498,6 +514,85 @@ def lower_mesh(program: SolverProgram) -> Callable:
 
     run.__name__ = run.__qualname__ = f"{program.name}__mesh"
     run.__doc__ = (f"Mesh lowering of the {program.name!r} solver "
+                   f"program (combine rule {program.combine!r}).")
+    return run
+
+
+def lower_virtual_mesh(program: SolverProgram) -> Callable:
+    """Virtual-node tier lowering (L = D ranks × V nodes) on the
+    :func:`~repro_torch.core.runtime._altgdmin_virtual_mesh` skeleton,
+    called on every rank: ``run(U0, Xg, yg, mesh, *, vt, eta, T_GD,
+    T_con, engine, backend, U_star, avail, **spec_kw)``.  Each rank is a
+    small simulator over its (V, d, r) slab; the combine is the rule's
+    ``make_virtual_mesh_*`` mixer on ``vt`` (the mixing matrix, for
+    ``"adj"`` programs the neighbour average, decomposed by
+    :meth:`VirtualTopology.from_weights`).  The fusion center sums its
+    block's gradients, then ``psum``s; η·L takes the global L; the
+    stateful programs' public copies are the rule's ``init_state`` of
+    the slab; the masked programs take ``avail`` (T_GD, L) as on the
+    mesh."""
+
+    def run(U0, Xg, yg, mesh, *, vt, eta, T_GD, T_con=1, engine=None,
+            backend=None, U_star=None, avail=None, **spec_kw):
+        kw = _resolve_spec(program, spec_kw)
+        rule_kw = {k: kw[k] for k in program.rule_kwargs}
+        local_steps = int(kw.get("local_steps", 1))
+        L = U0.shape[0]
+        eta_L = eta * L                       # L is the GLOBAL node count
+        rule = get_rule(program.combine)
+        xs = _check_avail(program, avail, T_GD, L, mesh.device)
+        if not program.stacked:
+            U0 = torch.broadcast_to(U0[:1], U0.shape)
+        D, V = vt.n_dev, vt.block
+
+        def make_update(eng):
+            mix = all_sum = None
+            if program.mixer in ("plain", "neighbor"):
+                # the neighbor rule's virtual round is structurally one
+                mix = rule.make_virtual_mesh_mixer(mesh, vt, T_con,
+                                                   backend=eng.backend)
+            elif program.mixer == "central":
+                def all_sum(G):
+                    # block-local sum, then the cross-rank psum: the
+                    # exact global gradient on every rank
+                    return mesh.psum(torch.sum(G, dim=0))
+            elif program.mixer == "state":
+                mix = rule.make_virtual_mesh_state_mixer(
+                    mesh, vt, T_con, backend=eng.backend, **rule_kw)
+            elif program.mixer == "masked":
+                mix = rule.make_virtual_mesh_masked_mixer(
+                    mesh, vt, T_con, backend=eng.backend)
+            else:
+                mix = rule.make_virtual_mesh_masked_state_mixer(
+                    mesh, vt, T_con, backend=eng.backend)
+
+            def where_live(m, a, b):
+                rows = m.reshape(D, V)[mesh.axis_index()]
+                return torch.where(rows[:, None, None], a, b)
+
+            return _rank_update(program, mix=mix, all_sum=all_sum,
+                                where_live=where_live, eta=eta, eta_L=eta_L,
+                                local_steps=local_steps)
+
+        if program.aux == "iterate":
+            def init_aux(Ub):
+                return Ub
+        elif program.aux == "state":
+            # the simulator's stacked state of the slab (zero public
+            # copies; the stochastic round counter is the same on every
+            # rank)
+            def init_aux(Ub):
+                return rule.init_state(Ub, **rule_kw)
+        else:
+            init_aux = None
+        return _altgdmin_virtual_mesh(U0, Xg, yg, mesh, vt=vt, eta=eta,
+                                      T_GD=T_GD, make_update=make_update,
+                                      engine=engine, backend=backend,
+                                      U_star=U_star, init_aux=init_aux,
+                                      xs=xs)
+
+    run.__name__ = run.__qualname__ = f"{program.name}__virtual_mesh"
+    run.__doc__ = (f"Virtual-mesh lowering of the {program.name!r} solver "
                    f"program (combine rule {program.combine!r}).")
     return run
 
@@ -531,14 +626,16 @@ def program_names() -> tuple[str, ...]:
 
 # Budget shorthand: the adapt-then-combine family shares one shape — the
 # simulator fuses min-grad + the hoisted W^{T_con} combine (2 launches,
-# round-independent); the mesh keeps the combine per round (1 + R).
+# round-independent); the mesh keeps the combine per round (1 + R); the
+# virtual tier's combine is plain segment sums and sends (1).
 _BUDGET_DIFFUSION = DispatchBudget(
-    simulator=(2, 0, 0, 0), mesh=(1, 1, 0, 0))
+    simulator=(2, 0, 0, 0), mesh=(1, 1, 0, 0), virtual=(1, 0, 0, 0))
 
 # Masked / event rules: one combine launch per round (the masked matrix
-# depends on the data, so nothing is hoisted) on both stacked tiers.
+# depends on the data, so nothing is hoisted) on both stacked tiers, none
+# on the virtual tier.
 _BUDGET_MASKED = DispatchBudget(
-    simulator=(1, 1, 0, 0), mesh=(1, 1, 0, 0))
+    simulator=(1, 1, 0, 0), mesh=(1, 1, 0, 0), virtual=(1, 0, 0, 0))
 
 register_program(SolverProgram(
     name="dif_altgdmin", combine="gossip", update=_upd_dif,
@@ -553,13 +650,14 @@ register_program(SolverProgram(
     mixer="central", stacked=False, topology="none", decentralized=False,
     refit=_refit_first,
     dispatch_budget=DispatchBudget(      # fusion center: psum, no gossip
-        simulator=(1, 0, 0, 0), mesh=(1, 0, 0, 0), wire_mesh=0)))
+        simulator=(1, 0, 0, 0), mesh=(1, 0, 0, 0), virtual=(1, 0, 0, 0),
+        wire_mesh=0, wire_virtual=0)))
 
 register_program(SolverProgram(
     name="dgd_altgdmin", combine="neighbor", update=_upd_dgd,
     mixer="neighbor", topology="adj",
     dispatch_budget=DispatchBudget(      # single self-excluding round
-        simulator=(1, 1, 0, 0), mesh=(1, 1, 0, 0))))
+        simulator=(1, 1, 0, 0), mesh=(1, 1, 0, 0), virtual=(1, 0, 0, 0))))
 
 register_program(SolverProgram(
     name="exact_diffusion", combine="exact_diffusion",
@@ -572,7 +670,7 @@ register_program(SolverProgram(
     defaults=(("local_steps", 1),), refit=_refit_last_local,
     dispatch_budget=DispatchBudget(      # one min-grad per LOCAL step,
         simulator=(0, 1, 0, 1),          # one combine round per iter
-        mesh=(0, 1, 0, 1))))
+        mesh=(0, 1, 0, 1), virtual=(0, 0, 0, 1))))
 
 register_program(SolverProgram(
     name="dif_topk", combine="topk_gossip", update=_upd_compressed,
@@ -582,7 +680,7 @@ register_program(SolverProgram(
     defaults=(("compression_k", 0), ("consensus_gamma", 1.0)),
     dispatch_budget=DispatchBudget(      # encode + combine per round;
         simulator=(1, 2, 0, 0),          # indices ride the wire (w=2)
-        mesh=(1, 2, 0, 0), wire_mesh=2)))
+        mesh=(1, 2, 0, 0), virtual=(1, 1, 0, 0), wire_mesh=2)))
 
 register_program(SolverProgram(
     name="dif_quantized", combine="quantized_gossip",
@@ -592,7 +690,7 @@ register_program(SolverProgram(
     defaults=(("compression", None), ("consensus_gamma", 1.0)),
     dispatch_budget=DispatchBudget(      # per-shift dequant on mesh;
         simulator=(1, 2, 0, 0),          # scales ride the wire (w=2)
-        mesh=(1, 2, 1, 0), wire_mesh=2)))
+        mesh=(1, 2, 1, 0), virtual=(1, 1, 0, 0), wire_mesh=2)))
 
 register_program(SolverProgram(
     name="dif_event", combine="event_gossip", update=_upd_compressed,
@@ -617,4 +715,5 @@ register_program(SolverProgram(
     mixer="masked", takes_avail=True,
     dispatch_budget=DispatchBudget(      # ratio consensus: the weight
         simulator=(1, 2, 0, 0),          # column rides every round,
-        mesh=(1, 1, 0, 0), wire_mesh=2)))  # with every message (w=2)
+        mesh=(1, 1, 0, 0), virtual=(1, 0, 0, 0),   # with every message
+        wire_mesh=2, wire_virtual=2)))             # (w=2)

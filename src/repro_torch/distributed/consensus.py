@@ -45,9 +45,16 @@ arrives to the stored copies and combines the exact self block with
 them in one :func:`combine_blocks`.  The masked rules derive the node's
 (K+1,) combine weights from the iteration's mask on the device.
 
-Not ported yet, and raising where a caller would reach them: the sparse
-tier (padded-COO segment-sum rounds above ``SPARSE_MIN_NODES``) and the
-virtual-node mesh tier (``VirtualTopology``).
+The virtual-node mesh tier (:class:`VirtualTopology`) gives each of D
+ranks a contiguous block of V = L / D nodes: a round mixes the
+co-located edges on the device (a padded-COO segment sum, ``index_add_``)
+and sends the whole block once a cross-rank edge class (all classes in
+one :meth:`NodeMesh.ppermute_many`).  Each rule's ``make_virtual_mesh_*``
+mixer runs there, the compressed rules refreshing the whole block in one
+call (one ``compress_topk`` / ``int8_round`` launch a round on cuda).
+
+Not ported yet, and raising where a caller would reach it: the sparse
+tier (padded-COO segment-sum rounds above ``SPARSE_MIN_NODES``).
 """
 from __future__ import annotations
 
@@ -58,7 +65,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.graphs import Graph, SparseGraph
+from repro_torch.distributed.graphs import (Graph, SparseGraph,
+                                            reverse_cuthill_mckee)
+from repro_torch.distributed.mixing import SparseWeights
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ref_int8_scale
 
@@ -226,12 +235,323 @@ def place_weights(weights, device):
     return table, table.to(torch.float32)
 
 
+@dataclasses.dataclass(frozen=True)
+class RelabeledMeshWeights:
+    """:func:`mesh_weights_from_matrix` after RCM shift-count pruning.
+
+    ``perm`` (new→old) relabels the node axis; ``shifts``/``table``
+    decompose the RELABELED matrix ``W[perm][:, perm]``.  A mesh run
+    would permute its node-major inputs by ``perm`` (rank k hosting old
+    node ``perm[k]``), gossip with the pruned shift set and un-permute
+    the outputs: a relabeling is a similarity transform by a permutation
+    matrix, so the mixing arithmetic is the same.  ``shifts_before`` /
+    ``shifts_after`` report the pruning (each shift is one ``ppermute``
+    a gossip round)."""
+    perm: np.ndarray
+    shifts: tuple
+    table: np.ndarray
+    shifts_before: int
+    shifts_after: int
+
+
+def mesh_weights_relabeled(W, *, verify: bool = True
+                           ) -> RelabeledMeshWeights:
+    """Shift-count pruning for :func:`mesh_weights_from_matrix` by a
+    bandwidth-reducing relabeling (reverse Cuthill–McKee on the support
+    of W): an irregular graph's decomposition can need up to L−1 shifts,
+    RCM gathers the support near the diagonal, so the relabeled matrix
+    needs only the shifts its bandwidth spans.  Keeps the identity
+    relabeling when RCM does not strictly reduce the shift count (a
+    circulant is already optimal).  ``verify`` checks the round trip:
+    the table rebuilt densely equals the relabeled matrix entry for
+    entry, and un-permuting recovers W."""
+    if isinstance(W, SparseWeights):
+        W = W.to_dense()
+    Wn = W.detach().cpu().numpy() if torch.is_tensor(W) else np.asarray(W)
+    L = Wn.shape[0]
+    shifts0, table0 = mesh_weights_from_matrix(Wn)
+    off = (Wn != 0) | (Wn != 0).T
+    np.fill_diagonal(off, False)
+    rows, cols = np.nonzero(off)
+    perm = reverse_cuthill_mckee(SparseGraph.from_edges(L, rows, cols))
+    Wp = Wn[np.ix_(perm, perm)]
+    shifts, table = mesh_weights_from_matrix(Wp)
+    if len(shifts) >= len(shifts0):           # pruning did not help
+        perm, Wp = np.arange(L, dtype=np.int64), Wn
+        shifts, table = shifts0, table0
+    if verify:
+        idx = np.arange(L)
+        R = np.zeros_like(Wp)
+        R[idx, idx] = table[:, 0]
+        for k, s in enumerate(shifts):
+            R[idx, (idx + s) % L] = table[:, k + 1]
+        if not np.array_equal(R, Wp):
+            raise AssertionError("RCM decomposition round-trip failed")
+        inv = np.empty(L, dtype=np.int64)
+        inv[perm] = np.arange(L)
+        if not np.array_equal(Wp[np.ix_(inv, inv)], Wn):
+            raise AssertionError("RCM relabeling round-trip failed")
+    return RelabeledMeshWeights(perm=perm, shifts=tuple(shifts),
+                                table=table, shifts_before=len(shifts0),
+                                shifts_after=len(shifts))
+
+
+# ----------------------------------------------------------------------
+# the virtual-node mesh tier
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class VirtualTopology:
+    """Rank × local-block decomposition of a sparse mixing matrix: the
+    mesh form of the node axis past one node per rank.
+
+    Node ``i`` lives on rank ``i // block`` as local node ``i % block``
+    (contiguous blocks).  Every stored edge falls in exactly one RANK
+    shift class ``s = (rank_j − rank_i) mod D``:
+
+      * class 0 (``local_*``): both endpoints on one rank — its gossip
+        is an on-device segment sum, no message;
+      * each nonzero class (``cross_*``, one slot an entry of
+        ``dev_shifts``): ONE send of the whole local block a round, then
+        a sparse apply at the receiver.
+
+    Edge arrays are padded per rank (dummy receiver row ``block``,
+    weight exactly 0) and sorted by receiver row; ``diag`` is the
+    separate (D, block) self-weight plane.  Host numpy, the reference's
+    arrays bit for bit."""
+    n_dev: int
+    block: int
+    dev_shifts: tuple[int, ...]
+    local_rows: np.ndarray   # (D, E0) int32 — receiver local row
+    local_cols: np.ndarray   # (D, E0) int32 — sender local row
+    local_vals: np.ndarray   # (D, E0) float64
+    cross_rows: np.ndarray   # (S, D, E1) int32
+    cross_cols: np.ndarray   # (S, D, E1) int32 — sender-local, in the
+    cross_vals: np.ndarray   # (S, D, E1)        sending rank's block
+    diag: np.ndarray         # (D, block) float64
+
+    @staticmethod
+    def _group(dev, lr, lc, v, D: int, V: int):
+        """Per-rank padded (rows, cols, vals): entries sorted by (rank,
+        local row, local col), padding (row V, weight 0) at the end."""
+        order = np.lexsort((lc, lr, dev))
+        dev, lr, lc, v = dev[order], lr[order], lc[order], v[order]
+        counts = np.bincount(dev, minlength=D)
+        E = max(int(counts.max()) if counts.size else 0, 1)
+        rows = np.full((D, E), V, np.int32)
+        cols = np.zeros((D, E), np.int32)
+        vals = np.zeros((D, E))
+        starts = np.cumsum(counts) - counts
+        pos = np.arange(dev.size) - np.repeat(starts, counts)
+        rows[dev, pos] = lr
+        cols[dev, pos] = lc
+        vals[dev, pos] = v
+        return rows, cols, vals
+
+    @classmethod
+    def from_weights(cls, W, n_dev: int) -> "VirtualTopology":
+        """Decompose ``W`` (a :class:`SparseWeights`, or a dense host
+        matrix) over ``n_dev`` ranks; ``n_dev`` must divide L."""
+        sw = W if isinstance(W, SparseWeights) \
+            else SparseWeights.from_dense(W)
+        L, D = sw.n, int(n_dev)
+        if D < 1 or L % D:
+            raise ValueError(f"virtual-node tier needs n_dev to divide "
+                             f"L, got L={L}, n_dev={D}")
+        V = L // D
+        di = (sw.rows // V).astype(np.int64)
+        dj = (sw.cols // V).astype(np.int64)
+        s = (dj - di) % D
+        ss = np.where(s <= D // 2, s, s - D)
+        lr = (sw.rows % V).astype(np.int64)
+        lc = (sw.cols % V).astype(np.int64)
+        loc = s == 0
+        l_rows, l_cols, l_vals = cls._group(di[loc], lr[loc], lc[loc],
+                                            sw.vals[loc], D, V)
+        shifts = tuple(int(x) for x in np.unique(ss[~loc]))
+        groups = []
+        for sk in shifts:
+            sel = ss == sk
+            groups.append(cls._group(di[sel], lr[sel], lc[sel], sw.vals[sel],
+                                     D, V))
+        E1 = max((grp[0].shape[1] for grp in groups), default=1)
+
+        def stack(i, fill, dtype):
+            out = np.full((len(shifts), D, E1), fill, dtype)
+            for k, grp in enumerate(groups):
+                out[k, :, :grp[i].shape[1]] = grp[i]
+            return out
+        return cls(
+            n_dev=D, block=V, dev_shifts=shifts,
+            local_rows=l_rows, local_cols=l_cols, local_vals=l_vals,
+            cross_rows=stack(0, V, np.int32),
+            cross_cols=stack(1, 0, np.int32),
+            cross_vals=stack(2, 0.0, np.float64),
+            diag=np.asarray(sw.diag, np.float64).reshape(D, V).copy())
+
+    @property
+    def n_nodes(self) -> int:
+        return self.n_dev * self.block
+
+    @property
+    def n_local_entries(self) -> int:
+        return int(np.count_nonzero(self.local_rows != self.block))
+
+    @property
+    def n_cross_entries(self) -> int:
+        return int(np.count_nonzero(self.cross_rows != self.block))
+
+    @property
+    def block_sends_per_round(self) -> int:
+        """Whole-block sends one round costs a rank (co-located gossip
+        is free)."""
+        return len(self.dev_shifts)
+
+
+def virtual_arrays(vt: VirtualTopology, device):
+    """vt's edge arrays on ``device``, put there once when a mixer is
+    built: the indices as int64, the weights in float64 (cast to the
+    iterate's dtype by :func:`_device_slice`)."""
+    def idx(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+    def val(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+    return (idx(vt.local_rows), idx(vt.local_cols), val(vt.local_vals),
+            idx(vt.cross_rows), idx(vt.cross_cols), val(vt.cross_vals),
+            val(vt.diag))
+
+
+def _device_slice(arrays, g: int, dtype):
+    """Rank ``g``'s slice of :func:`virtual_arrays`, weights in
+    ``dtype``: ``(lr, lc, lv, [cr_k...], [cc_k...], [cv_k...], dg)``,
+    the form every virtual round variant (plain, masked, stateful)
+    consumes."""
+    lr, lc, lv, cr, cc, cv, dg = arrays
+    S = cr.shape[0]
+    return (lr[g], lc[g], lv[g].to(dtype),
+            [cr[k, g] for k in range(S)],
+            [cc[k, g] for k in range(S)],
+            [cv[k, g].to(dtype) for k in range(S)],
+            dg[g].to(dtype))
+
+
+def _segment_sum(vals, seg, V: int):
+    """``jax.ops.segment_sum(vals, seg, num_segments=V + 1)[:V]``: rows
+    of ``vals`` added into a (V+1, ...) accumulator at their segment,
+    then the padding segment V dropped."""
+    acc = vals.new_zeros((V + 1,) + tuple(vals.shape[1:]))
+    return acc.index_add_(0, seg, vals)[:V]
+
+
+def _virtual_combine(zf, recv, vt: VirtualTopology, sel, *, z_diag=None):
+    """One round's combine on the virtual tier from the blocks already
+    received: ``zf (V, F)`` is the rank's flattened block, the
+    off-diagonal operand; ``recv (S, V, F)`` the block of each cross
+    class (in ``dev_shifts`` order); ``sel`` the rank's selected edge
+    arrays (:func:`_device_slice` layout, possibly mask-folded);
+    ``z_diag`` (default ``zf``) the diagonal's operand, split out for
+    the compressed rules' exact self term.  Adds the diagonal, the
+    co-located sum, then each class, the reference's order."""
+    lr, lc, lv, crs, ccs, cvs, dg = sel
+    V = vt.block
+    acc = dg[:, None] * (zf if z_diag is None else z_diag)
+    acc = acc + _segment_sum(lv[:, None] * zf[lc], lr, V)
+    for k in range(len(vt.dev_shifts)):
+        acc = acc + _segment_sum(cvs[k][:, None] * recv[k][ccs[k]],
+                                 crs[k], V)
+    return acc
+
+
+def _virtual_recv(zf, vt: VirtualTopology, mesh):
+    """The blocks of every cross class, all in flight together in ONE
+    ``ppermute_many`` (each class's block is rank g + s's); none without
+    a message when the tier has no cross class (one rank)."""
+    if vt.dev_shifts:
+        return mesh.ppermute_many(zf, vt.dev_shifts)
+    return tuple([] for _ in zf) if isinstance(zf, tuple) else []
+
+
+def _virtual_selected_round(zf, vt: VirtualTopology, mesh, sel, *,
+                            z_diag=None):
+    """One combine round on the virtual tier with PRE-SELECTED (possibly
+    mask-folded) edge arrays ``sel``: the cross classes' blocks by one
+    ``ppermute_many`` of ``zf``, then :func:`_virtual_combine`."""
+    return _virtual_combine(zf, _virtual_recv(zf, vt, mesh), vt, sel,
+                            z_diag=z_diag)
+
+
+def virtual_mesh_round(zf, vt: VirtualTopology, mesh, arrays):
+    """One gossip round on the virtual tier: ``zf (V, F)`` this rank's
+    flattened block, ``arrays`` from :func:`virtual_arrays`."""
+    return _virtual_selected_round(
+        zf, vt, mesh, _device_slice(arrays, mesh.axis_index(), zf.dtype))
+
+
+def _virtual_masked_fold(vt: VirtualTopology, sel, g: int, mf, *,
+                         fold_diag: bool = True):
+    """Edge-level availability fold of rank ``g``'s selected arrays: a
+    link is live iff BOTH endpoints are (receiver rows ``mf[g]``, sender
+    rows ``mf[(g+s) mod D]`` per cross class), a dead link's weight
+    folds into the receiver's diagonal (``fold_diag=False`` keeps the
+    original diagonal, for push-sum, which renormalizes instead).
+    ``mf`` is the (D, V) mask in the weights' dtype.  Padding carries
+    weight exactly 0, so its gathers contribute nothing."""
+    lr, lc, lv, crs, ccs, cvs, dg = sel
+    V, D = vt.block, vt.n_dev
+    mg = torch.cat([mf[g], mf.new_zeros(1)])    # the padding row V: dead
+    keep = mg[lr] * mg[lc]
+    lv_m = lv * keep
+    lost = _segment_sum(lv * (1.0 - keep), lr, V)
+    cvs_m = []
+    for k, s in enumerate(vt.dev_shifts):
+        ms = mf[(g + s) % D]                    # the class's sender block
+        keep_k = mg[crs[k]] * ms[ccs[k]]
+        cvs_m.append(cvs[k] * keep_k)
+        lost = lost + _segment_sum(cvs[k] * (1.0 - keep_k), crs[k], V)
+    dg_eff = dg + lost if fold_diag else dg
+    return (lr, lc, lv_m, crs, ccs, cvs_m, dg_eff)
+
+
+def _vt_edges(vt: VirtualTopology):
+    """The GLOBAL off-diagonal COO (rows, cols, vals) a VirtualTopology
+    encodes, padding excluded (host metadata for structural checks)."""
+    D, V = vt.n_dev, vt.block
+    rows, cols, vals = [], [], []
+    for g in range(D):
+        live = vt.local_rows[g] != V
+        rows.append(g * V + vt.local_rows[g][live])
+        cols.append(g * V + vt.local_cols[g][live])
+        vals.append(vt.local_vals[g][live])
+    for k, s in enumerate(vt.dev_shifts):
+        for g in range(D):
+            live = vt.cross_rows[k, g] != V
+            rows.append(g * V + vt.cross_rows[k, g][live])
+            cols.append(((g + s) % D) * V + vt.cross_cols[k, g][live])
+            vals.append(vt.cross_vals[k, g][live])
+    return (np.concatenate(rows).astype(np.int64),
+            np.concatenate(cols).astype(np.int64),
+            np.concatenate(vals))
+
+
+def _vt_is_symmetric(vt: VirtualTopology) -> bool:
+    """Whether the encoded mixing matrix is symmetric: the sorted edge
+    list equals the sorted transposed one (values to float tolerance),
+    never densified."""
+    r, c, v = _vt_edges(vt)
+    o1 = np.lexsort((c, r))       # (r, c) order of the edge list
+    o2 = np.lexsort((r, c))       # (c, r) order = (r, c) of the transpose
+    return (np.array_equal(r[o1], c[o2])
+            and np.array_equal(c[o1], r[o2])
+            and np.allclose(v[o1], v[o2]))
+
+
 # ----------------------------------------------------------------------
 # combine rules
 # ----------------------------------------------------------------------
 
 class CombineRule:
-    """One consensus/combine scheme, lowered two ways.
+    """One consensus/combine scheme, lowered three ways.
 
     ``make_sim_mixer(W, T_con, backend=...)`` returns the simulator
     closure ``Z (L, ...) ↦ combined Z``; ``make_mesh_mixer(mesh, T_con,
@@ -240,8 +560,10 @@ class CombineRule:
     arbitrary weighted topology (each distinct cyclic shift of W's
     sparsity pattern one ``ppermute``, each node combining with its own
     W row), or ``shifts``/``self_weight`` for the uniform circulant
-    form; ``signature(T_con)`` the comm cost.  Subclasses override the
-    pieces that differ."""
+    form; ``make_virtual_mesh_mixer(mesh, vt, T_con)`` the per-rank
+    closure ``z (V, ...) ↦ z'`` on a block of the virtual tier (``vt`` a
+    :class:`VirtualTopology`); ``signature(T_con)`` the comm cost.
+    Subclasses override the pieces that differ."""
 
     name: str = "base"
 
@@ -253,6 +575,11 @@ class CombineRule:
                         self_weight: float | None = None, *, W=None,
                         backend: str = "torch-ref") -> Callable:
         raise NotImplementedError
+
+    def make_virtual_mesh_mixer(self, mesh, vt: VirtualTopology, T_con: int,
+                                *, backend: str = "torch-ref") -> Callable:
+        raise NotImplementedError(
+            f"combine rule {self.name!r} has no virtual-mesh lowering")
 
     def signature(self, T_con: int, **params) -> CommSignature:
         raise NotImplementedError
@@ -378,6 +705,25 @@ class GossipCombine(CombineRule):
             return z
         return gossip
 
+    def make_virtual_mesh_mixer(self, mesh, vt, T_con, *,
+                                backend="torch-ref"):
+        """Per-rank closure ``z (V, ...) ↦ z'`` on the virtual tier:
+        T_con rounds, each the co-located segment sum and one
+        ``ppermute_many`` of the block over the cross classes.  Always
+        round by round: a ``W^{T_con}`` hoist would create new cross
+        classes."""
+        if T_con == 0:
+            return lambda z: z
+        arrays = virtual_arrays(vt, mesh.device)
+
+        def gossip(z):
+            sel = _device_slice(arrays, mesh.axis_index(), z.dtype)
+            zf = z.reshape(vt.block, -1)
+            for _ in range(T_con):
+                zf = _virtual_selected_round(zf, vt, mesh, sel)
+            return zf.reshape(z.shape)
+        return gossip
+
     def signature(self, T_con: int, **params) -> CommSignature:
         return CommSignature("gossip", T_con)
 
@@ -409,6 +755,15 @@ class NeighborCombine(CombineRule):
                                                   self_weight, W)
         placed = place_weights(weights, mesh.device)
         return lambda z: self._mesh_round(z, mesh, shifts_, placed, backend)
+
+    def make_virtual_mesh_mixer(self, mesh, vt, T_con=1, *,
+                                backend="torch-ref"):
+        """ONE neighbour-average round on the virtual tier, whatever
+        ``T_con`` says; ``vt`` decomposes the neighbour matrix, whose
+        zero diagonal stays a zero ``diag`` plane."""
+        arrays = virtual_arrays(vt, mesh.device)
+        return lambda z: virtual_mesh_round(
+            z.reshape(vt.block, -1), vt, mesh, arrays).reshape(z.shape)
 
     def signature(self, T_con: int, **params) -> CommSignature:
         return CommSignature("neighbor", 1)
@@ -487,6 +842,10 @@ class BeyondCentralCombine(GossipCombine):
                         *, W=None, backend="torch-ref"):
         return super().make_mesh_mixer(mesh, 1, shifts, self_weight, W=W,
                                        backend=backend)
+
+    def make_virtual_mesh_mixer(self, mesh, vt, T_con=1, *,
+                                backend="torch-ref"):
+        return super().make_virtual_mesh_mixer(mesh, vt, 1, backend=backend)
 
     def signature(self, T_con: int, **params) -> CommSignature:
         return CommSignature("gossip", 1)
@@ -625,6 +984,11 @@ class CompressedGossipCombine(GossipCombine):
         raise TypeError(f"combine rule {self.name!r} is stateful; use "
                         f"make_mesh_state_mixer / init_mesh_state")
 
+    def make_virtual_mesh_mixer(self, mesh, vt, T_con, *,
+                                backend="torch-ref"):
+        raise TypeError(f"combine rule {self.name!r} is stateful; use "
+                        f"make_virtual_mesh_state_mixer / init_state")
+
     def make_sim_state_mixer(self, W, T_con: int, *,
                              backend: str = "torch-ref", **kw) -> Callable:
         """Simulator closure ``(Z (L, d, r), state) ↦ (Z', state')``:
@@ -711,6 +1075,45 @@ class CompressedGossipCombine(GossipCombine):
                 z = z2
                 state = ((own2, copies2, count + 1) if stochastic
                          else (own2, copies2))
+            return z, state
+        return mix
+
+    def make_virtual_mesh_state_mixer(self, mesh, vt: VirtualTopology,
+                                      T_con: int, *,
+                                      backend: str = "torch-ref",
+                                      **kw) -> Callable:
+        """Per-rank closure ``(z (V, d, r), state) ↦ (z', state')`` on
+        the virtual tier, ``state`` the block's public copies from
+        :meth:`init_state` (zero, one a node).  Each round refreshes the
+        whole block in ONE ``refresh`` call — with the GLOBAL node ids
+        g·V + [0, V), so the stochastic wire draws the simulator's
+        dither — then one virtual round on the refreshed copies with the
+        diagonal on the EXACT iterate (the simulator's ``W x̂' +
+        diag·(Z − x̂')``).  A cross class ships the whole refreshed
+        block, one send a round.  ``consensus_gamma`` relaxes each round
+        as on the other lowerings (γ = 1 skipped)."""
+        gamma = float(kw.pop("consensus_gamma", 1.0))
+        stochastic = self._stochastic(**kw)
+        if T_con == 0:
+            return lambda z, state: (z, state)
+        arrays = virtual_arrays(vt, mesh.device)
+        V, g = vt.block, mesh.axis_index()
+        ids = g * V + torch.arange(V, device=mesh.device)
+
+        def mix(z, state):
+            params = self.resolve_params(z.shape[1], z.shape[2], **kw)
+            sel = _device_slice(arrays, g, z.dtype)
+            for _ in range(T_con):
+                xhat, count = state if stochastic else (state, None)
+                _, xhat2 = self.refresh(z, xhat, ids, count,
+                                        backend=backend, **params)
+                z2 = _virtual_selected_round(
+                    xhat2.reshape(V, -1), vt, mesh, sel,
+                    z_diag=z.reshape(V, -1)).reshape(z.shape)
+                if gamma != 1.0:
+                    z2 = z + gamma * (z2 - z)      # CHOCO relaxation
+                z = z2
+                state = (xhat2, count + 1) if stochastic else xhat2
             return z, state
         return mix
 
@@ -938,6 +1341,11 @@ class MaskedGossipCombine(GossipCombine):
         raise TypeError(f"combine rule {self.name!r} is availability-"
                         f"masked; use make_mesh_masked_mixer")
 
+    def make_virtual_mesh_mixer(self, mesh, vt, T_con, *,
+                                backend="torch-ref"):
+        raise TypeError(f"combine rule {self.name!r} is availability-"
+                        f"masked; use make_virtual_mesh_masked_mixer")
+
     def signature(self, T_con: int, **params) -> CommSignature:
         # static pricing cannot see the mask: full-participation worst
         # case (the event-driven clock measures the real cost)
@@ -1034,6 +1442,31 @@ class PartialGossipCombine(MaskedGossipCombine):
             return z
         return mix
 
+    def make_virtual_mesh_masked_mixer(self, mesh, vt: VirtualTopology,
+                                       T_con: int, *,
+                                       backend: str = "torch-ref"
+                                       ) -> Callable:
+        """Per-rank closure ``(z (V, d, r), m (L,)) ↦ z'`` on the virtual
+        tier: the edge-level fold (:func:`_virtual_masked_fold`, the COO
+        form of :func:`masked_mixing_matrix`) once a call, then T_con
+        plain virtual rounds on the folded arrays.  Full mask: every
+        keep is 1 and the rounds ARE the dense virtual rounds bit for
+        bit."""
+        if T_con == 0:
+            return lambda z, m: z
+        arrays = virtual_arrays(vt, mesh.device)
+        g = mesh.axis_index()
+
+        def mix(z, m):
+            mf = m.to(z.dtype).reshape(vt.n_dev, vt.block)
+            sel = _virtual_masked_fold(
+                vt, _device_slice(arrays, g, z.dtype), g, mf)
+            zf = z.reshape(vt.block, -1)
+            for _ in range(T_con):
+                zf = _virtual_selected_round(zf, vt, mesh, sel)
+            return zf.reshape(z.shape)
+        return mix
+
 
 class StaleGossipCombine(MaskedGossipCombine):
     """``stale_gossip`` — dropout tolerance on the reference-copy
@@ -1124,6 +1557,33 @@ class StaleGossipCombine(MaskedGossipCombine):
             return z, own
         return mix
 
+    def make_virtual_mesh_masked_state_mixer(self, mesh, vt: VirtualTopology,
+                                             T_con: int, *,
+                                             backend: str = "torch-ref",
+                                             **kw) -> Callable:
+        """Per-rank closure ``(z (V, d, r), x̂ (V, d, r), m (L,)) ↦ (z',
+        x̂')`` on the virtual tier: live nodes of the block publish into
+        their copies, round 0 mixes the copies under the UNMASKED edge
+        values (the queued stale packet delivers once), later rounds
+        under the edge-level fold; down nodes freeze."""
+        if T_con == 0:
+            return lambda z, state, m: (z, state)
+        arrays = virtual_arrays(vt, mesh.device)
+        V, g = vt.block, mesh.axis_index()
+
+        def mix(z, xhat, m):
+            sel = _device_slice(arrays, g, z.dtype)
+            sel_m = _virtual_masked_fold(
+                vt, sel, g, m.to(z.dtype).reshape(vt.n_dev, V))
+            mrow = m.to(torch.bool).reshape(vt.n_dev, V)[g][:, None, None]
+            for rd in range(T_con):
+                xhat = torch.where(mrow, z, xhat)      # live nodes publish
+                acc = _virtual_selected_round(xhat.reshape(V, -1), vt, mesh,
+                                              sel if rd == 0 else sel_m)
+                z = torch.where(mrow, acc.reshape(z.shape), z)
+            return z, xhat
+        return mix
+
 
 class PushSumGossipCombine(MaskedGossipCombine):
     """``push_sum_gossip`` — ratio consensus for the DIRECTED mixing
@@ -1205,6 +1665,50 @@ class PushSumGossipCombine(MaskedGossipCombine):
                 z = combine_blocks(zs, nz, w_eff, backend=backend)
                 wv = combine_blocks(ws, nw, w_eff, backend="torch-ref")
             return z / torch.where(wv > 0, wv, torch.ones_like(wv))
+        return mix
+
+    def make_virtual_mesh_masked_mixer(self, mesh, vt: VirtualTopology,
+                                       T_con: int, *,
+                                       backend: str = "torch-ref"
+                                       ) -> Callable:
+        """Per-rank push-sum ``(z (V, d, r), m (L,)) ↦ z'`` on the
+        virtual tier: each node's column normalizer is its own RECEIVER-
+        side live mass (its row is its column: W must be symmetric,
+        checked here), the pre-scaled pair (z/c, w/c) crosses in ONE
+        ``ppermute_many`` a round (two sends a class) and mixes under the
+        masked edge values with the ORIGINAL diagonal — the simulator's
+        column-stochastic rounds, since vals_C·z[col] = vals_m·(z/c)[col]
+        and diag_C·z = diag·(z/c)."""
+        if not _vt_is_symmetric(vt):
+            raise ValueError(
+                "push_sum_gossip's virtual-mesh lowering computes each "
+                "sender's column normalizer from its own receiver-side "
+                "mass, which requires a symmetric mixing matrix")
+        if T_con == 0:
+            return lambda z, m: z
+        arrays = virtual_arrays(vt, mesh.device)
+        V, g = vt.block, mesh.axis_index()
+
+        def mix(z, m):
+            # masked edges, ORIGINAL diagonal: the self link always stays
+            # live, as in push_sum_matrix
+            sel_m = _virtual_masked_fold(
+                vt, _device_slice(arrays, g, z.dtype), g,
+                m.to(z.dtype).reshape(vt.n_dev, V), fold_diag=False)
+            lr, _, lv_m, crs, _, cvs_m, dg = sel_m
+            c = dg + _segment_sum(lv_m, lr, V)     # own column's live mass
+            for k in range(len(vt.dev_shifts)):
+                c = c + _segment_sum(cvs_m[k], crs[k], V)
+            c = torch.where(c > 0, c, torch.ones_like(c))[:, None]
+            zf = z.reshape(V, -1)
+            wv = torch.ones((V, 1), dtype=z.dtype, device=z.device)
+            for _ in range(T_con):
+                zs, ws = zf / c, wv / c            # pre-scaled payload
+                rz, rw = _virtual_recv((zs, ws), vt, mesh)
+                zf = _virtual_combine(zs, rz, vt, sel_m)
+                wv = _virtual_combine(ws, rw, vt, sel_m)
+            out = zf / torch.where(wv > 0, wv, torch.ones_like(wv))
+            return out.reshape(z.shape)
         return mix
 
 

@@ -1,14 +1,15 @@
-"""One node per rank: the port's device mesh over ``torch.distributed``.
+"""The port's device mesh over ``torch.distributed``.
 
 The counterpart of ``repro.launch.mesh.make_mesh`` and
-``repro.utils.compat.shard_map`` for the one-node-per-device mesh
-substrate.  There a node is a device of a JAX mesh axis and its program
-runs inside ``shard_map``; here a node is a rank of an initialized
-``torch.distributed`` process group, and every rank runs the same
-program on its own node (SPMD).  :class:`NodeMesh` gives that program
-the mesh axis's collectives: its index, ``ppermute`` over cyclic
-shifts (:meth:`NodeMesh.ppermute_many`, one tensor or a tuple of them:
-a compressed payload, push-sum's pair), ``psum`` and ``all_gather``.
+``repro.utils.compat.shard_map`` for the mesh substrate.  There a node
+(or, on the virtual-node tier, a block of nodes) is a device of a JAX
+mesh axis and its program runs inside ``shard_map``; here it is a rank
+of an initialized ``torch.distributed`` process group, and every rank
+runs the same program on its own node or block (SPMD).  :class:`NodeMesh`
+gives that program the mesh axis's collectives: its index, ``ppermute``
+over cyclic shifts (:meth:`NodeMesh.ppermute_many`, one tensor or a
+tuple of them: a compressed payload, push-sum's pair), ``psum`` and
+``all_gather``.
 
 Transport.  A ``gloo`` group moves CPU tensors only, so on such a group
 CUDA tensors are staged through host buffers (a copy to the host before
@@ -53,9 +54,10 @@ SENDS: collections.Counter = collections.Counter()
 
 
 class NodeMesh:
-    """The mesh axis of a one-node-per-rank run: rank g of the default
-    process group (or of ``group``) is node g, computing on ``device``.
-    Raises RuntimeError when no process group is initialized."""
+    """The mesh axis of a run: rank g of the default process group (or
+    of ``group``) is node g, or on the virtual-node tier the g-th block
+    of nodes, computing on ``device``.  Raises RuntimeError when no
+    process group is initialized."""
 
     def __init__(self, device, group=None):
         if not (dist.is_available() and dist.is_initialized()):

@@ -709,6 +709,77 @@ def test_two_rank_gloo_mesh_stateful_and_masked(cuda, name, knobs):
     assert ranks[0][0]["sd_max"][-1] < ranks[0][0]["sd_max"][0]
 
 
+def test_two_rank_virtual_tier_through_the_kernels(cuda):
+    """L = 8 on 2 gloo ranks on the card (the virtual-node tier, block 4,
+    one cross-rank class): dif_altgdmin and dif_topk (k = d, every row
+    refreshed) against the port's simulator on the card (sd_max,
+    U_nodes and B_nodes at rtol 1e-4, atol 1e-5), dif_quantized (int8)
+    at its final sd_max (within 10 %, as chip_smoke.py holds dif_topk at
+    k = 150): the virtual round sums in another order than the
+    simulator's mix_rows, and the int8 wire rounds every entry half to
+    even, so round-off can move a payload entry by a quantum (its trace
+    parted by 2.4e-5 at this shape on an H100; at Experiment 1
+    chip_smoke.py holds it within rtol 1e-4, atol 1e-5).  Each rank's
+    launches are the virtual DispatchBudget's: one node_fused_iter an
+    iteration, one compress_topk / int8_round_kernel a round, no
+    gossip_combine, mix_rows or dequant_kernel; its sends
+    R·K·wire_virtual."""
+    from repro_torch.api import (EngineSpec, ExperimentSpec, InitSpec,
+                                 ProblemSpec, SolverSpec, TopologySpec,
+                                 materialize, run_experiment)
+    from repro_torch.api.runner import run_on_mesh
+    from repro_torch.distributed.mesh import spawn
+    from repro_torch.kernels import _build
+    _build.build()                  # the ranks load it, never race on nvcc
+    T_GD, T_con, d = 40, 3, 60
+    base = ExperimentSpec(
+        problem=ProblemSpec(d=d, T=40, r=3, n=25, L=8, kappa=1.5,
+                            dtype="float32"),
+        topology=TopologySpec(family="erdos_renyi", p=0.6, seed=2),
+        init=InitSpec(T_pm=20, T_con=3),
+        solver=SolverSpec(T_GD=T_GD, T_con=T_con),
+        engine=EngineSpec(backend="cuda"), substrate="mesh")
+    runs = (("dif_altgdmin", {}), ("dif_topk", {"compression_k": d}),
+            ("dif_quantized", {"compression": "int8"}))
+    specs = [dataclasses.replace(base, solver=dataclasses.replace(
+        base.solver, name=name, **kw)) for name, kw in runs]
+    ranks = spawn(run_on_mesh, 2, args=("cuda", [s.to_dict() for s in specs],
+                                        1),
+                  backend="gloo", device="cuda", timeout=300)
+    mat = materialize(base, key=1)
+    rounds = T_con * T_GD
+    for i, (spec, (name, _)) in enumerate(zip(specs, runs)):
+        sim = run_experiment(dataclasses.replace(spec, substrate="simulator"),
+                             key=1, materialized=mat)
+        want = {"node_fused_iter": T_GD, "node_task_gram": 1}
+        want_kernels = {}
+        if name == "dif_topk":
+            want["compress_topk"] = rounds
+        elif name == "dif_quantized":
+            want["dequant"] = rounds
+            want_kernels["int8_round_kernel"] = rounds
+        for g in range(2):
+            hw = ranks[g][i]
+            assert hw["launches"] == want, (name, hw["launches"])
+            assert hw["kernel_launches"].get("dequant_kernel", 0) == 0
+            for key, v in want_kernels.items():
+                assert hw["kernel_launches"][key] == v
+            assert hw["sends"] == rounds * 1 * 1    # K = 1, wire_virtual 1
+            np.testing.assert_array_equal(hw["U_nodes"],
+                                          ranks[0][i]["U_nodes"])
+            if name == "dif_quantized":
+                assert abs(hw["sd_max"][-1] - sim.sd_max[-1]) \
+                    < 0.1 * sim.sd_max[-1]
+                continue
+            np.testing.assert_allclose(hw["sd_max"], sim.sd_max, rtol=1e-4,
+                                       atol=1e-5, err_msg=name)
+            for field in ("U_nodes", "B_nodes"):
+                np.testing.assert_allclose(
+                    hw[field], getattr(sim, field).cpu().numpy(), rtol=1e-4,
+                    atol=1e-5, err_msg=f"{name} {field}")
+        assert ranks[0][i]["sd_max"][-1] < ranks[0][i]["sd_max"][0]
+
+
 # (T, n, d, r): the serving cohort and a serving batch at Experiment 1's
 # width, the JAX package's kernel benchmark row, a ragged d, the rank
 # capacity's edge, one task

@@ -16,6 +16,8 @@ against the JAX package on the CPU, inputs from a seed (numpy) or from
   own simulator and the reference's simulator on the same arrays (≤ 1e-8
   on ``U_nodes`` and ``sd_max``), and the same result on every rank.
   The reference's own mesh runs are not used: they fail on this jax;
+* L = 8 on a one-rank group, which runs the virtual-node tier (one
+  block of 8, no message): every program equal to the port's simulator;
 * the refusals, and a failing or hung rank failing the spawn.
 """
 import dataclasses
@@ -42,6 +44,7 @@ from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.api.runner import run_on_mesh  # noqa: E402
 from repro_torch.distributed import consensus as tcons  # noqa: E402
 from repro_torch.distributed import gossip as tgossip  # noqa: E402
+from repro_torch.distributed import mesh as tmesh  # noqa: E402
 from repro_torch.distributed.mesh import NodeMesh, spawn  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
@@ -389,8 +392,28 @@ def test_mesh_outside_a_process_group_raises():
 
 def test_mesh_refusals(one_rank_group):
     spec = _small_mesh_spec()
-    with pytest.raises(NotImplementedError, match="one node per rank"):
-        tapi.run_experiment(spec, device="cpu")       # L=8, 1 rank
+    # L=8 on one rank runs the virtual-node tier (D = 1, block 8): no
+    # cross-rank class, so no message, and every program equals the
+    # port's simulator
+    mat = tapi.materialize(spec, key=0, device="cpu")
+    for name in tapi.solver_names():
+        s = dataclasses.replace(spec, solver=dataclasses.replace(
+            spec.solver, name=name))
+        tmesh.SENDS.clear()
+        got = tapi.run_experiment(s, materialized=mat)
+        assert tmesh.SENDS["p2p"] == 0, name
+        sim = tapi.run_experiment(
+            dataclasses.replace(s, substrate="simulator"), materialized=mat)
+        np.testing.assert_allclose(
+            got.U_nodes.numpy(),
+            np.broadcast_to(sim.U_nodes.numpy(), got.U_nodes.shape),
+            err_msg=name, **TOL)
+        np.testing.assert_allclose(got.B_nodes.numpy(), sim.B_nodes.numpy(),
+                                   err_msg=name, **TOL)
+        for field in ("sd_max", "sd_mean", "spread"):
+            np.testing.assert_allclose(getattr(got, field),
+                                       getattr(sim, field),
+                                       err_msg=f"{name} {field}", **TOL)
     folded = dataclasses.replace(spec, problem=dataclasses.replace(
         spec.problem, n_folds=2))
     with pytest.raises(ValueError, match="sample splitting"):
