@@ -57,8 +57,9 @@ Phases, each printing one JSON line and raising on failure:
                entry reports), the same bits on one and two CTAs a task
                forced, f64 through ops.altgdmin_node_gradient;
                compress_topk and dequant against theirs BIT FOR BIT at
-               (20, 600, 4), (100, 100, 10) and (3, 97, 3), tied rows
-               included, and compress_topk on blocks with NaN rows (fewer
+               (20, 600, 4), (100, 100, 10), (3, 97, 3) and the sparse
+               tier's (100 000, 16, 2), tied rows included, and
+               compress_topk on blocks with NaN rows (fewer
                and more non-NaN rows than k), +inf rows and all rows
                equal at (20, 600, 4) and (3, 97, 3), k = d/2 and d (NaN
                compared by its bits); the int8 round (int8_round, both
@@ -158,6 +159,46 @@ Phases, each printing one JSON line and raising on failure:
                and its sends against R·K·wire_virtual; each program's
                line carries phase 12's ms, staging and wire ms, sends an
                iteration and spawn seconds beside its own;
+ 12c. sparse — the sparse consensus tier at the reference's scale
+               configuration (benchmarks/scale_bench.py:49-58; SPARSE_L
+               = 100 000 nodes and tasks on a Barabási–Albert graph, m =
+               3, Metropolis weights in sparse form, d = 16, r = 2, n =
+               8, T_con = 3, η = 1e-4; T_GD cut from 3 to SPARSE_T_GD
+               for time) at f32 on the
+               simulator: materialized once on the card (its seconds; the
+               edges, the stored and padded entries, whether W^{T_con}
+               declined its fill budget); node_fused_iter and
+               node_task_gram against their plain versions at its shape
+               (100 000 tasks, n = 8, d = 16, r = 2) with their times and
+               bounds; one program of each rule family (SPARSE_FULL_L,
+               cut from the twelve for time) on cuda with
+               their launches the dense simulator's less every mix_rows
+               and gossip_combine launch (sparse_budget), each against
+               torch-ref on the same materialization (sd_max at rtol
+               1e-4, atol 1e-5, and U_nodes at MESH_TOL but for the int8
+               and event rules; dif_topk at its final value within 10 %);
+               dif_altgdmin's ms an iteration on each backend (no
+               second run: nothing compiles and the materialization
+               warmed every operand) and a profiled run (device ms,
+               device operations and host ms an iteration, busy share,
+               top device ops); the phase's peak device memory under
+               SPARSE_MEM_LIMIT;
+ 12d. sparse_auto — the reference's L = 1024 test graph (ER p = 6/L,
+               seed 5, d = 8, r = 2, n = 10) under representation="auto",
+               which must take the sparse tier; every program at
+               SPARSE_AUTO_T_GD on cuda against the same spec with
+               representation="dense", the launches of sparse_budget on
+               both;
+ 12e. sparse_virtual — the scale configuration on SPARSE_VIRTUAL_RANKS
+               gloo ranks on the one card (a block of 25 000 nodes a
+               rank), every rank starting from phase 12c's
+               materialization carried across as host arrays:
+               dif_altgdmin, exact_diffusion, dif_topk (k = 4)
+               and dif_partial under MASKED_DROPOUT, held as phase 12b
+               holds its programs (MESH_TOL against the simulator on the
+               sparse phase's materialization, dif_topk at its final
+               value, the virtual DispatchBudget, R·K·wire_virtual sends
+               of a 3.2 MB block each), without its convergence checks;
  13. serving kernels — task_gram and task_grad_tiles (one basis shared by
                T tasks) against their plain versions at the serving
                phase's cohort (T = 64, n = 16, d = 600, r = 4), a serving
@@ -247,10 +288,18 @@ launches; gossip_combine's its form and its time at every f32 case;
 dequant's the int8 round's, the
 kernel dif_quantized launches, with the standalone dequant_kernel's
 beside it; compress_topk's and dequant's rank-0 launches on the mesh,
+node_fused_iter's, node_task_gram's, compress_topk's and dequant's
+launches on the sparse tier (``launches_sparse``), node_fused_iter's and
+node_task_gram's times and bounds at its shape (``sparse_shape``),
 gossip_combine's per mesh program; the launch floor beside mix_rows,
 compress_topk, dequant and gossip_combine), the card line, and the
 result line.  Exits non-zero,
 printing no result, without a CUDA device or outside the repo.
+
+    python3 chip_smoke.py --sparse-tier
+
+builds the kernels and runs phases 12c-12e only, printing their lines,
+with all twelve programs at L = 100 000 in phase 12c (no cut for time).
 
     python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]
 
@@ -353,19 +402,23 @@ REPLACES = {"node_fused_iter": "src/repro/kernels/altgdmin_ls.py:244",
 
 # The sample-split fold of Experiment 1 (n = 30 split in two), and the
 # (N, d, r, k) blocks of compress_topk: the dif_topk path's (k = d/4),
-# Experiment 2's, and a ragged one at the two ends of k.
+# Experiment 2's, a ragged one at the two ends of k, and the sparse
+# tier's (the scale configuration's 100 000 nodes at k = d/4).
 GRAD_SHAPES = {"exp1_fold": SHAPES["exp1_fold"], "exp2": SHAPES["exp2"],
                "ragged": SHAPES["ragged"]}
 TOPK_SHAPES = {"exp1": (20, 600, 4, 150), "exp2": (100, 100, 10, 25),
-               "ragged_k1": (3, 97, 3, 1), "ragged_kd": (3, 97, 3, 97)}
+               "ragged_k1": (3, 97, 3, 1), "ragged_kd": (3, 97, 3, 97),
+               "sparse": (100_000, 16, 2, 4)}
 # compress_topk's blocks with NaN, +inf and all-equal norms, at the
 # dif_topk path's shape and the ragged one
 TOPK_SPECIAL_SHAPES = ("exp1", "ragged_k1")
 # (N, d, r) of the int8 round: the dif_quantized path's (Experiment 1),
-# L = 100 at d = 1000, a ragged d at r = 16, and a node past what one CTA
-# holds (a cluster of 8 CTAs, each reading its share twice)
+# L = 100 at d = 1000, a ragged d at r = 16, a node past what one CTA
+# holds (a cluster of 8 CTAs, each reading its share twice), and the
+# sparse tier's block (the scale configuration's 100 000 nodes)
 ROUND_SHAPES = {"exp1": (20, 600, 4), "l100": (100, 1000, 4),
-                "ragged": (3, 291, 16), "past_cta": (3, 8192, 16)}
+                "ragged": (3, 291, 16), "past_cta": (3, 8192, 16),
+                "sparse": (100_000, 16, 2)}
 ROUND_WIRES = ("int8", "int8_stochastic")
 
 
@@ -444,6 +497,67 @@ VIRTUAL_TIMEOUT = 300
 # rank 0's final U_nodes and B_nodes against the simulator's on the card:
 # the trajectory tolerance the sd_max traces are held to
 MESH_TOL = dict(rtol=1e-4, atol=1e-5)
+
+# The sparse tier's phases.  ``sparse`` runs the reference's own scale
+# configuration (benchmarks/scale_bench.py:49-58) at f32: L = T = 100 000
+# on a Barabási–Albert graph (m = 3, seed 0) with Metropolis weights in
+# sparse form, d = 16, r = 2, n = 8, κ = 1.2, init T_pm = 3 / T_con = 2,
+# T_con = 3, η = 1e-4 (T_GD cut below); the programs of SPARSE_FULL_L,
+# each held against torch-ref on the card, with the peak device memory
+# over the phase under SPARSE_MEM_LIMIT (a densified f32 W alone would be
+# 40 GB).  Its masked program runs always-on: a dropout schedule's
+# event-driven clock walks the graph's 600 000 directed links every round
+# in host Python, which sparse_virtual pays once, for dif_partial.
+SPARSE_L = 100_000
+SPARSE_MEM_LIMIT = 2 * 2 ** 30
+# T_GD cut from the reference's 3 to fit the script's time limit: the
+# retraction's batched QR forms Q one 16 × 2 block at a time (torch's
+# cuSOLVER orgqr loop, nine kernels a block), seconds a call at this L
+# (PERF.md §5), and every run and its torch-ref hold pays one an
+# iteration.
+SPARSE_T_GD = 1
+# Each program with its knobs and how it is held against torch-ref:
+# "iterate" — the sd_max trace and the final U_nodes (MESH_TOL);
+# "trace" — the sd_max trace (the int8 and event rules make discrete
+# choices on the data, which round-off can flip for a few of the 100 000
+# nodes); "final" — the final sd_max within 10 % (top-k's selection).
+SPARSE_PROGRAMS = (("dif_altgdmin", {}, "iterate"),
+                   ("dec_altgdmin", {}, "iterate"),
+                   ("dgd_altgdmin", {}, "iterate"),
+                   ("centralized_altgdmin", {}, "iterate"),
+                   ("exact_diffusion", {}, "iterate"),
+                   ("beyond_central", {}, "iterate"),
+                   ("dif_topk", {"compression_k": 4}, "final"),
+                   ("dif_quantized", {"compression": "int8"}, "trace"),
+                   ("dif_event", {"event_threshold": 0.02}, "trace"),
+                   ("dif_partial", {}, "iterate"),
+                   ("dif_stale", {}, "iterate"),
+                   ("dif_pushsum", {}, "iterate"))
+# The programs the sparse phase runs at L = 100 000, cut from the twelve
+# for time (T_GD already at 1): one of each rule family — gossip
+# (dif_altgdmin), neighbour (dgd_altgdmin), fusion center, compressed
+# (dif_topk and dif_quantized: their compress_topk and int8 round launch
+# on the tier's (100 000, 16, 2) block), masked (dif_pushsum; dif_partial
+# runs at this L under dropout in sparse_virtual's simulator hold).
+# sparse_auto runs all twelve on the tier.
+SPARSE_FULL_L = ("dif_altgdmin", "dgd_altgdmin", "centralized_altgdmin",
+                 "dif_topk", "dif_quantized", "dif_pushsum")
+# ``sparse_auto``: the reference's own test graph for the tier
+# (tests/test_sparse.py:251-257): ER(1024, 6/L, seed 5), d = 8, r = 2,
+# n = 10, under representation="auto", each program against the same
+# spec with representation="dense" at SPARSE_AUTO_T_GD iterations.
+SPARSE_AUTO_L, SPARSE_AUTO_T_GD = 1024, 10
+# ``sparse_virtual``: the scale configuration on SPARSE_VIRTUAL_RANKS
+# gloo ranks on the one card (a block of 25 000 nodes a rank; the BA
+# graph links every pair of ranks, so K = 3 cross-rank classes), the
+# reference bench's virtual-tier programs (scale_bench.py:160-225, top-k
+# at k = 4) and dif_altgdmin, dif_partial under MASKED_DROPOUT.
+SPARSE_VIRTUAL_RANKS = 4
+SPARSE_VIRTUAL_TIMEOUT = 300
+SPARSE_VIRTUAL_SOLVERS = (("dif_altgdmin", {}, None, True),
+                          ("exact_diffusion", {}, None, True),
+                          ("dif_topk", {"compression_k": 4}, None, False),
+                          ("dif_partial", {}, MASKED_DROPOUT, True))
 
 # (T, n, d, r) of the single-basis kernels: the serving phase's cohort
 # at Experiment 1's width (the shape the path gives them, the kernel
@@ -778,14 +892,18 @@ def main_path(torch):
     return spec, mat, launches, trace
 
 
-def profiled(torch, fn) -> dict:
-    """One call of ``fn`` (after a warm call) under torch.profiler: host
-    wall ms ended by a device synchronize, device ms summed over kernels,
-    the device's busy share and the top kernels by device ms."""
+def profiled(torch, fn, *, warm: bool = True) -> dict:
+    """One call of ``fn`` (after a warm call, unless ``warm`` is False)
+    under torch.profiler: host wall ms ended by a device synchronize,
+    device ms summed over kernels, the device's busy share and the top
+    kernels by device ms.  The profiler's raw events are read as they
+    are (``kineto_results``): building its per-event Python objects
+    costs tens of µs an event, minutes for a run of a million launches."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    fn()                                                  # warm
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -793,10 +911,11 @@ def profiled(torch, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, device_ops = {}, 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name] = (kernels.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us() / 1e3)
+    cuda = torch.autograd.DeviceType.CUDA
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            name = ev.name()
+            kernels[name] = kernels.get(name, 0.0) + ev.duration_ns() / 1e6
             device_ops += 1
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
@@ -1018,9 +1137,13 @@ def run_path(torch, spec, mat, want, want_kernels, *, name):
     → (trace, torch-ref trace, launches, CUDA launches by kernel,
     seconds per run of each)."""
     from repro_torch.api import EngineSpec, run_experiment
+    from repro_torch.core.program import get_program
     from repro_torch.kernels import _build
 
     T_GD, p = spec.solver.T_GD, spec.problem
+    # the fusion center's simulator carries one iterate
+    U_shape = ((p.L, p.d, p.r) if get_program(spec.solver.name).stacked
+               else (1, p.d, p.r))
     _build.LAUNCHES.clear()
     _build.KERNEL_LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -1037,7 +1160,7 @@ def run_path(torch, spec, mat, want, want_kernels, *, name):
             ("sd_max", trace.sd_max, (T_GD,)),
             ("spread", trace.spread, (T_GD,)),
             ("time_axis", trace.time_axis, (T_GD,)),
-            ("U_nodes", trace.U_nodes.cpu().numpy(), (p.L, p.d, p.r)),
+            ("U_nodes", trace.U_nodes.cpu().numpy(), U_shape),
             ("B_nodes", trace.B_nodes.cpu().numpy(),
              (p.L, p.T // p.L, p.r))):
         require(tuple(arr.shape) == shape and bool(np.isfinite(arr).all()),
@@ -1394,12 +1517,16 @@ def program_runs(spec, T_GD, state_T_GD, *, full=()):
 
 
 def hold_programs(phase, spec, mat, runs, specs, ranks, *, tier, K, spawn_s,
-                  extra=None):
+                  extra=None, converges=True, sims=None):
     """Hold each program's mesh run (``ranks``, every rank's results of
     run_on_mesh) as phases 12 and 12b do, emit a ``phase`` line a
     program, and raise on any failure.  ``tier`` is the DispatchBudget
     substrate ("mesh" or "virtual"), ``K`` the shift classes by the
-    program's topology; ``extra(name)`` adds fields to a program's line.
+    program's topology; ``extra(name)`` adds fields to a program's line;
+    ``converges=False`` drops the convergence checks (a run too short,
+    or a step too small, to show them); ``sims`` maps a program to its
+    simulator trace on ``mat`` when one was run already (the same spec
+    on substrate "simulator"), else the simulator runs here.
     Returns rank 0's launches (gossip_combine's by program,
     compress_topk's and dequant's) and each program's timings."""
     from repro_torch.api import run_experiment
@@ -1475,8 +1602,9 @@ def hold_programs(phase, spec, mat, runs, specs, ranks, *, tier, K, spawn_s,
         elif name == "dif_quantized":
             out["dequant"] = hw["launches"].get("dequant", 0)
             out["dequant_kernels"] = hw["kernel_launches"]
-        sim = run_experiment(dataclasses.replace(s, substrate="simulator"),
-                             key=0, materialized=mat)
+        sim = (sims or {}).get(name) or run_experiment(
+            dataclasses.replace(s, substrate="simulator"), key=0,
+            materialized=mat)
         sd, sd_sim = hw["sd_max"], sim.sd_max
         ok, diff, first = agree_upto(sd, sd_sim)
         # the iterates themselves, not only their worst subspace distance
@@ -1547,6 +1675,8 @@ def hold_programs(phase, spec, mat, runs, specs, ranks, *, tier, K, spawn_s,
         elif final_rel > 0.1:
             failures.append(f"{label}: final sd_max {float(sd[-1]):.3e} vs "
                             f"the simulator's {float(sd_sim[-1]):.3e}")
+        if not converges:
+            continue
         if name not in MESH_SOLVERS and not sd[-1] < sd[0]:
             failures.append(f"{label}: sd_max did not fall, {sd[0]:.3e} → "
                             f"{sd[-1]:.3e}")
@@ -1638,6 +1768,363 @@ def virtual_mesh_phase(torch, spec, mat, mesh_out, *, D=VIRTUAL_RANKS,
                 "mesh_ranks": L, "mesh_spawn_s": mesh_out["spawn_s"]}
     return hold_programs("virtual_mesh", spec, mat, runs, specs, ranks,
                          tier="virtual", K=K, spawn_s=spawn_s, extra=beside)
+
+
+def sparse_spec(**solver):
+    """The reference's scale configuration (SPARSE_L, BA m = 3, sparse
+    Metropolis weights; T_GD cut to SPARSE_T_GD) at f32 on the cuda
+    backend, solver fields replaced by ``solver``."""
+    from repro_torch.api import (EngineSpec, ExperimentSpec, InitSpec,
+                                 ProblemSpec, SolverSpec, TopologySpec)
+    L = SPARSE_L
+    return ExperimentSpec(
+        problem=ProblemSpec(d=16, T=L, r=2, n=8, L=L, kappa=1.2,
+                            dtype="float32"),
+        topology=TopologySpec(family="barabasi_albert", ba_m=3, seed=0,
+                              weights="metropolis", representation="sparse"),
+        init=InitSpec(T_pm=3, T_con=2),
+        solver=dataclasses.replace(
+            SolverSpec(name="dif_altgdmin", T_GD=SPARSE_T_GD, T_con=3,
+                       eta=1e-4), **solver),
+        engine=EngineSpec(backend="cuda"))
+
+
+def sparse_budget(spec, name):
+    """A program's launches on the sparse tier: the dense simulator's
+    with every mix_rows and gossip_combine launch removed, which is the
+    virtual tier's DispatchBudget at K = 0 — (wrapper counts, CUDA
+    launches by kernel, launches an iteration)."""
+    from repro_torch.core.program import get_program
+    from repro_torch.distributed.consensus import get_rule
+
+    prog = get_program(name)
+    T, T_con = spec.solver.T_GD, spec.solver.T_con
+    steps = spec.solver.local_steps
+    R = get_rule(prog.combine).signature(T_con).rounds_per_iter
+    n_round = R * T if prog.mixer != "central" else 0
+    want = {"node_fused_iter": T * steps, "node_task_gram": 1,
+            "mix_rows": 0, "gossip_combine": 0, "node_task_grad_tiles": 0,
+            "compress_topk": n_round if name == "dif_topk" else 0,
+            "dequant": n_round if name == "dif_quantized" else 0}
+    want_kernels = {"fused_resident_kernel": T * steps,
+                    "stream_gram_kernel": 1}
+    if name == "dif_quantized":             # the whole int8 round
+        want_kernels["int8_round_kernel"] = n_round
+    per_iter = prog.dispatch_budget.per_iter("virtual", R, 0, steps)
+    require(sum(want.values()) - 1 == per_iter * T,
+            f"{name}: launches {want} disagree with the DispatchBudget's "
+            f"{per_iter} an iteration")
+    return want, want_kernels, per_iter
+
+
+def check_sparse_kernels(torch):
+    """node_fused_iter and node_task_gram against their plain versions
+    at the scale configuration's shape (L = 100 000 tasks, one a node,
+    n = 8, d = 16, r = 2; f32), with their times and bounds
+    (compress_topk and the int8 round take the tier's (100 000, 16, 2)
+    block in phase 6)."""
+    from repro_torch.kernels import _build, altgdmin_ls, ref
+
+    shape = (SPARSE_L, 1, 8, 16, 2)
+    L, tpn, n, d, r = shape
+    X, U, y = instance(torch, shape, torch.float32, seed=23)
+    (B, tiles), fused_kernel = reported(_build, altgdmin_ls.node_fused_iter,
+                                        X, U, y)
+    e_fused = pair_err(torch, (B, tiles), ref.ref_fused_iter(X, U, y),
+                       TOL["float32"], "node_fused_iter sparse")
+    (G, c), gram_kernel = reported(_build, altgdmin_ls.node_task_gram,
+                                   X, U, y)
+    e_gram = pair_err(torch, (G, c), ref.ref_task_gram(X, U, y),
+                      TOL["float32"], "node_task_gram sparse")
+    require(fused_kernel == {"fused_resident_kernel": 1}
+            and gram_kernel == {"stream_gram_kernel": 1},
+            f"sparse shape: launched {fused_kernel} and {gram_kernel}")
+    tasks = L * tpn
+    flops_gram = tasks * (2 * n * d * r + 2 * n * r * r + 2 * n * r)
+    flops_fused = flops_gram + tasks * (r ** 3 / 3 + 2 * r * r + 2 * n * r
+                                        + 2 * n * d + d * r)
+    times = {
+        "node_fused_iter": timing(
+            torch, altgdmin_ls.node_fused_iter, ref.ref_fused_iter,
+            (X, U, y), nbytes(X, U, y, B, tiles), flops_fused),
+        "node_task_gram": timing(
+            torch, altgdmin_ls.node_task_gram, ref.ref_task_gram, (X, U, y),
+            nbytes(X, U, y, G, c), flops_gram)}
+    times["node_fused_iter"]["ms_by_ctas_a_task"] = {
+        k: device_ms(torch, lambda: altgdmin_ls.node_fused_iter(
+            X, U, y, ctas_per_task=k)) for k in (1, 2)}
+    for name, e in (("node_fused_iter", e_fused), ("node_task_gram", e_gram)):
+        times[name].update(shape=list(shape), max_abs_err=e)
+    emit("sparse", part="kernels", timing=times)
+    return times
+
+
+def sparse_phase(torch, programs=SPARSE_FULL_L):
+    """The sparse tier at the reference's scale configuration on the
+    simulator: materialize once on the card (no (L, L) array), then
+    ``programs`` (of SPARSE_PROGRAMS) on cuda with their launches
+    against sparse_budget, each held against torch-ref on the same
+    materialization; dif_altgdmin's run profiled.  The peak device
+    memory over the phase must stay under SPARSE_MEM_LIMIT.  → (the
+    materialization, the launches for the kernels line, the kernels'
+    times at the tier's shape, the cuda traces sparse_virtual holds its
+    programs against)."""
+    import gc
+    from repro_torch.api import materialize, run_experiment
+    from repro_torch.distributed import consensus
+    from repro_torch.distributed.graphs import SparseGraph
+    from repro_torch.distributed.mixing import SparseWeights
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    t_phase = time.perf_counter()
+    spec = sparse_spec()
+    T_GD, T_con = spec.solver.T_GD, spec.solver.T_con
+    t0 = time.perf_counter()
+    mat = materialize(spec, key=0, device="cuda")
+    torch.cuda.synchronize()
+    materialize_s = time.perf_counter() - t0
+    W, graph = mat.W, mat.graph
+    require(isinstance(W, SparseWeights) and isinstance(mat.adj, SparseGraph),
+            f"the sparse tier's materialization holds {type(W).__name__} "
+            f"and {type(mat.adj).__name__}")
+    t0 = time.perf_counter()
+    hoist = consensus._sparse_power(W, T_con)
+    power_s = time.perf_counter() - t0
+    emit("sparse", part="materialize", L=SPARSE_L, family="barabasi_albert",
+         ba_m=3, edges=graph.n_edges, stored_entries=W.nnz,
+         padded_entries=int(consensus._sparse_arrays(W)[0].size),
+         max_degree=graph.max_degree, density=graph.density,
+         power_budget=8 * max(W.nnz, W.n),
+         power_declined=hoist is None, power_s=power_s,
+         materialize_s=materialize_s)
+    kernel_times = check_sparse_kernels(torch)
+
+    launches, failures, traces = {}, [], {}
+    reused = {name for name, _, system, _ in SPARSE_VIRTUAL_SOLVERS
+              if system is None and name in programs}
+    for name, kw, hold in SPARSE_PROGRAMS:
+        if name not in programs:
+            continue
+        s = sparse_spec(name=name, **kw)
+        want, want_kernels, per_iter = sparse_budget(s, name)
+        trace, trace_ref, got, got_kernels, run_s, ref_s = run_path(
+            torch, s, mat, want, want_kernels, name=f"sparse {name}")
+        launches[name] = got
+        ok, diff, first = agree_upto(trace.sd_max, trace_ref.sd_max)
+        final_rel = (abs(trace.final_sd_max - trace_ref.final_sd_max)
+                     / trace_ref.final_sd_max)
+        U_diff = float((trace.U_nodes.double()
+                        - trace_ref.U_nodes.double()).abs().max())
+        U_ok = bool(torch.allclose(trace.U_nodes, trace_ref.U_nodes,
+                                   **MESH_TOL))
+        if name in reused:
+            traces[name] = trace
+        line = dict(part="program", solver=name, knobs=kw, L=SPARSE_L,
+                    T_GD=T_GD, T_GD_cut=f"from the reference's 3 to "
+                    f"{T_GD} to fit the script's time limit", T_con=T_con,
+                    launches=got, kernel_launches=got_kernels,
+                    dispatch_budget_per_iter=per_iter,
+                    first_sd_max=float(trace.sd_max[0]),
+                    final_sd_max=trace.final_sd_max,
+                    torch_ref_final_sd_max=trace_ref.final_sd_max,
+                    final_rel_diff_vs_torch_ref=final_rel,
+                    held=hold, agrees=ok, U_nodes_agree=U_ok,
+                    sd_max_vs_torch_ref_max_abs_diff=diff,
+                    first_parting_iteration=first,
+                    U_nodes_vs_torch_ref_max_abs_diff=U_diff,
+                    run_s=run_s, ms_per_iter=run_s / T_GD * 1e3,
+                    torch_ref_run_s=ref_s,
+                    torch_ref_ms_per_iter=ref_s / T_GD * 1e3)
+        if name == "dif_altgdmin":
+            # the runs above found every operand on the card and the
+            # W^{T_con} hoist decided (materialize's init and the power
+            # line), and nothing compiles, so they are warm: no second
+            # run (the JAX bench's reason for one); a profiled third run
+            t0 = time.perf_counter()
+            prof = profiled(torch, lambda: run_experiment(
+                s, key=0, materialized=mat), warm=False)
+            line["profile"] = dict(
+                seconds=time.perf_counter() - t0,
+                iterations=T_GD,
+                device_ms_per_iter=prof["device_busy_ms"] / T_GD,
+                device_ops_per_iter=prof["device_ops"] / T_GD,
+                host_ms_per_iter=prof["wall_ms"] / T_GD,
+                device_busy_share=prof["device_busy_share"],
+                top_kernels_ms=prof["top_kernels_ms"])
+        emit("sparse", **line)
+        if hold != "final" and not ok:
+            failures.append(f"{name}: sd_max disagrees with torch-ref (max "
+                            f"abs diff {diff:.3e}, first at {first})")
+        if hold == "iterate" and not U_ok:
+            failures.append(f"{name}: U_nodes disagree with torch-ref (max "
+                            f"abs diff {U_diff:.3e})")
+        if hold == "final" and final_rel > 0.1:
+            failures.append(f"{name}: final sd_max {trace.final_sd_max:.3e}"
+                            f" vs torch-ref {trace_ref.final_sd_max:.3e}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    emit("sparse", part="memory", peak_mib=peak / 2 ** 20,
+         base_mib=base_mb, limit_mib=SPARSE_MEM_LIMIT / 2 ** 20,
+         phase_s=phase_s)
+    require(peak < SPARSE_MEM_LIMIT,
+            f"sparse: peak device memory {peak / 2 ** 30:.2f} GiB, past "
+            f"{SPARSE_MEM_LIMIT / 2 ** 30:.0f} GiB")
+    require(not failures, "sparse: " + "; ".join(failures))
+    return mat, launches, kernel_times, traces
+
+
+def sparse_auto_phase(torch):
+    """The reference's L = 1024 test graph under representation="auto":
+    it must take the sparse tier; then every program at SPARSE_AUTO_T_GD
+    on cuda against the same spec with representation="dense", with the
+    launches of sparse_budget on both (the dense matrix's mixers
+    sparsify it, maybe_sparsify)."""
+    from repro_torch.api import (EngineSpec, ExperimentSpec, InitSpec,
+                                 ProblemSpec, SolverSpec, TopologySpec,
+                                 materialize, run_experiment)
+    from repro_torch.distributed.mixing import SparseWeights
+    from repro_torch.kernels import _build
+
+    L, T_GD = SPARSE_AUTO_L, SPARSE_AUTO_T_GD
+    t_phase = time.perf_counter()
+
+    def spec(representation, name="dif_altgdmin", **kw):
+        return ExperimentSpec(
+            problem=ProblemSpec(d=8, T=L, r=2, n=10, L=L, kappa=1.2,
+                                dtype="float32"),
+            topology=TopologySpec(family="erdos_renyi", p=6.0 / L, seed=5,
+                                  representation=representation),
+            init=InitSpec(T_pm=3, T_con=2),
+            solver=SolverSpec(name=name, T_GD=T_GD, T_con=3, **kw),
+            engine=EngineSpec(backend="cuda"))
+    mats = {rep: materialize(spec(rep), key=0, device="cuda")
+            for rep in ("auto", "dense")}
+    require(isinstance(mats["auto"].W, SparseWeights)
+            and torch.is_tensor(mats["dense"].W),
+            "sparse_auto: representation='auto' did not take the sparse "
+            "tier at L = 1024")
+    failures = []
+    for name, kw, hold in SPARSE_PROGRAMS:
+        traces, launches = {}, {}
+        for rep, mat in mats.items():
+            s = spec(rep, name, **kw)
+            _build.LAUNCHES.clear()
+            traces[rep] = run_experiment(s, key=0, materialized=mat)
+            launches[rep] = dict(_build.LAUNCHES)
+        want = {k: v for k, v in sparse_budget(s, name)[0].items() if v}
+        ok, diff, first = agree_upto(traces["auto"].sd_max,
+                                     traces["dense"].sd_max)
+        final_rel = (abs(traces["auto"].final_sd_max
+                         - traces["dense"].final_sd_max)
+                     / traces["dense"].final_sd_max)
+        emit("sparse_auto", solver=name, knobs=kw, L=L, T_GD=T_GD,
+             launches=launches["auto"], launches_dense=launches["dense"],
+             first_sd_max=float(traces["auto"].sd_max[0]),
+             final_sd_max=traces["auto"].final_sd_max,
+             dense_final_sd_max=traces["dense"].final_sd_max,
+             final_rel_diff_vs_dense=final_rel, held=hold,
+             agrees=ok, sd_max_vs_dense_max_abs_diff=diff,
+             first_parting_iteration=first)
+        for rep in mats:
+            if launches[rep] != want:
+                failures.append(f"{name} {rep}: launches {launches[rep]}, "
+                                f"want {want}")
+        if not all(np.isfinite(t.sd_max).all() for t in traces.values()):
+            failures.append(f"{name}: sd_max not finite")
+        if hold != "final" and not ok:
+            failures.append(f"{name}: sd_max disagrees with the dense "
+                            f"representation (max abs diff {diff:.3e})")
+        if hold == "final" and final_rel > 0.1:
+            failures.append(f"{name}: final sd_max "
+                            f"{traces['auto'].final_sd_max:.3e} vs dense "
+                            f"{traces['dense'].final_sd_max:.3e}")
+    emit("sparse_auto", phase_s=time.perf_counter() - t_phase)
+    require(not failures, "sparse_auto: " + "; ".join(failures))
+
+
+def sparse_arrays(mat) -> dict:
+    """A sparse-tier materialization as host arrays for
+    ``materialized_from_arrays`` (W by its SparseWeights fields)."""
+    W, p, init = mat.W, mat.problem, mat.init
+    host = {"Xg": mat.Xg, "yg": mat.yg, "U0": init.U0,
+            "R_diag": init.R_diag, "alpha": init.alpha,
+            "U_star": p.U_star, "B_star": p.B_star}
+    return {**{k: v.cpu().numpy() for k, v in host.items()},
+            "W_rows": W.rows, "W_cols": W.cols, "W_vals": W.vals,
+            "W_diag": W.diag, "n": W.n, "eta": mat.eta, "mu": p.mu,
+            "sigma_max": p.sigma_max, "sigma_min": p.sigma_min}
+
+
+def sparse_virtual_phase(torch, mat, sims, *, D=SPARSE_VIRTUAL_RANKS,
+                         timeout=SPARSE_VIRTUAL_TIMEOUT):
+    """The scale configuration on the virtual-node tier: D gloo ranks on
+    the one card, each taking the sparse phase's materialization ``mat``
+    as host arrays (so every rank starts from the simulator's state
+    without running the init at full L again) and running
+    SPARSE_VIRTUAL_SOLVERS on its block of L / D nodes from the sparse W
+    as it comes.  Held as phase 12b holds its programs (every rank equal
+    to rank 0; MESH_TOL against the simulator on ``mat`` — the sparse
+    phase's cuda traces ``sims`` where it ran the same spec; dif_topk at
+    its final value; the virtual DispatchBudget; R·K·wire_virtual
+    sends), without the convergence checks (SPARSE_T_GD at η = 1e-4)."""
+    from repro_torch.api import SystemSpec
+    from repro_torch.api.runner import run_on_mesh
+    from repro_torch.core.program import get_program
+    from repro_torch.distributed.consensus import VirtualTopology
+    from repro_torch.distributed.mesh import spawn
+
+    t_phase = time.perf_counter()
+    base = sparse_spec()
+    runs = [(name, kw, system, held, base.solver.T_GD)
+            for name, kw, system, held in SPARSE_VIRTUAL_SOLVERS]
+    specs = [dataclasses.replace(
+        sparse_spec(name=name, **kw), substrate="mesh",
+        system=SystemSpec(**system) if system is not None else None)
+        for name, kw, system, _, _ in runs]
+    require(all(get_program(name).topology == "W"
+                for name, *_ in SPARSE_VIRTUAL_SOLVERS),
+            "sparse_virtual decomposes W alone")
+    vt = VirtualTopology.from_weights(mat.W, D)
+    t0 = time.perf_counter()
+    ranks = spawn(run_on_mesh, D, args=("cuda", [s.to_dict() for s in specs],
+                                        0, sparse_arrays(mat), "float32"),
+                  backend="gloo", device="cuda", timeout=timeout)
+    spawn_s = time.perf_counter() - t0
+    K = {"W": len(vt.dev_shifts)}
+    block_mb = (SPARSE_L // D) * base.problem.d * base.problem.r * 4 / 1e6
+
+    def beside(name):
+        return {"block": SPARSE_L // D,
+                "rank0_setup_s": ranks[0][0]["setup_s"],
+                "rank0_runs_s": sum(r["seconds"] for r in ranks[0]),
+                "dev_shifts": list(vt.dev_shifts),
+                "local_entries": vt.n_local_entries,
+                "cross_entries": vt.n_cross_entries,
+                "send_mb": block_mb}
+    out = hold_programs("sparse_virtual", base, mat, runs, specs, ranks,
+                        tier="virtual", K=K, spawn_s=spawn_s, extra=beside,
+                        converges=False, sims=sims)
+    emit("sparse_virtual", phase_s=time.perf_counter() - t_phase,
+         spawn_s=spawn_s)
+    return out
+
+
+def sparse_tier(torch, programs=SPARSE_FULL_L):
+    """The sparse tier's three phases in order: ``sparse`` (over
+    ``programs``), ``sparse_auto``, ``sparse_virtual`` (the last on the
+    first's materialization).  → (the sparse phase's launches by
+    program, the kernels' times at the tier's shape)."""
+    t0 = time.perf_counter()
+    mat, launches, times, traces = sparse_phase(torch, programs)
+    sparse_auto_phase(torch)
+    sparse_virtual_phase(torch, mat, traces)
+    emit("sparse_tier", seconds=time.perf_counter() - t0)
+    return launches, times
 
 
 def check_serving_kernels(torch):
@@ -2569,6 +3056,10 @@ def main(argv=None) -> int:
     parser.add_argument("--grad-oracle", action="store_true",
                         help="only hold the gradient kernel and its plain "
                              "version against an f64 oracle")
+    parser.add_argument("--sparse-tier", action="store_true",
+                        help="only build the kernels and run the sparse "
+                             "tier's three phases, all twelve programs "
+                             "in the first")
     parser.add_argument("--src", type=Path, default=SRC,
                         help="with --kernel-times or --grad-oracle: the src "
                              "directory of the tree to run")
@@ -2623,6 +3114,9 @@ def main(argv=None) -> int:
 
     # the launch floor: an empty kernel, timed back to back as the
     # kernels are
+    if args.sparse_tier:
+        sparse_tier(torch, [name for name, _, _ in SPARSE_PROGRAMS])
+        return 0
     launch_floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
     emit("launch_floor", ms=launch_floor_ms)
     rows = check_kernels(torch)
@@ -2636,6 +3130,7 @@ def main(argv=None) -> int:
     roll_form(torch)
     launches_mesh = mesh_phase(torch, spec, mat)
     virtual_mesh_phase(torch, spec, mat, launches_mesh)
+    launches_sparse, sparse_times = sparse_tier(torch)
     single_errs, single_timing = check_serving_kernels(torch)
     launches_serving = serving_phase(torch, spec, mat, trace)
     serving_frontier(torch, trace.U_nodes[0])
@@ -2659,8 +3154,12 @@ def main(argv=None) -> int:
     # node_fused_iter's row: beside its time, the resident kernel's with
     # one and with two CTAs a task forced; node_task_gram's its time at
     # path A's fold (501 launches there); mix_rows's beside the launch
-    # floor
+    # floor; node_fused_iter's and node_task_gram's also their launches
+    # and times at the sparse tier's shape
     kernels[0]["ms_by_ctas_a_task"] = main_row["fused_ms_by_ctas"]
+    for row in (kernels[0], kernels[2]):
+        row["launches_sparse"] = launches_sparse["dif_altgdmin"][row["name"]]
+        row["sparse_shape"] = sparse_times[row["name"]]
     kernels[1]["launch_floor_ms"] = launch_floor_ms
     # mix_rows' launches on the masked phase's dropout runs (a round)
     kernels[1]["launches_masked"] = launches_masked
@@ -2686,6 +3185,10 @@ def main(argv=None) -> int:
     # their path B counts
     kernels[-2]["launches_mesh"] = launches_mesh["compress_topk"]
     kernels[-1]["launches_mesh"] = launches_mesh["dequant"]
+    kernels[-2]["launches_sparse"] = launches_sparse["dif_topk"][
+        "compress_topk"]
+    kernels[-1]["launches_sparse"] = launches_sparse["dif_quantized"][
+        "dequant"]
     kernels[-1]["cuda_launches_mesh"] = launches_mesh["dequant_kernels"]
     kernels.append({"name": "gossip_combine", "route": "cuda",
                     "source": SOURCES["gossip_combine"],

@@ -76,13 +76,15 @@ _COMM_MODELS = {"ethernet-1gbps": _cm.ETHERNET_1GBPS,
 @dataclasses.dataclass(frozen=True)
 class Materialized:
     """The spec's set-up, executed: everything a solver call needs, its
-    tensors on one device."""
+    tensors on one device.  On the sparse tier ``W`` is a
+    :class:`SparseWeights` and ``adj`` the :class:`SparseGraph` (host
+    numpy; the mixers put their edge arrays on the device once)."""
     problem: MTRLProblem
     Xg: torch.Tensor
     yg: torch.Tensor
     graph: Graph | SparseGraph
-    W: torch.Tensor
-    adj: torch.Tensor
+    W: torch.Tensor | SparseWeights
+    adj: torch.Tensor | SparseGraph
     init: SpectralInit
     eta: float
 
@@ -169,13 +171,16 @@ def materialize(spec: ExperimentSpec, key=None, *,
     Xg, yg = node_view(prob)
     graph = spec.topology.build_graph(p.L)
     if spec.topology.use_sparse(p.L, graph):
-        raise NotImplementedError(
-            f"this topology takes the sparse representation (L={p.L}, "
-            f"representation={spec.topology.representation!r}); the "
-            f"sparse tier comes with a later slice of the port")
-    W = torch.as_tensor(spec.topology.build_weights(p.L, graph), dtype=dtype,
-                        device=device)
-    adj = torch.as_tensor(graph.adj, dtype=dtype, device=device)
+        # the sparse tier: W a SparseWeights, the adjacency the graph
+        # itself; no (L, L) array anywhere
+        graph = (graph if isinstance(graph, SparseGraph)
+                 else graph.to_sparse())
+        W = spec.topology.build_sparse_weights(p.L, graph)
+        adj = graph
+    else:
+        W = torch.as_tensor(spec.topology.build_weights(p.L, graph),
+                            dtype=dtype, device=device)
+        adj = torch.as_tensor(graph.adj, dtype=dtype, device=device)
     init = decentralized_spectral_init(
         _generator(seed, 1), Xg_init, yg_init, W, kappa=prob.kappa,
         mu=prob.mu, r=p.r, T_pm=spec.init.T_pm, T_con=spec.init.T_con,
@@ -195,7 +200,13 @@ def materialized_from_arrays(arrays: dict, *, device,
     ``W`` (L, L), ``adj`` (L, L), ``U0`` (L, d, r), ``R_diag`` (L, r),
     ``alpha`` (L,), ``U_star`` (d, r), ``B_star`` (r, T), and the
     scalars ``eta``, ``mu``, ``sigma_max``, ``sigma_min``.  Tasks are
-    assigned to nodes contiguously, as :func:`node_view` does."""
+    assigned to nodes contiguously, as :func:`node_view` does.
+
+    A sparse-tier state carries ``W_rows``, ``W_cols``, ``W_vals``,
+    ``W_diag`` and ``n`` (the reference's ``SparseWeights`` fields) in
+    place of ``W`` and ``adj``: W becomes a :class:`SparseWeights` and
+    the adjacency the :class:`SparseGraph` of W's off-diagonal
+    pattern."""
     device = torch.device(device)
     dtype = _dtype(dtype)
 
@@ -213,11 +224,17 @@ def materialized_from_arrays(arrays: dict, *, device,
         sigma_max=float(arrays["sigma_max"]),
         sigma_min=float(arrays["sigma_min"]), mu=float(arrays["mu"]),
         tasks_per_node=np.arange(T).reshape(L, tpn))
-    adj_np = np.asarray(arrays["adj"])
+    if "W_rows" in arrays:
+        W = SparseWeights(n=int(arrays["n"]), rows=arrays["W_rows"],
+                          cols=arrays["W_cols"], vals=arrays["W_vals"],
+                          diag=arrays["W_diag"])
+        graph = adj = SparseGraph.from_edges(W.n, W.rows, W.cols)
+    else:
+        W, adj = t("W"), t("adj")
+        graph = SparseGraph.from_dense(np.asarray(arrays["adj"])
+                                       .astype(np.int8))
     return Materialized(
-        problem=prob, Xg=Xg, yg=yg,
-        graph=SparseGraph.from_dense(adj_np.astype(np.int8)),
-        W=t("W"), adj=t("adj"),
+        problem=prob, Xg=Xg, yg=yg, graph=graph, W=W, adj=adj,
         init=SpectralInit(U0=t("U0"), R_diag=t("R_diag"), alpha=t("alpha")),
         eta=float(arrays["eta"]))
 
@@ -508,16 +525,18 @@ def _run_virtual_mesh(spec: ExperimentSpec, solver: SolverDef,
                       kw: dict) -> RunResult:
     """The virtual-node tier: L = D × V, a contiguous block of V nodes on
     each of the D ranks.  W is the one the simulator mixes with (for
-    ``"adj"`` solvers the same row-stochastic neighbour average), put in
-    sparse form (``SparseWeights.from_dense``) and decomposed over the
+    ``"adj"`` solvers the same row-stochastic neighbour average), a
+    :class:`SparseWeights` as it comes on the sparse tier, else put in
+    that form (``SparseWeights.from_dense``), and decomposed over the
     ranks, so the trajectories agree with the simulator's.  ``kw`` are
     the solver's spec knobs and availability schedule."""
     if solver.topology == "adj":
         W = _consensus.neighbor_average_matrix(mat.adj)
     else:
         W = mat.W
-    sw = SparseWeights.from_dense(W.cpu().numpy())
-    vt = _consensus.VirtualTopology.from_weights(sw, mesh.size)
+    if not isinstance(W, SparseWeights):
+        W = SparseWeights.from_dense(W.cpu().numpy())
+    vt = _consensus.VirtualTopology.from_weights(W, mesh.size)
     return solver.virtual_mesh_fn(
         mat.init.U0, mat.Xg, mat.yg, mesh, vt=vt, eta=eta,
         T_GD=spec.solver.T_GD, T_con=spec.solver.T_con, engine=eng,
@@ -540,17 +559,20 @@ def run_on_mesh(device, specs, key=0, arrays=None, dtype=None) -> list:
     ``sd_mean``, ``spread``, ``time_axis``), ``U_nodes``, ``B_nodes``,
     ``launches`` (this rank's, by wrapper) and ``kernel_launches`` (by
     ``__global__`` function, as the C entries report them), ``seconds``
-    (the run, ended by a device synchronize), ``transport``,
+    (the run, ended by a device synchronize), ``setup_s`` (the rank's
+    materialization, shared by the batch), ``transport``,
     ``transport_s`` (this rank's
     :data:`~repro_torch.distributed.mesh.TRANSPORT` seconds of the run)
     and ``sends`` (its point-to-point sends,
     :data:`~repro_torch.distributed.mesh.SENDS`)."""
+    t_setup = time.perf_counter()
     specs = [ExperimentSpec.from_dict(s) for s in specs]
     if arrays is None:
         mat = materialize(specs[0], key, device=device)
     else:
         mat = materialized_from_arrays(arrays, device=device, dtype=dtype)
     transport = NodeMesh(mat.Xg.device).transport
+    setup_s = time.perf_counter() - t_setup
     out = []
     for spec in specs:
         if spec.substrate != "mesh":
@@ -572,7 +594,7 @@ def run_on_mesh(device, specs, key=0, arrays=None, dtype=None) -> list:
             "B_nodes": trace.B_nodes.cpu().numpy(),
             "launches": dict(_build.LAUNCHES),
             "kernel_launches": dict(_build.KERNEL_LAUNCHES),
-            "seconds": seconds, "transport": transport,
+            "seconds": seconds, "setup_s": setup_s, "transport": transport,
             "transport_s": dict(_mesh.TRANSPORT),
             "sends": _mesh.SENDS["p2p"]})
     return out

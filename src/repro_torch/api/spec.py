@@ -21,9 +21,8 @@ layer.  ``substrate="mesh"`` runs every solver on the ranks of a
 ``torch.distributed`` process group (:mod:`repro_torch.api.runner`):
 one node a rank when there are L ranks, a block of L / D nodes a rank
 (the virtual-node tier) when the D ranks divide L; any other rank count
-raises ValueError.  What the port does not run yet is still described,
-so specs keep their meaning, and raises NotImplementedError when run:
-the sparse representation.
+raises ValueError.  ``TopologySpec.representation`` picks the dense
+(L, L) mixing matrix or the sparse tier's :class:`SparseWeights`.
 """
 from __future__ import annotations
 
@@ -183,6 +182,20 @@ class TopologySpec:
         if self.weights == "equal_neighbor":
             return _mixing.equal_neighbor_weights(g)
         return _mixing.lazy_weights(g, self.beta)
+
+    def build_sparse_weights(self, L: int, graph=None
+                             ) -> _mixing.SparseWeights:
+        """The same mixing matrix in :class:`SparseWeights` form: the
+        O(E) path, never allocating (L, L)."""
+        if self.weights == "circulant":
+            return _mixing.circulant_weights_sparse(L, self.shifts,
+                                                    self.self_weight)
+        g = graph if graph is not None else self.build_graph(L)
+        if self.weights == "metropolis":
+            return _mixing.metropolis_weights_sparse(g)
+        if self.weights == "equal_neighbor":
+            return _mixing.equal_neighbor_weights_sparse(g)
+        return _mixing.lazy_weights_sparse(g, self.beta)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -53,8 +53,15 @@ one :meth:`NodeMesh.ppermute_many`).  Each rule's ``make_virtual_mesh_*``
 mixer runs there, the compressed rules refreshing the whole block in one
 call (one ``compress_topk`` / ``int8_round`` launch a round on cuda).
 
-Not ported yet, and raising where a caller would reach it: the sparse
-tier (padded-COO segment-sum rounds above ``SPARSE_MIN_NODES``).
+The sparse tier (:func:`maybe_sparsify`, above ``SPARSE_MIN_NODES``
+nodes at or below 25 % density, or a :class:`SparseWeights` passed in)
+lowers every simulator rule to padded-COO segment sums over the edge
+list (``index_add_``, :func:`sparse_round`), so no (L, L) matrix exists.
+The padding entries point at a dummy segment L with weight exactly 0.0
+and are arithmetically invisible.  The fused gossip lowering hoists
+``W^{T_con}`` (a scipy product on the host) while its fill stays within
+:meth:`SparseWeights.power`'s budget, and otherwise keeps the T_con
+per-round products; no sparse round launches a mixing kernel.
 """
 from __future__ import annotations
 
@@ -67,7 +74,8 @@ import torch
 
 from repro_torch.distributed.graphs import (Graph, SparseGraph,
                                             reverse_cuthill_mckee)
-from repro_torch.distributed.mixing import SparseWeights
+from repro_torch.distributed.mixing import (SparseWeights,
+                                            neighbor_average_weights_sparse)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ref_int8_scale
 
@@ -105,7 +113,10 @@ def _fused_wanted(backend: str, dtype) -> bool:
 
 def stacked_product(Z, W, T_con: int):
     """The exact sequential simulator product: T_con rounds of ``W @ Z``
-    over the leading node axis, dtype-preserving."""
+    over the leading node axis, dtype-preserving.  A
+    :class:`SparseWeights` ``W`` takes :func:`stacked_sparse_product`."""
+    if isinstance(W, SparseWeights):
+        return stacked_sparse_product(Z, W, T_con)
     if T_con == 0:
         return Z
     W = W.to(Z.dtype)
@@ -118,7 +129,10 @@ def stacked_product(Z, W, T_con: int):
 def stacked_dense_mix(Z, M, *, backend: str):
     """Single combine ``Z ← M Z`` for a precomputed mixer (e.g.
     ``W^{T_con}``): the ``mix_rows`` kernel on cuda, an einsum on
-    torch-ref and for float64."""
+    torch-ref and for float64.  A :class:`SparseWeights` mixer takes one
+    sparse round instead, on any backend."""
+    if isinstance(M, SparseWeights):
+        return stacked_sparse_product(Z, M, 1)
     if _fused_wanted(backend, Z.dtype):
         return ops.mix_nodes(Z, M.to(torch.float32),
                              backend=backend).to(Z.dtype)
@@ -146,29 +160,126 @@ def combine_blocks(z, neighbors, weights, *, backend: str = "torch-ref"):
     return acc.to(z.dtype)
 
 
+# ----------------------------------------------------------------------
+# the sparse tier
+# ----------------------------------------------------------------------
+#
+# Above a node-count/density cutoff the (L, L) mixing matrix is pure
+# overhead: every combine rule lowers to "gather sender rows by col,
+# weight, segment-sum into receivers" on the padded edge list of a
+# SparseWeights.  The edge arrays are padded to a multiple of
+# _SPARSE_PAD entries; the padding entries point at the dummy segment L
+# with weight exactly 0.0, so they are arithmetically invisible.  Edges
+# are sorted by receiver row, the padding at the end.
+
 SPARSE_MIN_NODES = 512
 SPARSE_DENSITY_THRESHOLD = 0.25
+_SPARSE_PAD = 1024
 
 
 def maybe_sparsify(W):
-    """The identity below the sparse tier.  Above
-    :data:`SPARSE_MIN_NODES` nodes at or below
-    :data:`SPARSE_DENSITY_THRESHOLD` off-diagonal density the JAX
-    package switches to its padded-COO lowering, which this package does
-    not have yet, so such a matrix raises."""
-    if W is None or W.ndim != 2 or W.shape[0] != W.shape[1]:
+    """The sparse tier's policy for a concrete dense mixing matrix (a
+    tensor or a host array): above :data:`SPARSE_MIN_NODES` nodes AND at
+    or below :data:`SPARSE_DENSITY_THRESHOLD` off-diagonal density, the
+    equivalent :class:`SparseWeights`; otherwise (small L, a dense
+    graph, anything that is not a square matrix) ``W`` unchanged.  A
+    :class:`SparseWeights` passes straight through: a caller that built
+    one has already chosen the representation."""
+    if W is None or isinstance(W, SparseWeights):
         return W
-    L = W.shape[0]
-    if L < SPARSE_MIN_NODES:
+    shape = tuple(W.shape) if hasattr(W, "shape") else np.shape(W)
+    if len(shape) != 2 or shape[0] != shape[1] or shape[0] < SPARSE_MIN_NODES:
         return W
-    off = int(torch.count_nonzero(W)) - int(torch.count_nonzero(
-        torch.diagonal(W)))
+    L = shape[0]
+    Wn = W.detach().cpu().numpy() if torch.is_tensor(W) else np.asarray(W)
+    off = np.count_nonzero(Wn) - np.count_nonzero(np.diag(Wn))
     if off / (L * (L - 1)) > SPARSE_DENSITY_THRESHOLD:
         return W
-    raise NotImplementedError(
-        f"a sparse {L}-node mixing matrix takes the sparse consensus tier "
-        f"(SPARSE_MIN_NODES={SPARSE_MIN_NODES}), which a later slice of "
-        f"the port brings")
+    return SparseWeights.from_dense(Wn)
+
+
+def _padded_coo(rows, cols, vals, n: int):
+    """Pad host COO arrays to a multiple of :data:`_SPARSE_PAD` entries:
+    padding rows point at the dummy segment ``n``, padding cols at 0,
+    and padding weights are exactly 0.0."""
+    nnz = int(vals.size)
+    total = max(_SPARSE_PAD, -(-nnz // _SPARSE_PAD) * _SPARSE_PAD)
+    pad = total - nnz
+    return (np.concatenate([rows, np.full(pad, n, np.int32)]),
+            np.concatenate([cols, np.zeros(pad, np.int32)]),
+            np.concatenate([vals, np.zeros(pad)]))
+
+
+def _sparse_arrays(sw: SparseWeights):
+    """(rows, cols, vals, diag): the padded host arrays of ``sw``."""
+    rows, cols, vals = _padded_coo(sw.rows, sw.cols, sw.vals, sw.n)
+    return rows, cols, vals, sw.diag
+
+
+def sparse_operands(sw: SparseWeights, device, dtype):
+    """:func:`_sparse_arrays` on ``device``: the indices int64, the
+    weights and the diagonal in ``dtype`` (cast from float64 once, as
+    the dense path's ``W.to(Z.dtype)``).  Made once per device and dtype
+    and kept on ``sw``, so a mixer moves them there once, not every
+    round."""
+    key = ("operands", str(torch.device(device)), dtype)
+    if key not in sw._cache:
+        rows, cols, vals, diag = _sparse_arrays(sw)
+
+        def idx(a):
+            return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+        def val(a):
+            return torch.as_tensor(a, dtype=torch.float64,
+                                   device=device).to(dtype)
+        sw._cache[key] = (idx(rows), idx(cols), val(vals), val(diag))
+    return sw._cache[key]
+
+
+def _sparse_power(sw: SparseWeights, T: int):
+    """``sw.power(T)`` (None past its fill budget), made once per
+    ``sw``: the host-side W^{T_con} hoist of the fused gossip mixer."""
+    key = ("power", T)
+    if key not in sw._cache:
+        sw._cache[key] = sw.power(T)
+    return sw._cache[key]
+
+
+def _segment_sum(vals, seg, V: int):
+    """``jax.ops.segment_sum(vals, seg, num_segments=V + 1)[:V]``: rows
+    of ``vals`` added into a (V+1, ...) accumulator at their segment,
+    then the padding segment V dropped."""
+    acc = vals.new_zeros((V + 1,) + tuple(vals.shape[1:]))
+    return acc.index_add_(0, seg, vals)[:V]
+
+
+def sparse_round(Zf, rows, cols, vals, diag, L: int):
+    """ONE ``Z ← W Z`` on the padded edge list, ``Zf: (L, F)``: gather
+    the sender rows by ``cols``, weight them, segment-sum them into the
+    receiver rows (the dummy segment L takes the padding), then add the
+    separate diagonal term.  ``vals`` / ``diag`` in ``Zf.dtype``."""
+    return (sparse_offdiag_apply(Zf, rows, cols, vals, L)
+            + diag[:, None] * Zf)
+
+
+def sparse_offdiag_apply(Zf, rows, cols, vals, L: int):
+    """The off-diagonal half of :func:`sparse_round`, ``(W − diag) Z``,
+    for combines that treat the self term apart (the compressed rules'
+    exact self term)."""
+    return _segment_sum(vals[:, None] * Zf[cols], rows, L)
+
+
+def stacked_sparse_product(Z, sw: SparseWeights, T_con: int):
+    """T_con sequential rounds of the sparse ``Z ← W Z``: the sparse
+    twin of :func:`stacked_product`, dtype-preserving."""
+    if T_con == 0:
+        return Z
+    L = sw.n
+    rows, cols, vals, diag = sparse_operands(sw, Z.device, Z.dtype)
+    flat = Z.reshape(L, -1)
+    for _ in range(T_con):
+        flat = sparse_round(flat, rows, cols, vals, diag, L)
+    return flat.reshape(Z.shape)
 
 
 def node_mean(Z):
@@ -183,11 +294,12 @@ def neighbor_average_matrix(adj):
     isolated nodes guarded to degree 1).  ONE derivation shared by the
     simulator and the mesh lowering, whose agreement depends on both
     using the same matrix.  ``adj`` an (L, L) tensor, or a dense
-    :class:`~repro_torch.distributed.graphs.Graph` (float64)."""
+    :class:`~repro_torch.distributed.graphs.Graph` (float64); a
+    :class:`~repro_torch.distributed.graphs.SparseGraph` gives the
+    equivalent :class:`SparseWeights` (the same 1/deg values a stored
+    edge, never densified)."""
     if isinstance(adj, SparseGraph):
-        raise NotImplementedError(
-            "the neighbour average of a SparseGraph belongs to the sparse "
-            "tier, which a later slice of the port brings")
+        return neighbor_average_weights_sparse(adj)
     if isinstance(adj, Graph):
         adj = torch.as_tensor(adj.adj, dtype=torch.float64)
     deg = torch.clamp(torch.sum(adj, dim=1), min=1.0)
@@ -205,7 +317,11 @@ def mesh_weights_from_matrix(W) -> tuple[tuple[int, ...], np.ndarray]:
     graph up to L−1.  Shifts are signed representatives in
     (−L/2, L/2], sorted, so a symmetric ring decomposes to (−1, 1).
     Pure numpy on the host (a tensor is copied there first); the table
-    keeps W's dtype."""
+    keeps W's dtype.  A :class:`SparseWeights` densifies first: the
+    one-node-a-rank mesh is small-L by construction (the large-L mesh
+    form is :class:`VirtualTopology`)."""
+    if isinstance(W, SparseWeights):
+        W = W.to_dense()
     Wn = W.detach().cpu().numpy() if torch.is_tensor(W) else np.asarray(W)
     if Wn.ndim != 2 or Wn.shape[0] != Wn.shape[1]:
         raise ValueError(f"mixing matrix must be square, got {Wn.shape}")
@@ -434,14 +550,6 @@ def _device_slice(arrays, g: int, dtype):
             [cc[k, g] for k in range(S)],
             [cv[k, g].to(dtype) for k in range(S)],
             dg[g].to(dtype))
-
-
-def _segment_sum(vals, seg, V: int):
-    """``jax.ops.segment_sum(vals, seg, num_segments=V + 1)[:V]``: rows
-    of ``vals`` added into a (V+1, ...) accumulator at their segment,
-    then the padding segment V dropped."""
-    acc = vals.new_zeros((V + 1,) + tuple(vals.shape[1:]))
-    return acc.index_add_(0, seg, vals)[:V]
 
 
 def _virtual_combine(zf, recv, vt: VirtualTopology, sel, *, z_diag=None):
@@ -674,6 +782,8 @@ class GossipCombine(CombineRule):
         W = maybe_sparsify(W)
         if T_con == 0:
             return lambda Z: Z
+        if isinstance(W, SparseWeights):
+            return self._make_sparse_sim_mixer(W, T_con, backend)
         if backend == "torch-ref" or W.dtype == torch.float64:
             # sequential exact product: the plain backend, and float64
             # operands on any backend (decided on W's dtype up front, so
@@ -686,6 +796,23 @@ class GossipCombine(CombineRule):
                 # the kernel accumulates in f32: keep float64 runs exact
                 return stacked_product(Z, W, T_con)
             return stacked_dense_mix(Z, Wp, backend=backend)
+        return mix
+
+    @staticmethod
+    def _make_sparse_sim_mixer(sw: SparseWeights, T_con: int, backend: str):
+        """The sparse twin of the hoist policy: the fused backend takes
+        ``W^{T_con}`` (:meth:`SparseWeights.power`, on the host) in ONE
+        segment-sum round while the power's fill stays within its
+        budget; past it, on torch-ref and for float64 operands, the
+        T_con per-round sparse products."""
+        hoisted = None
+        if backend != "torch-ref" and T_con > 1:
+            hoisted = _sparse_power(sw, T_con)      # None: over budget
+
+        def mix(Z):
+            if hoisted is None or Z.dtype == torch.float64:
+                return stacked_sparse_product(Z, sw, T_con)
+            return stacked_sparse_product(Z, hoisted, 1)
         return mix
 
     def make_mesh_mixer(self, mesh, T_con, shifts=(-1, 1), self_weight=None,
@@ -731,7 +858,8 @@ class GossipCombine(CombineRule):
 class NeighborCombine(CombineRule):
     """DGD's combine: ONE row-stochastic neighbour average that excludes
     the node itself (Experiment 1's ``(1/deg_g) Σ_{g'∈N_g} U_g'``).  The
-    simulator form takes the precomputed neighbour-average matrix M."""
+    simulator form takes the precomputed neighbour-average matrix M, a
+    :class:`SparseWeights` on the sparse tier (one segment-sum round)."""
 
     name = "neighbor"
 
@@ -930,8 +1058,8 @@ class CompressedGossipCombine(GossipCombine):
 
     The stateless ``make_sim_mixer`` raises (it would silently drop the
     state); callers use ``make_sim_state_mixer`` and seed the state with
-    ``init_state``.  Only the dense lowering is ported: a mixing matrix
-    of the sparse tier raises in ``maybe_sparsify``.
+    ``init_state``.  On the sparse tier a round is one segment sum with
+    the exact self term built in, ``(W − diag) X̂' + diag·Z``.
     """
 
     # ------------------------------------------------- rule interface
@@ -1000,6 +1128,7 @@ class CompressedGossipCombine(GossipCombine):
         gamma = float(kw.pop("consensus_gamma", 1.0))
         stochastic = self._stochastic(**kw)
         W = maybe_sparsify(W)
+        sparse = isinstance(W, SparseWeights)
         if T_con == 0:
             return lambda Z, state: (Z, state)
 
@@ -1008,22 +1137,35 @@ class CompressedGossipCombine(GossipCombine):
             params = self.resolve_params(Z.shape[1], Z.shape[2], **kw)
             ids = torch.arange(N, device=Z.device)
             fused = _fused_wanted(backend, Z.dtype)
-            Wz = W.to(torch.float32 if fused else Z.dtype)
-            w_diag = torch.diagonal(W).to(Z.dtype)[:, None, None]
+            if sparse:
+                rows, cols, vals, diag = sparse_operands(W, Z.device,
+                                                         Z.dtype)
+                w_diag = diag[:, None, None]
+            else:
+                Wz = W.to(torch.float32 if fused else Z.dtype)
+                w_diag = torch.diagonal(W).to(Z.dtype)[:, None, None]
             for _ in range(T_con):
                 xhat, count = state if stochastic else (state, None)
                 _, xhat2 = self.refresh(Z, xhat, ids, count,
                                         backend=backend, **params)
-                if fused:
-                    Z2 = stacked_dense_mix(xhat2, Wz, backend=backend)
+                if sparse:
+                    # the exact self term built in: (W − diag) x̂' +
+                    # diag·Z equals W x̂' + diag·(Z − x̂') without the
+                    # add-and-subtract round trip
+                    off = sparse_offdiag_apply(xhat2.reshape(N, -1), rows,
+                                               cols, vals, N)
+                    Z2 = off.reshape(Z.shape) + w_diag * Z
                 else:
-                    # the dense product on the refreshed copies,
-                    # arithmetic-identical to stacked_product's round
-                    Z2 = (Wz @ xhat2.reshape(N, -1)).reshape(Z.shape)
-                # exact-self correction: the node's own block never
-                # crosses a wire; a lossless refresh makes Z − xhat2
-                # exactly zero, so the round stays W @ Z bit for bit
-                Z2 = Z2 + w_diag * (Z - xhat2)
+                    if fused:
+                        Z2 = stacked_dense_mix(xhat2, Wz, backend=backend)
+                    else:
+                        # the dense product on the refreshed copies,
+                        # arithmetic-identical to stacked_product's round
+                        Z2 = (Wz @ xhat2.reshape(N, -1)).reshape(Z.shape)
+                    # exact-self correction: the node's own block never
+                    # crosses a wire; a lossless refresh makes Z − xhat2
+                    # exactly zero, so the round stays W @ Z bit for bit
+                    Z2 = Z2 + w_diag * (Z - xhat2)
                 if gamma != 1.0:
                     Z2 = Z + gamma * (Z2 - Z)      # CHOCO relaxation
                 Z = Z2
@@ -1323,6 +1465,37 @@ def push_sum_matrix(W, mask):
     return Wm / torch.where(c > 0, c, torch.ones_like(c))[None, :]
 
 
+def _sparse_masked_fold(rows, cols, vals, diag, m, L: int):
+    """Edge-level :func:`masked_mixing_matrix`: a link is live iff BOTH
+    endpoints are (``keep = m_i · m_j`` a stored edge), and a dead
+    link's weight folds into the receiver's diagonal.  ``m`` is the (L,)
+    mask in the weights' dtype; the padding row L reads a dead mask
+    entry appended here, and its weight is exactly 0 either way, so the
+    padding adds nothing to either term."""
+    mg = torch.cat([m, m.new_zeros(1)])         # the padding row L: dead
+    keep = mg[rows] * mg[cols]
+    lost = _segment_sum(vals * (1.0 - keep), rows, L)
+    return vals * keep, diag + lost
+
+
+def _sparse_masked_gossip_mixer(sw: SparseWeights, T_con: int):
+    """The sparse lowering of ``partial_gossip``'s simulator mixer: the
+    mask folded once a call, then T_con segment-sum rounds (no
+    ``W^{T_con}`` hoist: the fold depends on the data), on any
+    backend."""
+    L = sw.n
+
+    def mix(Z, m):
+        rows, cols, vals, diag = sparse_operands(sw, Z.device, Z.dtype)
+        vals_eff, diag_eff = _sparse_masked_fold(rows, cols, vals, diag,
+                                                 m.to(Z.dtype), L)
+        flat = Z.reshape(L, -1)
+        for _ in range(T_con):
+            flat = sparse_round(flat, rows, cols, vals_eff, diag_eff, L)
+        return flat.reshape(Z.shape)
+    return mix
+
+
 class MaskedGossipCombine(GossipCombine):
     """Base of the dropout-tolerant gossip rules: per-iteration
     availability masks enter the combine, so the stateless
@@ -1404,10 +1577,13 @@ class PartialGossipCombine(MaskedGossipCombine):
         of the masked matrix, no ``W^{T_con}`` hoist (it depends on the
         data) — one ``mix_rows`` launch a round on cuda; on torch-ref
         and for float64 the flattened ``Weff @ flat`` chain,
-        arithmetic-identical to :func:`stacked_product`'s rounds."""
+        arithmetic-identical to :func:`stacked_product`'s rounds.  On the
+        sparse tier :func:`_sparse_masked_gossip_mixer`."""
         W = maybe_sparsify(W)
         if T_con == 0:
             return lambda Z, m: Z
+        if isinstance(W, SparseWeights):
+            return _sparse_masked_gossip_mixer(W, T_con)
 
         def mix(Z, m):
             Weff = masked_mixing_matrix(W.to(Z.dtype), m)
@@ -1506,6 +1682,8 @@ class StaleGossipCombine(MaskedGossipCombine):
         W = maybe_sparsify(W)
         if T_con == 0:
             return lambda Z, state, m: (Z, state)
+        if isinstance(W, SparseWeights):
+            return self._make_sparse_masked_state_mixer(W, T_con)
 
         def mix(Z, state, m):
             N = Z.shape[0]
@@ -1524,6 +1702,27 @@ class StaleGossipCombine(MaskedGossipCombine):
                 # live g's own copy is exact (x̂_g = Z_g), so no self
                 # correction is needed; down nodes freeze outright
                 Z = torch.where(mrow, Z2, Z)
+            return Z, xhat
+        return mix
+
+    @staticmethod
+    def _make_sparse_masked_state_mixer(sw: SparseWeights, T_con: int):
+        """Sparse stale-gossip rounds: round 0 applies the unmasked edge
+        values to the published copies (the queued stale packet delivers
+        once), later rounds the edge-level fold."""
+        L = sw.n
+
+        def mix(Z, xhat, m):
+            rows, cols, vals, diag = sparse_operands(sw, Z.device, Z.dtype)
+            vals_eff, diag_eff = _sparse_masked_fold(rows, cols, vals, diag,
+                                                     m.to(Z.dtype), L)
+            mrow = m.to(torch.bool)[:, None, None]
+            for rd in range(T_con):
+                xhat = torch.where(mrow, Z, xhat)     # live nodes publish
+                v, dg = (vals, diag) if rd == 0 else (vals_eff, diag_eff)
+                Z2 = sparse_round(xhat.reshape(L, -1), rows, cols, v, dg,
+                                  L).reshape(Z.shape)
+                Z = torch.where(mrow, Z2, Z)          # down: freeze
             return Z, xhat
         return mix
 
@@ -1605,6 +1804,8 @@ class PushSumGossipCombine(MaskedGossipCombine):
         W = maybe_sparsify(W)
         if T_con == 0:
             return lambda Z, m: Z
+        if isinstance(W, SparseWeights):
+            return self._make_sparse_masked_mixer(W, T_con)
 
         def mix(Z, m):
             N = Z.shape[0]
@@ -1622,6 +1823,34 @@ class PushSumGossipCombine(MaskedGossipCombine):
             return out.reshape(Z.shape)
         return mix
 
+    @staticmethod
+    def _make_sparse_masked_mixer(sw: SparseWeights, T_con: int):
+        """Sparse push-sum: the column normalizer is a segment sum over
+        the SENDER columns of the masked edge values (``c_j = W_jj +
+        Σ_{i≠j} m_i m_j W_ij``, the self link always kept, as in
+        :func:`push_sum_matrix`), the column-stochastic edge values are
+        ``vals_m / c[col]``, and the weight column rides the same
+        rounds."""
+        L = sw.n
+
+        def mix(Z, m):
+            rows, cols, vals, diag = sparse_operands(sw, Z.device, Z.dtype)
+            mf = m.to(Z.dtype)
+            mg = torch.cat([mf, mf.new_zeros(1)])   # the padding row L
+            vals_m = vals * mg[rows] * mf[cols]
+            # live column mass: the padding cols point at 0 with weight 0
+            c = diag + diag.new_zeros(L).index_add_(0, cols, vals_m)
+            c = torch.where(c > 0, c, torch.ones_like(c))
+            vals_c, diag_c = vals_m / c[cols], diag / c
+            flat = Z.reshape(L, -1)
+            wv = torch.ones((L, 1), dtype=Z.dtype, device=Z.device)
+            for _ in range(T_con):
+                flat = sparse_round(flat, rows, cols, vals_c, diag_c, L)
+                wv = sparse_round(wv, rows, cols, vals_c, diag_c, L)
+            out = flat / torch.where(wv > 0, wv, torch.ones_like(wv))
+            return out.reshape(Z.shape)
+        return mix
+
     def make_mesh_masked_mixer(self, mesh, T_con: int, shifts=(-1, 1),
                                self_weight: float | None = None, *, W=None,
                                backend: str = "torch-ref") -> Callable:
@@ -1635,8 +1864,11 @@ class PushSumGossipCombine(MaskedGossipCombine):
         negation: the sender-side column exchange that those would need
         is not implemented."""
         if W is not None:
-            Wn = W.detach().cpu().numpy() if torch.is_tensor(W) \
-                else np.asarray(W)
+            if isinstance(W, SparseWeights):
+                Wn = W.to_dense()
+            else:
+                Wn = W.detach().cpu().numpy() if torch.is_tensor(W) \
+                    else np.asarray(W)
             if not np.allclose(Wn, Wn.T):
                 raise ValueError(
                     "push_sum_gossip's mesh lowering computes each "

@@ -1140,3 +1140,125 @@ def test_smoke_model_through_the_kernels_matches_torch_ref(cuda, name):
     _close(stats["prefill_logits"], got, dict(rtol=2e-3, atol=2e-3))
     tokens, _ = serve.generate(name, batch=2, prompt_len=8, gen=4)
     assert tokens.is_cuda and tokens.shape == (2, 4)
+
+
+# ------------------------------------------------------- the sparse tier
+
+def _sparse_setup(L, seed=0, family="erdos_renyi"):
+    from repro_torch.distributed import graphs, mixing
+    g = (graphs.erdos_renyi(L, 0.3, seed=seed) if family == "erdos_renyi"
+         else graphs.barabasi_albert(L, m=3, seed=seed))
+    return g, mixing.metropolis_weights_sparse(g)
+
+
+def test_sparse_round_on_the_card_matches_the_cpu(cuda):
+    """One segment-sum round and three stacked ones at f64 on a BA graph:
+    the card's atomic sums against the CPU's sequential ones."""
+    from repro_torch.distributed import consensus as cons
+    _, sw = _sparse_setup(5000, family="barabasi_albert")
+    Z = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (5000, 16, 2)))
+    ops_cpu = cons.sparse_operands(sw, "cpu", torch.float64)
+    ops_gpu = cons.sparse_operands(sw, cuda, torch.float64)
+    assert ops_gpu[0].is_cuda and ops_gpu[0].dtype == torch.int64
+    zf = Z.reshape(5000, -1)
+    want = cons.sparse_round(zf, *ops_cpu, 5000)
+    got = cons.sparse_round(zf.to(cuda), *ops_gpu, 5000)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-12)
+    torch.testing.assert_close(
+        cons.stacked_sparse_product(Z.to(cuda), sw, 3).cpu(),
+        cons.stacked_sparse_product(Z, sw, 3), rtol=0, atol=1e-12)
+
+
+SPARSE_RULES = {"gossip": None, "exact_diffusion": None,
+                "beyond_central": None, "neighbor": None,
+                "topk_gossip": dict(compression_k=3),
+                "quantized_gossip": dict(compression="int8"),
+                "event_gossip": dict(event_threshold=0.05),
+                "partial_gossip": "masked", "push_sum_gossip": "masked",
+                "stale_gossip": "masked_state"}
+
+
+@pytest.mark.parametrize("rule", list(SPARSE_RULES))
+def test_rule_sparse_mixer_on_the_card_matches_its_dense_form(cuda, rule):
+    """Each rule's sparse mixer (segment sums on the card) against its
+    dense form (the mix_rows kernel) at f32, L = 64, on the cuda
+    backend, within the f32 tolerance; no sparse round launches a mixing
+    kernel."""
+    from repro_torch.distributed import consensus as cons
+    from repro_torch.kernels import _build
+    g, sw = _sparse_setup(64, seed=2)
+    if rule == "neighbor":
+        sw = cons.neighbor_average_matrix(g)
+        dense = cons.neighbor_average_matrix(
+            torch.as_tensor(g.adj, dtype=torch.float64))
+    else:
+        dense = torch.as_tensor(sw.to_dense())
+    dense = dense.to(cuda, torch.float32)
+    Z = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (64, 7, 5)), dtype=torch.float32, device=cuda)
+    m = torch.as_tensor(np.random.default_rng(3).random(64) > 0.3,
+                        device=cuda)
+    r = cons.get_rule(rule)
+    kind = SPARSE_RULES[rule]
+
+    def run(topo):
+        if isinstance(kind, dict):
+            out = r.make_sim_state_mixer(topo, 3, backend="cuda", **kind)(
+                Z, r.init_state(Z, **kind))
+            return out[0]
+        if kind == "masked":
+            return r.make_sim_masked_mixer(topo, 3, backend="cuda")(Z, m)
+        if kind == "masked_state":
+            return r.make_sim_masked_state_mixer(topo, 3, backend="cuda")(
+                Z, torch.zeros_like(Z), m)[0]
+        return r.make_sim_mixer(topo, 3, backend="cuda")(Z)
+    _build.LAUNCHES.clear()
+    got = run(sw)
+    torch.cuda.synchronize()
+    assert not {"mix_rows", "gossip_combine"} & set(_build.LAUNCHES)
+    _close(got, run(dense), TOL[torch.float32])
+
+
+def test_fused_iter_at_the_sparse_tier_shape_matches_plain(cuda):
+    """node_fused_iter and node_task_gram at the scale configuration's
+    shape: 100 000 tasks, one a node, n = 8, d = 16, r = 2."""
+    from repro_torch.kernels import altgdmin_ls, ref
+    X, U, y = _instance((100_000, 1, 8, 16, 2), torch.float32, seed=5)
+    B, tiles = altgdmin_ls.node_fused_iter(X, U, y)
+    B_ref, tiles_ref = ref.ref_fused_iter(X, U, y)
+    _close(B, B_ref, TOL[torch.float32])
+    _close(tiles, tiles_ref, TOL[torch.float32])
+    G, c = altgdmin_ls.node_task_gram(X, U, y)
+    G_ref, c_ref = ref.ref_task_gram(X, U, y)
+    _close(G, G_ref, TOL[torch.float32])
+    _close(c, c_ref, TOL[torch.float32])
+
+
+def test_sparse_run_on_the_card_matches_torch_ref(cuda):
+    """dif_altgdmin on the sparse tier at L = 1024 (auto): the cuda run
+    launches node_fused_iter once an iteration and node_task_gram once,
+    no mixing kernel, and tracks torch-ref on the card."""
+    from repro_torch.api import (EngineSpec, ExperimentSpec, InitSpec,
+                                 ProblemSpec, SolverSpec, TopologySpec,
+                                 materialize, run_experiment)
+    from repro_torch.distributed.mixing import SparseWeights
+    from repro_torch.kernels import _build
+    L, T_GD = 1024, 10
+    spec = ExperimentSpec(
+        problem=ProblemSpec(d=8, T=L, r=2, n=10, L=L, kappa=1.2,
+                            dtype="float32"),
+        topology=TopologySpec(family="erdos_renyi", p=6.0 / L, seed=5),
+        init=InitSpec(T_pm=3, T_con=2),
+        solver=SolverSpec(name="dif_altgdmin", T_GD=T_GD, T_con=3),
+        engine=EngineSpec(backend="cuda"))
+    mat = materialize(spec, 0, device=cuda)
+    assert isinstance(mat.W, SparseWeights)
+    _build.LAUNCHES.clear()
+    got = run_experiment(spec, materialized=mat)
+    assert dict(_build.LAUNCHES) == {"node_fused_iter": T_GD,
+                                     "node_task_gram": 1}
+    want = run_experiment(dataclasses.replace(
+        spec, engine=EngineSpec(backend="torch-ref")), materialized=mat)
+    np.testing.assert_allclose(got.sd_max, want.sd_max, rtol=1e-4,
+                               atol=1e-5)

@@ -21,6 +21,7 @@ import numpy as np  # noqa: E402
 import repro.api as rapi  # noqa: E402
 import repro_torch.api as tapi  # noqa: E402
 from repro_torch.distributed.consensus import maybe_sparsify  # noqa: E402
+from repro_torch.distributed.mixing import SparseWeights  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -134,18 +135,25 @@ def test_later_slice_features_raise_not_implemented():
     d["system"] = {"availability": "bernoulli", "p_on": 0.9}
     assert tapi.ExperimentSpec.from_dict(d).system == tapi.SystemSpec(
         availability="bernoulli", p_on=0.9)
+    # the sparse representation, refused before the sparse tier was
+    # ported, now materializes W in sparse form
     sparse = dataclasses.replace(spec, topology=dataclasses.replace(
         spec.topology, representation="sparse"))
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tapi.materialize(sparse, device="cpu")
+    mat = tapi.materialize(sparse, device="cpu")
+    assert isinstance(mat.W, SparseWeights)
+    np.testing.assert_allclose(mat.W.to_dense(), tapi.materialize(
+        spec, device="cpu").W.numpy(), rtol=0, atol=1e-15)
 
 
 def test_sparse_tier_matrix_raises():
+    """A sparse matrix above the node cutoff, refused before the sparse
+    tier was ported, now lowers to its SparseWeights."""
     L = 512
     W = torch.eye(L, dtype=torch.float64)
     W[0, 1] = W[1, 0] = 0.5
-    with pytest.raises(NotImplementedError, match="sparse"):
-        maybe_sparsify(W)
+    sw = maybe_sparsify(W)
+    assert isinstance(sw, SparseWeights)
+    np.testing.assert_array_equal(sw.to_dense(), W.numpy())
     small = torch.eye(8)
     assert maybe_sparsify(small) is small
 
