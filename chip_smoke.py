@@ -77,7 +77,8 @@ Phases, each printing one JSON line and raising on failure:
                1e-5); convergence; a profile of 20 iterations;
   8. path B — dif_topk (compression_k=150, and =d), dif_quantized
                (int8) and dif_event (event_threshold=0.02) on the same
-               preset, T_GD=500, T_con=10, cuda: compress_topk / dequant
+               preset cut to T_GD=PATH_B_T_GD (250), T_con=10, cuda:
+               compress_topk / dequant
                / mix_rows at 10·T_GD launches (by kernel as in path A;
                dif_quantized's dequant launches are int8_round_kernel,
                the whole round);
@@ -92,7 +93,8 @@ Phases, each printing one JSON line and raising on failure:
                its device operations, device ms and host ms an
                iteration;
   9. masked — the dropout-tolerant trio dif_partial / dif_stale /
-               dif_pushsum on the same preset, T_GD=500, cuda, always-on
+               dif_pushsum on the same preset cut to T_GD=MASKED_T_GD
+               (100), cuda, always-on
                (SystemSpec()) and under 30 % bernoulli dropout
                (MASKED_DROPOUT, the reference's DROP30): node_fused_iter
                T_GD and mix_rows T_con·T_GD launches (2·T_con·T_GD for
@@ -124,7 +126,8 @@ Phases, each printing one JSON line and raising on failure:
                (staged through host memory), each running the EXPERIMENT1
                preset through run_experiment(substrate="mesh") for all
                twelve programs: the six stateless ones (T_GD =
-               MESH_T_GD), then MESH_STATE_SOLVERS (T_GD =
+               MESH_T_GD, dif_altgdmin MESH_DECAY_T_GD), then
+               MESH_STATE_SOLVERS (T_GD =
                MESH_STATE_T_GD, a cut made for time): dif_topk (k = 150),
                dif_quantized (int8) and dif_event (θ = 0.02) as in path
                B, and the masked trio under MASKED_DROPOUT; every rank's
@@ -179,7 +182,9 @@ Phases, each printing one JSON line and raising on failure:
                and event rules; dif_topk at its final value within 10 %);
                dif_altgdmin's ms an iteration on each backend (no
                second run: nothing compiles and the materialization
-               warmed every operand) and a profiled run (device ms,
+               warmed every operand) and, under --sparse-tier only (the
+               profiler takes 40-50 s of its own over the run's 900 000
+               device events), a profiled run (device ms,
                device operations and host ms an iteration, busy share,
                top device ops); the phase's peak device memory under
                SPARSE_MEM_LIMIT;
@@ -274,6 +279,31 @@ Phases, each printing one JSON line and raising on failure:
                three tensor-core passes 24 times each); its bf16 route
                check against LM_SSM_BF16_REL_L2 with the faults of
                LM_SSM_BF16_CAUGHT planted through ssd_scan's inputs.
+ 18. train   — launch.train's trainer at full width on the card (its
+               parts, make_trainer, then launch.train.train itself for 2
+               steps on qwen3-1.7b): mamba2-130m (24 layers) and qwen3-1.7b cut to 4
+               of 28 layers, 4 nodes, a per-node batch of 2 x 1024
+               tokens, bf16 activations, remat "all", diffusion with
+               t_con 1, the embedding and LM head node-local, AdamW on a
+               warmup-cosine schedule.  The first step's gradients on
+               the kernel route (flash_attention / ssd_scan under
+               autograd: the kernel forward, the plain core's backward)
+               against torch-ref leaf by leaf within the model's bf16
+               relative L2 bound (LM_BF16_REL_L2 / LM_SSM_BF16_REL_L2),
+               every leaf's gradient nonzero and finite on every node;
+               1 warm + 4 timed steps on each route from the same
+               weights and batches, losses within TRAIN_LOSS_RTOL, the
+               launches of every step held to the count derived from the
+               config and strategy (the LM kernel n_nodes x n_layers x 2
+               under remat, gossip_combine one a communicated leaf a
+               round), ms a step (host clock ended by a synchronize),
+               tokens/s, peak device memory and one profiled step's
+               device ms and busy share; 2 steps at f32 activations on
+               both routes within LM_TOL; for mamba2-130m the other six
+               strategies, 2 steps each on both routes: allreduce keeps
+               the communicated leaves equal on every node, local lets
+               them part, and after one step every strategy's node-local
+               leaves are the local strategy's.
 
 Then the kernels line (each kernel's launches from its own path's run;
 flash's and ssd_scan's rows are their bf16 tensor-core kernels,
@@ -291,10 +321,17 @@ beside it; compress_topk's and dequant's rank-0 launches on the mesh,
 node_fused_iter's, node_task_gram's, compress_topk's and dequant's
 launches on the sparse tier (``launches_sparse``), node_fused_iter's and
 node_task_gram's times and bounds at its shape (``sparse_shape``),
-gossip_combine's per mesh program; the launch floor beside mix_rows,
+gossip_combine's per mesh program; flash_attention's, ssd_scan's and
+gossip_combine's launches a train step (``launches_train_per_step``,
+phase 18); the launch floor beside mix_rows,
 compress_topk, dequant and gossip_combine), the card line, and the
 result line.  Exits non-zero,
 printing no result, without a CUDA device or outside the repo.
+
+    python3 chip_smoke.py --train
+
+builds the kernels and runs phase 18 only, then prints the train
+launches a step by kernel.
 
     python3 chip_smoke.py --sparse-tier
 
@@ -454,18 +491,24 @@ COMBINE_EXTRA_CASES = (("staged_K130", 2400, 130, "float32", "tensor", 0),
 MASKED_SOLVERS = ("dif_partial", "dif_stale", "dif_pushsum")
 MASKED_DROPOUT = dict(availability="bernoulli", p_on=0.7, seed=7)
 MASKED_SHRINK = 0.2
+# cut from the preset's 500 to make room for the train phase: sd_max
+# falls 0.50 → ~1e-6 over 500 iterations under the dropout, halving about
+# every 14, so 100 still checks the shrink with orders to spare
+MASKED_T_GD = 100
 
 # The mesh phase: every stateless program, its outer iterations, and
 # the seconds the 20 ranks get to report.  T_GD is cut from the preset's
-# 500 to 50: 20 ranks time-sharing one card take 0.16-0.54 s an
+# 500 to 30: 20 ranks time-sharing one card take 0.16-0.54 s an
 # iteration (PERF.md), so 500 iterations of the six programs would not
-# fit the script's time limit, and at 120 the whole script came within
-# 83 s of it on a slow host.  dif_altgdmin's decay is checked over the
-# run's halves, and over the preset's whole 500 iterations in the
-# virtual_mesh phase.
+# fit the script's time limit; at 120 the whole script came within 83 s
+# of it on a slow host, and 50 left too little room for the train phase.
+# dif_altgdmin runs MESH_DECAY_T_GD: its decay is checked over two spans
+# of 20 iterations (41 is the least T_GD that holds them), and over the
+# preset's whole 500 iterations in the virtual_mesh phase.
 MESH_SOLVERS = ("dif_altgdmin", "dec_altgdmin", "dgd_altgdmin",
                 "exact_diffusion", "beyond_central", "centralized_altgdmin")
-MESH_T_GD = 50
+MESH_T_GD = 30
+MESH_DECAY_T_GD = 41
 # The stateful and masked programs in the same spawn, with path B's knobs
 # and the masked phase's dropout: (solver, knobs, system, whether rank
 # 0's sd_max trace and final U_nodes and B_nodes are held to the
@@ -629,10 +672,39 @@ LM_BF16_KERNELS = {"flash_attention": (),
                    "ssd_scan": ("chunk_state_kernel", "state_pass_kernel",
                                 "chunk_out_kernel")}
 LM_DECODE_PROFILE = 16
+# Phase 18, train: launch.train's trainer (AdamW on a warmup-cosine
+# schedule, the embedding and LM head node-local) at full width, 4 nodes,
+# a per-node batch of 2 x 1024 tokens, bf16 activations, diffusion with
+# t_con 1; remat "all", as the configs have it.  qwen3-1.7b is cut to 4
+# of its 28 layers: its f32 parameters, gradients and two moments on 4
+# nodes would need ~110 GB at 28.  mamba2-130m also runs the other six
+# strategies.  Losses of every step within a relative TRAIN_LOSS_RTOL of
+# the torch-ref route, the first step's gradients leaf by leaf within the
+# relative L2 bound of the model's bf16 kernel route (the prefill's), the
+# f32 run's losses within LM_TOL.
+TRAIN_CASES = (("mamba2-130m", None, "ssd_scan", LM_SSM_BF16_REL_L2),
+               ("qwen3-1.7b", 4, "flash_attention", LM_BF16_REL_L2))
+TRAIN_NODES, TRAIN_PER_NODE, TRAIN_SEQ = 4, 2, 1024
+TRAIN_WARM, TRAIN_TIMED = 1, 4
+TRAIN_F32_STEPS = TRAIN_STRATEGY_STEPS = 2
+TRAIN_LOSS_RTOL = 2e-2
+# launch.train.train itself runs 2 steps of the cheaper step
+TRAIN_ENTRY = "qwen3-1.7b"
+TRAIN_STRATEGIES = ("local", "allreduce", "consensus", "dgd", "topk",
+                    "quantized")
+# a node-local leaf after one step: what the local strategy leaves there
+# (the embedding's backward sums with atomics on the card, so not bit for
+# bit); mixing would move it by ~lr = 3e-4
+TRAIN_LOCAL_ATOL = 1e-6
+
+
+T_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1231,7 +1303,10 @@ def path_a(torch):
 # first 50 iterations, so that run reports its agreement over them and
 # its first parting iteration and is held to its final value (within
 # 10 %); the same path at k = d, whose selection cannot flip, is held
-# over the whole trajectory.
+# over the whole trajectory.  The four runs take PATH_B_T_GD iterations,
+# cut from the preset's 500 to make room for the train phase: sd_max
+# reaches the f32 floor in ~250 (halving about every 14 iterations).
+PATH_B_T_GD = 250
 PATH_B = (("dif_topk", {"compression_k": 150}, "compress_topk", 0.65, False),
           ("dif_topk", {"compression_k": 600}, "compress_topk", 0.65, True),
           ("dif_quantized", {"compression": "int8"}, "dequant", 0.5, True),
@@ -1240,7 +1315,9 @@ PATH_B = (("dif_topk", {"compression_k": 150}, "compress_topk", 0.65, False),
 
 def path_b(torch, spec, mat):
     """Phase 8: the compressed trio at Experiment 1, on the dense path's
-    materialization."""
+    materialization, PATH_B_T_GD iterations."""
+    spec = dataclasses.replace(spec, solver=dataclasses.replace(
+        spec.solver, T_GD=PATH_B_T_GD))
     T_GD, T_con = spec.solver.T_GD, spec.solver.T_con
     p_d = spec.problem.d
     launches_by_kernel, failures = {}, []
@@ -1313,6 +1390,8 @@ def masked_phase(torch, spec, mat):
     from repro_torch.core.program import get_program
     from repro_torch.distributed.consensus import get_rule
 
+    spec = dataclasses.replace(spec, solver=dataclasses.replace(
+        spec.solver, T_GD=MASKED_T_GD))
     T_GD, T_con = spec.solver.T_GD, spec.solver.T_con
     dense_ref = run_experiment(dataclasses.replace(
         spec, engine=EngineSpec(backend="torch-ref")), key=0,
@@ -1496,15 +1575,15 @@ def roll_form(torch):
     return launches["gossip_combine"]
 
 
-def program_runs(spec, T_GD, state_T_GD, *, full=()):
+def program_runs(spec, T_GD, state_T_GD, *, own=None):
     """The mesh phases' runs, all twelve programs: (solver, knobs,
     system, held, T_GD) — the six stateless ones at ``T_GD`` (the
-    programs of ``full`` at the preset's own), then MESH_STATE_SOLVERS
-    at ``state_T_GD`` — and their mesh specs."""
+    programs of the mapping ``own`` at their own), then
+    MESH_STATE_SOLVERS at ``state_T_GD`` — and their mesh specs."""
     from repro_torch.api import SystemSpec
 
-    runs = [(name, {}, None, True,
-             spec.solver.T_GD if name in full else T_GD)
+    own = own or {}
+    runs = [(name, {}, None, True, own.get(name, T_GD))
             for name in MESH_SOLVERS] + [
         (name, kw, system, held, state_T_GD)
         for name, kw, system, held in MESH_STATE_SOLVERS]
@@ -1716,7 +1795,8 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD,
 
     require(spec.problem.L == L, f"the preset has L={spec.problem.L}")
     device = mat.Xg.device.type
-    runs, specs = program_runs(spec, T_GD, state_T_GD)
+    runs, specs = program_runs(spec, T_GD, state_T_GD,
+                               own={"dif_altgdmin": MESH_DECAY_T_GD})
     t0 = time.perf_counter()
     ranks = spawn(run_on_mesh, L, args=(device, [s.to_dict() for s in specs],
                                         0),
@@ -1748,7 +1828,7 @@ def virtual_mesh_phase(torch, spec, mat, mesh_out, *, D=VIRTUAL_RANKS,
     require(L % D == 0, f"{D} ranks do not divide L={L}")
     device = mat.Xg.device.type
     runs, specs = program_runs(spec, MESH_T_GD, MESH_STATE_T_GD,
-                               full=("dif_altgdmin",))
+                               own={"dif_altgdmin": spec.solver.T_GD})
     vts = {"W": VirtualTopology.from_weights(mat.W.cpu().numpy(), D),
            "adj": VirtualTopology.from_weights(
                neighbor_average_matrix(mat.adj).cpu().numpy(), D)}
@@ -1859,12 +1939,13 @@ def check_sparse_kernels(torch):
     return times
 
 
-def sparse_phase(torch, programs=SPARSE_FULL_L):
+def sparse_phase(torch, programs=SPARSE_FULL_L, *, profile=False):
     """The sparse tier at the reference's scale configuration on the
     simulator: materialize once on the card (no (L, L) array), then
     ``programs`` (of SPARSE_PROGRAMS) on cuda with their launches
     against sparse_budget, each held against torch-ref on the same
-    materialization; dif_altgdmin's run profiled.  The peak device
+    materialization; with ``profile``, dif_altgdmin's run profiled
+    (900 000 device events: 40-50 s of the profiler's own).  The peak device
     memory over the phase must stay under SPARSE_MEM_LIMIT.  → (the
     materialization, the launches for the kernels line, the kernels'
     times at the tier's shape, the cuda traces sparse_virtual holds its
@@ -1939,7 +2020,7 @@ def sparse_phase(torch, programs=SPARSE_FULL_L):
                     run_s=run_s, ms_per_iter=run_s / T_GD * 1e3,
                     torch_ref_run_s=ref_s,
                     torch_ref_ms_per_iter=ref_s / T_GD * 1e3)
-        if name == "dif_altgdmin":
+        if profile and name == "dif_altgdmin":
             # the runs above found every operand on the card and the
             # W^{T_con} hoist decided (materialize's init and the power
             # line), and nothing compiles, so they are warm: no second
@@ -2114,13 +2195,15 @@ def sparse_virtual_phase(torch, mat, sims, *, D=SPARSE_VIRTUAL_RANKS,
     return out
 
 
-def sparse_tier(torch, programs=SPARSE_FULL_L):
+def sparse_tier(torch, programs=SPARSE_FULL_L, *, profile=False):
     """The sparse tier's three phases in order: ``sparse`` (over
-    ``programs``), ``sparse_auto``, ``sparse_virtual`` (the last on the
-    first's materialization).  → (the sparse phase's launches by
-    program, the kernels' times at the tier's shape)."""
+    ``programs``; dif_altgdmin profiled with ``profile``), ``sparse_auto``,
+    ``sparse_virtual`` (the last on the first's materialization).  → (the
+    sparse phase's launches by program, the kernels' times at the tier's
+    shape)."""
     t0 = time.perf_counter()
-    mat, launches, times, traces = sparse_phase(torch, programs)
+    mat, launches, times, traces = sparse_phase(torch, programs,
+                                                profile=profile)
     sparse_auto_phase(torch)
     sparse_virtual_phase(torch, mat, traces)
     emit("sparse_tier", seconds=time.perf_counter() - t0)
@@ -2844,6 +2927,266 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
     return launches[kernel], kernel_launches16
 
 
+def train_launches(cfg, strategy, n_comm, kernel) -> dict:
+    """The launches one fused train step makes on the card: the LM
+    kernel once a layer a node in the forward, and again in the backward
+    where remat recomputes each block; one gossip_combine a communicated
+    leaf a round of the strategy."""
+    want = {kernel: TRAIN_NODES * cfg.n_layers * (2 if cfg.remat else 1)}
+    # t_con 1 (dgd's one neighbour round whatever t_con); allreduce takes
+    # the node mean in plain torch, local sends nothing
+    if strategy not in ("allreduce", "local"):
+        want["gossip_combine"] = n_comm
+    return want
+
+
+def train_run(torch, cfg, route, steps, strategy="diffusion", *,
+              want=None, keep=None, keep_last=False):
+    """``steps`` steps of launch.train's trainer for ``cfg`` on the
+    kernel route ``route``, weights and batches from seed 0: per-node
+    losses, host ms of each step (ended by a synchronize), the launches
+    of each step (held to ``want`` on cuda, none on torch-ref), and
+    ``keep(state)`` after each step; with ``keep_last`` also the last
+    state, the step function and the last batch (a qwen3 state is ~25
+    GB: nothing else keeps one)."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.train import make_trainer
+
+    out = dict(losses=[], ms=[], launches=[], kept=[])
+    with ops.backend_scope(route):
+        state, step, batch_at = make_trainer(
+            cfg, steps=steps, n_nodes=TRAIN_NODES,
+            per_node_batch=TRAIN_PER_NODE, seq=TRAIN_SEQ,
+            aggregation=strategy, device="cuda")
+        for i in range(steps):
+            batch = batch_at(i)
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses = metrics["loss_per_node"].tolist()
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            launches = dict(_build.LAUNCHES)
+            require(launches == (want if route == "cuda" else {}),
+                    f"{cfg.name} {strategy} {route} step {i}: launches "
+                    f"{launches}, want {want if route == 'cuda' else {}}")
+            out["losses"].append(losses)
+            out["launches"].append(launches)
+            if keep is not None:
+                out["kept"].append(keep(state))
+    if keep_last:
+        out["state"], out["step"], out["batch"] = state, step, batch
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def losses_agree(a, b, rtol, what) -> float:
+    """Worst relative difference of two runs' per-node losses (NaN where
+    both are NaN counts as agreement); raises past ``rtol``."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    require(bool(np.all(np.isfinite(a) == np.isfinite(b))),
+            f"{what}: losses finite on one route only: {a} {b}")
+    fin = np.isfinite(a)
+    rel = float(np.max(np.abs(a[fin] - b[fin]) / np.abs(b[fin]),
+                       initial=0.0))
+    require(rel <= rtol, f"{what}: losses {a.tolist()} vs {b.tolist()}, "
+                         f"relative {rel:.3e} above {rtol}")
+    return rel
+
+
+def train_phase(torch) -> dict:
+    """Phase 18: the LM trainer on the card, each model of TRAIN_CASES
+    through launch.train's parts (make_trainer) on the kernel route and
+    on torch-ref, then launch.train.train itself.  Returns, per kernel,
+    the launches of one fused diffusion step of each model."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.aggregation import _split_local
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import LOCAL_PATTERNS, make_trainer, train
+    from repro_torch.models.transformer import count_params
+    from repro_torch.utils.trees import tree_leaves_with_path
+
+    t_phase = time.perf_counter()
+    launches_train = {}
+    for arch, n_layers, kernel, grad_limit in TRAIN_CASES:
+        t_model = time.perf_counter()
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        require(cfg.remat and cfg.remat_policy == "all" and
+                cfg.dtype == "bfloat16", f"{arch}: {cfg}")
+
+        # the first step's gradients, kernel route against torch-ref
+        state, _, batch_at = make_trainer(cfg, steps=1, n_nodes=TRAIN_NODES,
+                                          per_node_batch=TRAIN_PER_NODE,
+                                          seq=TRAIN_SEQ, device="cuda")
+        params, batch = state.params, batch_at(0)
+        del state
+        n_params = count_params(params) // TRAIN_NODES
+        n_comm = sum(m for _, m in tree_leaves_with_path(
+            _split_local(params, LOCAL_PATTERNS)))
+        want = train_launches(cfg, "diffusion", n_comm, kernel)
+        _build.LAUNCHES.clear()
+        _, g_k = steps.node_value_and_grad(params, batch, cfg, TRAIN_NODES)
+        torch.cuda.synchronize()
+        grad_launches = dict(_build.LAUNCHES)
+        want_grad = {k: v for k, v in want.items() if k == kernel}
+        require(grad_launches == want_grad,
+                f"{arch} gradients: launches {grad_launches}, want "
+                f"{want_grad}")
+        with ops.backend_scope("torch-ref"):
+            _, g_r = steps.node_value_and_grad(params, batch, cfg,
+                                               TRAIN_NODES)
+        grads = {}
+        for (path, gk), (_, gr) in zip(tree_leaves_with_path(g_k),
+                                       tree_leaves_with_path(g_r)):
+            per_node = [float(gk[i].abs().max()) for i in range(TRAIN_NODES)]
+            require(min(per_node) > 0 and all(map(math.isfinite, per_node)),
+                    f"{arch}: gradient of {path} is zero or not finite on "
+                    f"a node: {per_node}")
+            grads[path] = dict(rel_l2=rel_l2(torch, gk, gr),
+                               min_node_max_abs=min(per_node))
+            require(grads[path]["rel_l2"] <= grad_limit,
+                    f"{arch}: gradient of {path} {grads[path]} past "
+                    f"{grad_limit}")
+        del params, g_k, g_r, batch, batch_at
+        torch.cuda.empty_cache()
+
+        # the timed run: TRAIN_WARM + TRAIN_TIMED diffusion steps, cuda
+        # then torch-ref from the same weights and batches
+        n_steps = TRAIN_WARM + TRAIN_TIMED
+        torch.cuda.reset_peak_memory_stats()
+        run_k = train_run(torch, cfg, "cuda", n_steps, want=want,
+                          keep_last=True)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profiled(torch, lambda: run_k["step"](run_k["state"],
+                                                     run_k["batch"]),
+                        warm=False)
+        del run_k["state"], run_k["step"], run_k["batch"]
+        torch.cuda.empty_cache()
+        run_r = train_run(torch, cfg, "torch-ref", n_steps)
+        bf16_rel = losses_agree(run_k["losses"], run_r["losses"],
+                                TRAIN_LOSS_RTOL, f"{arch} bf16 diffusion")
+        timed = run_k["ms"][TRAIN_WARM:]
+        step_ms = statistics.median(timed)
+        tokens = TRAIN_NODES * TRAIN_PER_NODE * TRAIN_SEQ
+
+        # f32 activations, both routes
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        f32 = [train_run(torch, cfg32, route, TRAIN_F32_STEPS, want=want)
+               for route in ("cuda", "torch-ref")]
+        f32_rel = losses_agree(f32[0]["losses"], f32[1]["losses"],
+                               LM_TOL["rtol"], f"{arch} f32 diffusion")
+
+        # the entry point itself, two steps on the card
+        history = None
+        if arch == TRAIN_ENTRY:
+            _build.LAUNCHES.clear()
+            _, history = train(arch, smoke=False, steps=2, seq=TRAIN_SEQ,
+                               n_layers=n_layers, device="cuda")
+            entry_launches = dict(_build.LAUNCHES)
+            require(entry_launches == {k: 2 * v for k, v in want.items()}
+                    and all(map(math.isfinite, history)),
+                    f"{arch} launch.train.train: launches "
+                    f"{entry_launches}, history {history}")
+            torch.cuda.empty_cache()
+
+        launches_train[kernel] = want.get(kernel, 0)
+        launches_train.setdefault("gossip_combine", {})[arch] = want.get(
+            "gossip_combine", 0)
+        emit("train", arch=arch, layers=cfg.n_layers, params=n_params,
+             nodes=TRAIN_NODES, per_node_batch=TRAIN_PER_NODE,
+             seq=TRAIN_SEQ, dtype=cfg.dtype, remat=cfg.remat_policy,
+             strategy="diffusion", communicated_leaves=n_comm,
+             launches_per_step=want, gradient_launches=grad_launches,
+             first_step_gradients=dict(
+                 leaves=len(grads), limit=grad_limit,
+                 max_rel_l2=max(g["rel_l2"] for g in grads.values()),
+                 min_node_max_abs=min(g["min_node_max_abs"]
+                                      for g in grads.values()),
+                 by_leaf=grads),
+             losses_cuda=run_k["losses"], losses_torch_ref=run_r["losses"],
+             bf16_loss_max_rel=bf16_rel, f32_losses=[r["losses"]
+                                                     for r in f32],
+             f32_loss_max_rel=f32_rel, step_ms=run_k["ms"],
+             step_ms_torch_ref=run_r["ms"], ms_per_step=step_ms,
+             tok_per_s=tokens / step_ms * 1e3,
+             f32_step_ms=[r["ms"] for r in f32], peak_memory_gib=peak_gib,
+             profile_step=prof, train_entry_history=history,
+             seconds=time.perf_counter() - t_model,
+             clock="host, ended by a device synchronize")
+        if arch == "mamba2-130m":
+            t_strat = time.perf_counter()
+            emit("train_strategies", arch=arch,
+                 strategies=train_strategies(torch, cfg, n_comm, kernel),
+                 seconds=time.perf_counter() - t_strat)
+    emit("train_phase", seconds=time.perf_counter() - t_phase)
+    return launches_train
+
+
+def train_strategies(torch, cfg, n_comm, kernel) -> dict:
+    """The six other strategies on ``cfg``, TRAIN_STRATEGY_STEPS steps
+    each on cuda and on torch-ref: losses within TRAIN_LOSS_RTOL, the
+    derived launches; allreduce keeps the communicated leaves of every
+    node equal, local lets them part, and after the first step every
+    strategy's node-local leaves are the local strategy's on the same
+    route (across routes, Adam's ±lr first step flips with the sign of
+    near-zero gradients)."""
+    from repro_torch.distributed.aggregation import _split_local
+    from repro_torch.launch.train import LOCAL_PATTERNS
+    from repro_torch.utils.trees import tree_leaves_with_path
+
+    def split(params):
+        mask = dict(tree_leaves_with_path(_split_local(params,
+                                                       LOCAL_PATTERNS)))
+        return ({p: x for p, x in tree_leaves_with_path(params)
+                 if mask[p]},
+                {p: x.clone() for p, x in tree_leaves_with_path(params)
+                 if not mask[p]})
+
+    out, local_after_one = {}, {}
+    for strategy in TRAIN_STRATEGIES:
+        want = train_launches(cfg, strategy, n_comm, kernel)
+        runs = {}
+        for route in ("cuda", "torch-ref"):
+            run = train_run(torch, cfg, route, TRAIN_STRATEGY_STEPS,
+                            strategy, want=want, keep_last=True,
+                            keep=lambda st: split(st.params)[1])
+            comm, _ = split(run["state"].params)
+            same = all(bool(torch.equal(x[0], x[g])) for x in comm.values()
+                       for g in range(1, TRAIN_NODES))
+            nan_leaves = sorted(p for p, x in comm.items()
+                                if not bool(torch.isfinite(x).all()))
+            del comm
+            if strategy == "allreduce":
+                require(same, f"allreduce {route}: replicas parted")
+            if strategy == "local":
+                require(not same, f"local {route}: replicas equal")
+            if strategy == "local":
+                local_after_one[route] = run["kept"][0]
+            drift = max(float((x - local_after_one[route][p]).abs().max())
+                        for p, x in run["kept"][0].items())
+            require(drift <= TRAIN_LOCAL_ATOL,
+                    f"{strategy} {route}: node-local leaves moved "
+                    f"{drift:.3e} from the local strategy's after one step")
+            runs[route] = dict(losses=run["losses"], ms=run["ms"],
+                               replicas_equal=same, nan_leaves=nan_leaves,
+                               local_leaf_drift=drift)
+            del run
+            torch.cuda.empty_cache()
+        require(runs["cuda"]["nan_leaves"] == runs["torch-ref"]["nan_leaves"],
+                f"{strategy}: NaN leaves differ by route: {runs}")
+        rel = losses_agree(runs["cuda"]["losses"], runs["torch-ref"]["losses"],
+                           TRAIN_LOSS_RTOL, f"{cfg.name} {strategy}")
+        out[strategy] = dict(launches_per_step=want, loss_max_rel=rel,
+                             **{route.replace("-", "_"): r
+                                for route, r in runs.items()})
+    return out
+
+
 # (L, M) of mix_rows in --kernel-times: Experiment 1's AGREE operand, then
 # tests/test_torch_gpu.py's other shapes
 MIX_TIME_SHAPES = ((20, 2400), (100, 1000), (3, 291), (37, 129))
@@ -3060,6 +3403,9 @@ def main(argv=None) -> int:
                         help="only build the kernels and run the sparse "
                              "tier's three phases, all twelve programs "
                              "in the first")
+    parser.add_argument("--train", action="store_true",
+                        help="only build the kernels and run the train "
+                             "phase")
     parser.add_argument("--src", type=Path, default=SRC,
                         help="with --kernel-times or --grad-oracle: the src "
                              "directory of the tree to run")
@@ -3115,7 +3461,11 @@ def main(argv=None) -> int:
     # the launch floor: an empty kernel, timed back to back as the
     # kernels are
     if args.sparse_tier:
-        sparse_tier(torch, [name for name, _, _ in SPARSE_PROGRAMS])
+        sparse_tier(torch, [name for name, _, _ in SPARSE_PROGRAMS],
+                    profile=True)
+        return 0
+    if args.train:
+        print(json.dumps({"launches_train": train_phase(torch)}), flush=True)
         return 0
     launch_floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
     emit("launch_floor", ms=launch_floor_ms)
@@ -3140,6 +3490,7 @@ def main(argv=None) -> int:
         lm_phase(torch, "mamba2-130m", "ssd_scan", "lm_ssm"))
     lm_launches = dict(zip(("flash_attention", "ssd_scan"), lm_launches))
     ssd_kernel_launches = lm_kernel_launches[1]
+    launches_train = train_phase(torch)
 
     main_row = rows[("exp1", "float32")]
     kernels = []
@@ -3196,6 +3547,8 @@ def main(argv=None) -> int:
                     "launches": launches_mesh["gossip_combine"],
                     "launches_mesh_by_program":
                         launches_mesh["gossip_combine_by_program"],
+                    "launches_train_per_step":
+                        launches_train["gossip_combine"],
                     "max_abs_err": combine_err,
                     "launch_floor_ms": launch_floor_ms, **combine_timing})
     for name in ("task_gram", "task_grad_tiles"):
@@ -3211,6 +3564,8 @@ def main(argv=None) -> int:
                     "source": SOURCES["flash_attention"],
                     "replaces": REPLACES["flash_attention"],
                     "launches": lm_launches["flash_attention"],
+                    "launches_train_per_step":
+                        launches_train["flash_attention"],
                     "dtype": "bfloat16",
                     "max_abs_err": lm_errs["flash_attention_bf16"],
                     "max_abs_err_f32_kernel": lm_errs["flash_attention"],
@@ -3222,6 +3577,7 @@ def main(argv=None) -> int:
                     "source": SOURCES["ssd_scan"],
                     "replaces": REPLACES["ssd_scan"],
                     "launches": lm_launches["ssd_scan"],
+                    "launches_train_per_step": launches_train["ssd_scan"],
                     "dtype": "bfloat16",
                     "cuda_launches_per_call":
                         sum(ssd_kernel_launches.values())

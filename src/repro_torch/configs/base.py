@@ -5,9 +5,10 @@ The port's own copy of ``src/repro/configs/base.py``, field for field, so
 a preset means the same model in both packages.  The registry in
 :mod:`repro_torch.configs` instantiates it with each architecture's
 hyperparameters; ``smoke()`` derives the reduced variant used by the CPU
-tests (≤2 layers, d_model ≤ 512, ≤4 experts).  ``remat``,
-``remat_policy`` and ``unroll`` are compile knobs of the JAX package;
-the port's serving path ignores them.
+tests (≤2 layers, d_model ≤ 512, ≤4 experts).  ``remat`` and
+``remat_policy`` checkpoint each block while autograd records (the
+trainer; ``models.transformer._block``); ``unroll`` is a compile knob of
+the JAX package that the port ignores.
 """
 from __future__ import annotations
 

@@ -96,6 +96,21 @@ class CommSignature:
     entries_per_round: Optional[int] = None   # None → dense d·r
     bytes_per_entry: Optional[int] = None     # None → the model's native
 
+    def bytes_per_iter(self, n_entries: int, itemsize: int, n_nodes: int,
+                       degree: int) -> int:
+        """Bytes sent per node per outer iteration (the trainer's
+        :func:`~repro_torch.distributed.aggregation.comm_bytes_per_step`).
+        The signature's own payload fields override the dense
+        ``n_entries`` / ``itemsize`` arguments when set."""
+        n = (self.entries_per_round if self.entries_per_round is not None
+             else n_entries)
+        bpe = (self.bytes_per_entry if self.bytes_per_entry is not None
+               else itemsize)
+        if self.pattern == "central":
+            # ring all-reduce equivalent: 2·(L−1)/L · size
+            return int(2 * (n_nodes - 1) / n_nodes * n * bpe)
+        return int(self.rounds_per_iter * degree * n * bpe)
+
 
 # ----------------------------------------------------------------------
 # the combine primitives

@@ -20,24 +20,7 @@ import torch
 
 from repro_torch.distributed.consensus import (CombineRule, _fused_wanted,
                                                get_rule, place_weights)
-
-
-def _tree_map(fn, tree):
-    """``fn`` on every tensor of a tensor or a (nested) dict, list or
-    tuple of tensors."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 
 def roll_gossip(tree, T_con: int, shifts: Sequence[int] = (-1, 1),
@@ -58,7 +41,7 @@ def roll_gossip(tree, T_con: int, shifts: Sequence[int] = (-1, 1),
     if T_con == 0:
         return tree
     rule = get_rule("gossip")
-    leaves = _leaves(tree)
+    leaves = tree_leaves(tree)
     if W is not None:
         L = W.shape[0]
         shifts, weights = rule._mesh_weights(L, (), None, W)
@@ -80,6 +63,6 @@ def roll_gossip(tree, T_con: int, shifts: Sequence[int] = (-1, 1),
         return rule.roll_round(x, shifts, w, backend=backend)
 
     for _ in range(T_con):
-        tree = _tree_map(one, tree)
+        tree = tree_map(one, tree)
     return tree
 

@@ -88,6 +88,47 @@ def _resolve_for(backend, *tensors) -> str:
     return name
 
 
+# ------------------------------------------------------------ autograd
+
+class _PlainBackward(torch.autograd.Function):
+    """``kernel(*inputs)`` forward; the backward runs ``plain(*inputs)``
+    — the same function in plain torch — a second time under autograd
+    and returns its input gradients."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad[2:])]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            out = ctx.plain(*inputs)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out,
+                                         allow_unused=True))
+        return (None, None, *(next(grads) if x.requires_grad else None
+                              for x in inputs))
+
+
+def with_plain_backward(kernel, plain, *inputs):
+    """``kernel(*inputs)``, a hand-written kernel's call returning one
+    tensor, made differentiable: the forward is the kernel; the backward
+    recomputes ``plain(*inputs)`` — the model's plain core, which must
+    return the kernel's function in the kernel's output dtype — under
+    autograd on the saved inputs and returns its gradients, so it runs
+    the core's forward a second time.  The JAX package computes this
+    gradient by differentiating the same plain core (its model forward
+    reaches no Pallas kernel), and has no backward kernel.  A ctypes
+    call alone returns a tensor with no autograd graph: every parameter
+    upstream of it would get no gradient."""
+    return _PlainBackward.apply(kernel, plain, *inputs)
+
+
 # ------------------------------------------------------------ attention
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,

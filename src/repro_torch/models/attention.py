@@ -9,7 +9,10 @@ core has the JAX package's two plain implementations:
 On the ``cuda`` kernel backend, ``gqa_forward`` sends its core through
 ``ops.flash_attention`` instead — the hand-written kernel replacing the
 TPU one, which the JAX package holds equal to both cores
-(tests/test_kernels.py::test_flash_matches_model_chunked_attention).
+(tests/test_kernels.py::test_flash_matches_model_chunked_attention) —
+wrapped by ``ops.with_plain_backward``: its gradient is the plain core's
+(``attention_dispatch``), recomputed in the backward, as the JAX package
+differentiates that core.
 There every row's positions are ``arange(S)`` (``transformer.
 embed_inputs``), which is what the kernel's index-based causal and
 window masks express.  ``gqa_decode`` keeps the plain core on every
@@ -104,6 +107,21 @@ def attention_dispatch(q, k, v, q_pos, k_pos, *, window=None, scale=None):
     return attention_core(q, k, v, q_pos, k_pos, window=window, scale=scale)
 
 
+def kernel_attention(q, k, v, positions, *, window=None):
+    """Causal attention of a full sequence through the ``flash_attention``
+    kernel, differentiable: the backward runs ``attention_dispatch`` (the
+    plain core) on the saved q, k, v a second time and returns its
+    gradients (``ops.with_plain_backward``).  ``positions`` (B, S), each
+    row ``arange(S)``, is what the kernel's index-based masks express."""
+    def plain(q, k, v):
+        return attention_dispatch(q, k, v, positions, positions,
+                                  window=window)
+    return ops.with_plain_backward(
+        lambda q, k, v: ops.flash_attention(q, k, v, causal=True,
+                                            window=window, backend="cuda"),
+        plain, q, k, v)
+
+
 # ======================================================================
 # GQA (covers MHA / MQA / GQA; qk-norm; sliding window)
 # ======================================================================
@@ -150,8 +168,7 @@ def gqa_forward(p, x, cfg, positions):
     row ``arange(S)``."""
     q, k, v = _qkv(p, x, cfg, positions)
     if ops.resolve_backend(None, x.device) == "cuda":
-        o = ops.flash_attention(q, k, v, causal=True,
-                                window=cfg.sliding_window, backend="cuda")
+        o = kernel_attention(q, k, v, positions, window=cfg.sliding_window)
     else:
         o = attention_dispatch(q, k, v, positions, positions,
                                window=cfg.sliding_window)

@@ -11,8 +11,10 @@ of Q tokens the recurrence is unrolled into a masked quadratic form,
 across chunks a loop carries the (H, P, N) state.  On the ``cuda``
 kernel backend ``mamba2_forward`` runs it through ``ops.ssd_scan`` —
 the hand-written kernel replacing the TPU one, which adds the D skip
-term itself — and elsewhere through the plain ``ssd_chunked``, as the
-JAX package does.  Decode is the O(1)-per-token recurrent step on an
+term itself — wrapped by ``ops.with_plain_backward``, whose backward
+differentiates ``ssd_chunked`` recomputed on the saved inputs; elsewhere
+it runs the plain ``ssd_chunked``, as the JAX package does (and
+differentiates).  Decode is the O(1)-per-token recurrent step on an
 SSMCache, plain torch on every backend.
 """
 from __future__ import annotations
@@ -87,7 +89,13 @@ def _gated_out(p, y, z, cfg):
 def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int, h0=None):
     """Chunked SSD.  x: (B,S,H,P); dt: (B,S,H) (post-softplus); A: (H,)
     negative reals; Bm/Cm: (B,S,N); D: (H,).  Returns (y float32,
-    h_final)."""
+    h_final).
+
+    Every chunk's quadratic form and state at once (a chunk axis c);
+    only the carry of the state across chunks loops, three operations a
+    chunk: the backward of the kernel route recomputes this function
+    under autograd, and its cost is the number of operations it
+    launches."""
     Bb, S, H, P = x.shape
     N = Bm.shape[-1]
     pad = (-S) % chunk
@@ -98,35 +106,56 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int, h0=None):
         Bf = F.pad(Bf, (0, 0, 0, pad))
         Cf = F.pad(Cf, (0, 0, 0, pad))
     Q = chunk
+    nc = (S + pad) // Q
     A = A.to(f32)
     D = D.to(f32)
-    h = (h0.to(f32) if h0 is not None
-         else torch.zeros((Bb, H, P, N), dtype=f32, device=x.device))
+    xq = xf.reshape(Bb, nc, Q, H, P)
+    dtq = dtf.reshape(Bb, nc, Q, H)
+    Bq, Cq = Bf.reshape(Bb, nc, Q, N), Cf.reshape(Bb, nc, Q, N)
     idx = torch.arange(Q, device=x.device)
     causal = idx[:, None] >= idx[None, :]                     # (Q, Q)
-    ys = []
-    for c0 in range(0, S + pad, Q):
-        xq, dtq = xf[:, c0:c0 + Q], dtf[:, c0:c0 + Q]         # (B,Q,·)
-        Bq, Cq = Bf[:, c0:c0 + Q], Cf[:, c0:c0 + Q]
-        dA = dtq * A                                          # (B,Q,H) ≤ 0
-        cum = torch.cumsum(dA, dim=1)
-        seg = cum[:, -1]                                      # (B,H)
-        # intra-chunk quadratic form
-        L = torch.where(causal[None, :, :, None],
-                        torch.exp(cum[:, :, None] - cum[:, None, :]), 0.0)
-        scores = torch.einsum("bin,bjn->bij", Cq, Bq)         # (B,Q,Q)
-        M = scores[..., None] * L * dtq[:, None]              # (B,Q,Q,H)
-        y = torch.einsum("bijh,bjhp->bihp", M, xq)
-        # inter-chunk contribution from carried state
-        y = y + torch.einsum("bin,bhpn->bihp", Cq, h) * torch.exp(cum)[..., None]
-        # chunk state and carry update
-        decay = torch.exp(seg[:, None] - cum) * dtq           # (B,Q,H)
-        S_c = torch.einsum("bqh,bqn,bqhp->bhpn", decay, Bq, xq)
-        h = torch.exp(seg)[..., None, None] * h + S_c
-        ys.append(y)
-    y = torch.cat(ys, dim=1)[:, :S]
+    cum = torch.cumsum(dtq * A, dim=2)                        # (B,c,Q,H) ≤ 0
+    seg = cum[:, :, -1]                                       # (B,c,H)
+    # intra-chunk quadratic form.  The mask goes in before the exp:
+    # above the diagonal cum_i − cum_j > 0 overflows to inf at real dt·A
+    # (mamba2-130m: −205 over a chunk), and where(mask, exp, 0) would
+    # give 0·inf = NaN gradients there (the JAX package's form); the
+    # values are the same
+    L = torch.exp(torch.where(causal[:, :, None],
+                              cum[:, :, :, None] - cum[:, :, None, :],
+                              -torch.inf))                    # (B,c,Q,Q,H)
+    scores = torch.einsum("bcin,bcjn->bcij", Cq, Bq)          # (B,c,Q,Q)
+    M = scores[..., None] * L * dtq[:, :, None]               # (B,c,Q,Q,H)
+    y = torch.einsum("bcijh,bcjhp->bcihp", M, xq)
+    # each chunk's own state, then the carry: h entering chunk c
+    decay = torch.exp(seg[:, :, None] - cum) * dtq            # (B,c,Q,H)
+    S_c = torch.einsum("bcqh,bcqn,bcqhp->bchpn", decay, Bq, xq)
+    h = (h0.to(f32) if h0 is not None
+         else torch.zeros((Bb, H, P, N), dtype=f32, device=x.device))
+    carried = []
+    for c in range(nc):
+        carried.append(h)
+        h = torch.exp(seg[:, c])[..., None, None] * h + S_c[:, c]
+    # inter-chunk contribution from the carried state
+    y = y + torch.einsum("bcin,bchpn->bcihp", Cq,
+                         torch.stack(carried, dim=1)) \
+        * torch.exp(cum)[..., None]
+    y = y.reshape(Bb, nc * Q, H, P)[:, :S]
     y = y + xf[:, :S] * D[:, None]
     return y, h
+
+
+def kernel_ssd(x, dt, A, Bm, Cm, D, chunk: int):
+    """The chunked SSD of a full sequence from a zero state through the
+    ``ssd_scan`` kernel → y in x's dtype (the D skip term included),
+    differentiable: the backward runs :func:`ssd_chunked` on the saved
+    inputs a second time and returns its gradients
+    (``ops.with_plain_backward``)."""
+    def plain(x, dt, A, Bm, Cm, D):
+        return ssd_chunked(x, dt, A, Bm, Cm, D, chunk)[0].to(x.dtype)
+    return ops.with_plain_backward(
+        lambda *a: ops.ssd_scan(*a, chunk=chunk, backend="cuda")[0],
+        plain, x, dt, A, Bm, Cm, D)
 
 
 def ssd_step(h, x_t, dt_t, A, B_t, C_t, D):
@@ -148,12 +177,13 @@ def _conv_inputs(p, x, cfg):
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     z, xbc, dt_raw = _split_in_proj(p, x, cfg)
     K = cfg.ssm_conv
-    xbc_f = xbc.to(f32)
-    conv = torch.zeros(xbc.shape, dtype=f32, device=x.device)
-    for i in range(K):
-        shift = K - 1 - i
-        rolled = F.pad(xbc_f, (0, 0, shift, 0))[:, :S]
-        conv = conv + rolled * p["conv_w"][i].to(f32)
+    # tap i reads the input K − 1 − i tokens back; summed in the JAX
+    # package's order (tap 0 first), with one pad and one cast
+    padded = F.pad(xbc.to(f32), (0, 0, K - 1, 0))
+    w = p["conv_w"].to(f32)
+    conv = padded[:, :S] * w[0]
+    for i in range(1, K):
+        conv = conv + padded[:, i:i + S] * w[i]
     xbc = F.silu(conv + p["conv_b"].to(f32)).to(x.dtype)
     xin = xbc[..., :di].reshape(B, S, H, P)
     Bm, Cm = xbc[..., di:di + N], xbc[..., di + N:]
@@ -167,10 +197,9 @@ def mamba2_forward(p, x, cfg):
     B, S, _ = x.shape
     z, xin, dt, A, Bm, Cm = _conv_inputs(p, x, cfg)
     if ops.resolve_backend(None, x.device) == "cuda":
-        y, _ = ops.ssd_scan(xin, dt, A, Bm, Cm, p["D"], chunk=cfg.ssm_chunk,
-                            backend="cuda")
+        y = kernel_ssd(xin, dt, A, Bm, Cm, p["D"], cfg.ssm_chunk)
     else:
-        y, _ = ssd_chunked(xin, dt, A, Bm, Cm, p["D"], cfg.ssm_chunk)
+        y = ssd_chunked(xin, dt, A, Bm, Cm, p["D"], cfg.ssm_chunk)[0]
     y = y.to(x.dtype).reshape(B, S, cfg.d_inner)
     return _gated_out(p, y, z, cfg)
 

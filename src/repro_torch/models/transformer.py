@@ -27,6 +27,9 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.api.runner import resolve_device
 from repro_torch.models import blocks as blk
@@ -65,9 +68,16 @@ def _index(tree, i):
 
 
 def _layers(params, plan):
-    """(kind, layer params) of every layer, in order."""
-    return [(kind, _index(params[f"seg{s}"], j))
-            for s, (_, kind, n) in enumerate(plan) for j in range(n)]
+    """(kind, layer params) of every layer, in order.  A segment given as
+    a list holds one tree a layer (the trainer's per-layer leaves, see
+    :func:`repro_torch.launch.steps.node_value_and_grad`) and is read as
+    it is."""
+    out = []
+    for s, (_, kind, n) in enumerate(plan):
+        seg = params[f"seg{s}"]
+        out += [(kind, seg[j] if isinstance(seg, list) else _index(seg, j))
+                for j in range(n)]
+    return out
 
 
 # ----------------------------------------------------------------- params
@@ -143,13 +153,37 @@ def logits_of(params, x, cfg):
     return linear(params["lm_head"], x).to(f32)
 
 
+# the matrix products that remat policy "dots" keeps (the JAX package's
+# dots_saveable: every dot_general's output); ``x @ w`` and einsum reach
+# autograd as these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(list(_DOTS))
+
+
+def _block(p_layer, x, cfg, kind, positions):
+    """One block, checkpointed as ``cfg.remat`` / ``cfg.remat_policy``
+    ask while autograd records: "all" keeps only the block's inputs and
+    recomputes the rest in the backward, "dots" keeps the matrix
+    products' outputs too.  Recomputation runs the block's forward, its
+    kernels included, a second time; values do not change."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return blk.block_forward(p_layer, x, cfg, kind, positions)
+    context_fn = _save_dots if cfg.remat_policy == "dots" else noop_context_fn
+    return checkpoint(blk.block_forward, p_layer, x, cfg, kind, positions,
+                      use_reentrant=False, context_fn=context_fn)
+
+
 def hidden_states(params, batch, cfg):
     """The full-sequence stack up to the final norm → (x (B, S, d),
     aux_loss scalar)."""
     x, positions = embed_inputs(params, batch, cfg)
     aux = torch.zeros((), dtype=f32, device=x.device)
     for kind, p_layer in _layers(params, build_plan(cfg)):
-        x, da = blk.block_forward(p_layer, x, cfg, kind, positions)
+        x, da = _block(p_layer, x, cfg, kind, positions)
         aux = aux + da
     return rms_norm(params["final_norm"], x, cfg.norm_eps), aux
 

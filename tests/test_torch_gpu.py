@@ -1262,3 +1262,143 @@ def test_sparse_run_on_the_card_matches_torch_ref(cuda):
         spec, engine=EngineSpec(backend="torch-ref")), materialized=mat)
     np.testing.assert_allclose(got.sd_max, want.sd_max, rtol=1e-4,
                                atol=1e-5)
+
+
+# ------------------------------------------------------- training on the card
+# The autograd wrappers of the LM kernels (models.attention.kernel_attention
+# and models.ssm.kernel_ssd: the kernel forward, the plain core's gradient)
+# against the plain core under autograd on the same inputs: the forward
+# within the kernels' tolerances above, each input's gradient within the
+# relative L2 bounds that chip_smoke.py holds the bf16 models to (0.05
+# attention, 0.10 SSD).  The backward IS the plain core's vjp on the saved
+# inputs, so the gradients agree to the plain core's own reproducibility.
+GRAD_REL_L2 = {"attention": 0.05, "ssd": 0.10}
+
+
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def _hold_autograd(wrapped, plain, inputs, fwd_tol, grad_rel_l2):
+    """Forward and input gradients of ``wrapped`` against ``plain``; every
+    input needs a gradient, and gets one that is not None."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a = [x.detach().clone().requires_grad_() for x in inputs]
+    b = [x.detach().clone().requires_grad_() for x in inputs]
+    out, want = wrapped(*a), plain(*b)
+    _close(out, want, fwd_tol)
+    assert out.requires_grad, "the kernel's output has no autograd graph"
+    w = torch.randn(want.shape, generator=g, device="cuda").to(want.dtype)
+    got_g = torch.autograd.grad((out.float() * w).sum(), a,
+                                allow_unused=True)
+    want_g = torch.autograd.grad((want.float() * w).sum(), b)
+    for i, (gg, wg) in enumerate(zip(got_g, want_g)):
+        assert gg is not None, f"input {i} got no gradient"
+        assert _rel_l2(gg, wg) <= grad_rel_l2, (i, _rel_l2(gg, wg))
+
+
+def _attention_autograd_case(dtype):
+    from repro_torch.models import attention as attn
+    g = torch.Generator(device="cuda").manual_seed(12)
+    B, S, H, Hkv, D = 2, 256, 4, 2, 128
+    inputs = [torch.randn(s, generator=g, device="cuda").to(dtype)
+              for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    pos = torch.arange(S, device="cuda").expand(B, S)
+    return (lambda q, k, v: attn.kernel_attention(q, k, v, pos),
+            lambda q, k, v: attn.attention_dispatch(q, k, v, pos, pos),
+            inputs, FLASH_TOL[dtype], GRAD_REL_L2["attention"])
+
+
+def _ssd_autograd_case(dtype):
+    """mamba2-130m's head width and state (P 64, N 128, chunk 128), the
+    decay of _ssd_case's draws."""
+    from repro_torch.models import ssm
+    Q = 128
+    return (lambda *a: ssm.kernel_ssd(*a, Q),
+            lambda *a: ssm.ssd_chunked(*a, Q)[0].to(dtype),
+            list(_ssd_case(2, 256, 4, 64, 128, dtype, seed=13)),
+            SSD_TOL[dtype], GRAD_REL_L2["ssd"])
+
+
+AUTOGRAD_CASES = {"attention": _attention_autograd_case,
+                  "ssd": _ssd_autograd_case}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["attention", "ssd"])
+def test_kernel_autograd_wrapper_matches_the_plain_core(cuda, case, dtype):
+    from repro_torch.kernels import _build
+    kernel = {"attention": "flash_attention", "ssd": "ssd_scan"}[case]
+    _build.LAUNCHES.clear()
+    _hold_autograd(*AUTOGRAD_CASES[case](dtype))
+    assert _build.LAUNCHES[kernel] == 1
+
+
+@pytest.mark.parametrize("case", ["attention", "ssd"])
+def test_a_detached_kernel_output_fails_the_autograd_check(cuda, case,
+                                                          monkeypatch):
+    """A planted fault: the wrapper returning the kernel's output with no
+    autograd graph (what a bare ctypes call gives).  The check above must
+    catch it."""
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(ops, "with_plain_backward",
+                        lambda kernel, plain, *inputs: kernel(*inputs))
+    with pytest.raises(AssertionError, match="no autograd graph"):
+        _hold_autograd(*AUTOGRAD_CASES[case](torch.bfloat16))
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-130m"])
+def test_smoke_train_step_on_the_card_matches_torch_ref(cuda, name):
+    """Two fused diffusion steps of a smoke config (f32, no remat), 4
+    nodes, through the kernels against the torch-ref route: losses
+    within 1e-4, the first step's gradients within rtol 1e-4 / atol
+    1e-5, every leaf's gradient on every node nonzero, and the launches
+    of each step: one LM kernel a layer a node, one gossip_combine a
+    communicated leaf; none on torch-ref."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.aggregation import (AggregationConfig,
+                                                     _split_local)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, constant
+    from repro_torch.utils.trees import tree_leaves
+    cfg = get_config(name).smoke()
+    params = steps.replicate_for_nodes(init_params(cfg, seed=0), 4)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (4, 2, 64), generator=g,
+                         device="cuda")
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+    agg = AggregationConfig(strategy="diffusion", local_patterns=("embed",))
+    kernel = "ssd_scan" if name.startswith("mamba") else "flash_attention"
+    n_comm = sum(tree_leaves(_split_local(params, agg.local_patterns)))
+    _build.LAUNCHES.clear()
+    _, grads = steps.node_value_and_grad(params, batch, cfg, 4)
+    assert dict(_build.LAUNCHES) == {kernel: 4 * cfg.n_layers}
+    with ops.backend_scope("torch-ref"):
+        _, want = steps.node_value_and_grad(params, batch, cfg, 4)
+    for got, ref in zip(tree_leaves(grads), tree_leaves(want)):
+        _close(got, ref, dict(rtol=1e-4, atol=1e-5))
+        assert all(bool(got[i].abs().max() > 0) for i in range(4))
+    losses = []
+    for route in ("cuda", "torch-ref"):
+        opt = adamw(constant(1e-3))
+        state = steps.TrainState(params, opt.init(params),
+                                 torch.zeros((), dtype=torch.int32,
+                                             device="cuda"))
+        step = steps.make_train_step_fused(cfg, opt, agg, 4)
+        with ops.backend_scope(route):
+            got = []
+            for _ in range(2):
+                _build.LAUNCHES.clear()
+                state, metrics = step(state, batch)
+                got.append(metrics["loss_per_node"])
+                if route == "cuda":
+                    assert dict(_build.LAUNCHES) == {
+                        kernel: 4 * cfg.n_layers, "gossip_combine": n_comm}
+                else:
+                    assert not _build.LAUNCHES
+        losses.append(torch.stack(got))
+    _close(losses[0], losses[1], dict(rtol=1e-4, atol=1e-4))
