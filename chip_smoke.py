@@ -252,7 +252,9 @@ Phases, each printing one JSON line and raising on failure:
                the same with window 512, a ragged S = 1000, cross lengths
                Sq 16 / Skv 2048 and D = 112; ssd_scan at mamba2-130m's
                (B 4, S 2048, H 24, P 64, N 128, Q 128) and S = 1000, y
-               and h_final; times as in phase 3 at both dtypes, with
+               and h_final; flash also at deepseek-v3's MLA prefill (B 4,
+               S 2048, 128 heads, D 192, the scale (dn + dr)^-1/2 passed),
+               timed at bf16; times as in phase 3 at both dtypes, with
                scaled_dot_product_attention (is_causal, enable_gqa) as
                flash's library call, timed only (ssd_scan has none);
                each kernel's worst error at bf16 (the tensor-core
@@ -279,6 +281,29 @@ Phases, each printing one JSON line and raising on failure:
                three tensor-core passes 24 times each); its bf16 route
                check against LM_SSM_BF16_REL_L2 with the faults of
                LM_SSM_BF16_CAUGHT planted through ssd_scan's inputs.
+ 17b. lm_plans — the same for the plans past the scan stacks, each at
+               its published widths (LM_PLANS): zamba2-7b whole (81 SSM
+               layers, the shared attention block after each group of 6:
+               81 ssd_scan and 13 flash_attention launches a prefill
+               step), llava-next-mistral-7b whole at B 1 x S 8192 (2880
+               patch embeddings from the stub frontend, then 5312 text
+               tokens, past its 4096-token window: 32), deepseek-v3 cut to
+               its 3 dense layers and first MoE layer (MLA at D 192, 256
+               experts top-8 and the shared expert: 4) and arctic cut to 1
+               layer (128 experts top-2 and the dense residual: 1).  The
+               f32 checks on the first LM_PLANS_F32_ROWS rows (the kernel
+               route against torch-ref, the logits and the MoE aux loss
+               within LM_TOL; decode on LM_PLANS_GEN against the forward,
+               a MoE's at capacity factor E / top_k), then the serving
+               copy cast to bf16 in place a leaf at a time (two copies
+               of a MoE cut would not fit): the prefill step on the whole
+               batch with its launches by wrapper and by __global__
+               function, its route against bf16 torch-ref (zamba2 within
+               LM_SSM_BF16_REL_L2, the rest LM_BF16_REL_L2), each kernel
+               against its plain version at the model's own shape, each
+               planted fault caught by the route or by that kernel check
+               (both readings printed), tokens/s, decode ms, profiles,
+               and the peak device memory under the card's.
  18. train   — launch.train's trainer at full width on the card (its
                parts, make_trainer, then launch.train.train itself for 2
                steps on qwen3-1.7b): mamba2-130m (24 layers) and qwen3-1.7b cut to 4
@@ -323,7 +348,10 @@ launches on the sparse tier (``launches_sparse``), node_fused_iter's and
 node_task_gram's times and bounds at its shape (``sparse_shape``),
 gossip_combine's per mesh program; flash_attention's, ssd_scan's and
 gossip_combine's launches a train step (``launches_train_per_step``,
-phase 18); the launch floor beside mix_rows,
+phase 18); flash_attention's and ssd_scan's launches a prefill step of
+each plan of phase 17b (``launches_lm_plans``), flash's time at the MLA
+shape (``mla_shape``), ssd_scan's CUDA launches in zamba2's step; the
+launch floor beside mix_rows,
 compress_topk, dequant and gossip_combine), the card line, and the
 result line.  Exits non-zero,
 printing no result, without a CUDA device or outside the repo.
@@ -332,6 +360,11 @@ printing no result, without a CUDA device or outside the repo.
 
 builds the kernels and runs phase 18 only, then prints the train
 launches a step by kernel.
+
+    python3 chip_smoke.py --lm-plans
+
+builds the kernels and runs phase 17b only, then prints each plan's
+launches of a bf16 prefill step by wrapper and by __global__ function.
 
     python3 chip_smoke.py --sparse-tier
 
@@ -637,7 +670,16 @@ FLASH_CASES = (("qwen3_prefill", 4, 2048, 2048, 16, 8, 128, None),
                ("window_512", 4, 2048, 2048, 16, 8, 128, 512),
                ("ragged_1000", 4, 1000, 1000, 16, 8, 128, None),
                ("cross_16_2048", 4, 16, 2048, 16, 8, 128, None),
-               ("d112", 2, 1024, 1024, 32, 32, 112, None))
+               ("d112", 2, 1024, 1024, 32, 32, 112, None),
+               ("mla_prefill", 4, 2048, 2048, 128, 128, 192, None))
+# the cases timed at each dtype; deepseek-v3's MLA prefill (D = dn + dr
+# = 192, V padded from 128, scale (dn + dr)^-1/2 passed explicitly) at
+# bf16 only, its plain version timed over 3 single calls (8.6 GB of
+# scores a call)
+FLASH_TIMED = {"qwen3_prefill": ("float32", "bfloat16"),
+               "window_512": ("float32", "bfloat16"),
+               "mla_prefill": ("bfloat16",)}
+FLASH_SCALE = {"mla_prefill": 192 ** -0.5}
 SSD_CASES = (("mamba2_prefill", 4, 2048, 24, 64, 128, 128),
              ("ragged_1000", 4, 1000, 24, 64, 128, 128))
 FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -672,6 +714,30 @@ LM_BF16_KERNELS = {"flash_attention": (),
                    "ssd_scan": ("chunk_state_kernel", "state_pass_kernel",
                                 "chunk_out_kernel")}
 LM_DECODE_PROFILE = 16
+# Phase 17b, lm_plans: the plans past the scan stacks at their published
+# widths, (arch, layers kept (None: all), prefill (B, S), the launches of
+# one prefill step by kernel).  zamba2-7b whole (13 groups of 6 SSM
+# layers around the shared attention block, then 3); llava-next at
+# B 1 x S 8192, its 2880 patch rows then 5312 text tokens, past its
+# 4096-token window; deepseek-v3 cut to its 3 dense layers and its first
+# MoE layer (all 256 experts, the shared expert, MLA), 57.6 GiB at f32;
+# arctic cut to 1 layer (128 experts and the dense residual), 52.4 GiB at
+# f32, where 2 layers would be 103 GiB.  The f32 checks (kernel route
+# against torch-ref, decode against the forward) run on the first
+# LM_PLANS_F32_ROWS rows of the prefill batch: deepseek's torch-ref
+# attention at 4 rows would hold 26 GB of f32 scores beside its 57.6 GiB
+# of weights.  Decode: LM_PLANS_GEN (batch, prompt, gen), the MoE
+# configurations' decode check at a capacity factor of E / top_k, at
+# which the forward drops no token (decode, a token at a time, never
+# does).
+LM_PLANS = (("zamba2-7b", None, (4, 2048),
+             {"ssd_scan": 81, "flash_attention": 13}),
+            ("llava-next-mistral-7b", None, (1, 8192),
+             {"flash_attention": 32}),
+            ("deepseek-v3-671b", 4, (4, 2048), {"flash_attention": 4}),
+            ("arctic-480b", 1, (4, 2048), {"flash_attention": 1}))
+LM_PLANS_F32_ROWS = 1
+LM_PLANS_GEN = (4, 32, 8)
 # Phase 18, train: launch.train's trainer (AdamW on a warmup-cosine
 # schedule, the embedding and LM head node-local) at full width, 4 nodes,
 # a per-node batch of 2 x 1024 tokens, bf16 activations, diffusion with
@@ -2630,14 +2696,16 @@ def check_lm_kernels(torch):
                        .to(dtype) for shape in
                        ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
 
+            scale = FLASH_SCALE.get(name)
+
             def kernel(q, k, v):
-                return flash_attention.flash_attention(q, k, v, causal=True,
-                                                       window=window)
+                return flash_attention.flash_attention(
+                    q, k, v, causal=True, window=window, scale=scale)
 
             def plain(q, k, v):
                 return ref.ref_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    causal=True, window=window).transpose(1, 2)
+                    causal=True, window=window, scale=scale).transpose(1, 2)
 
             def library(q, k, v):
                 return F.scaled_dot_product_attention(
@@ -2651,17 +2719,22 @@ def check_lm_kernels(torch):
                    else "flash_attention_bf16")
             errs[key] = max(errs[key], err)
             timing_ = None
-            if name in ("qwen3_prefill", "window_512"):
+            if dname in FLASH_TIMED.get(name, ()):
                 timing_ = timing(
                     torch, kernel, plain, (q, k, v), nbytes(q, k, v, out),
                     4 * D * B * H * visible_pairs(Sq, Skv, window),
                     library if window is None and Sq == Skv else None,
-                    flop_per_s=peak[dname])
+                    flop_per_s=peak[dname],
+                    plain_reps=3 if name == "mla_prefill" else None)
                 if name == "qwen3_prefill" and dname == "bfloat16":
                     times["flash_attention"] = timing_
+                if name == "mla_prefill":
+                    times["flash_attention_mla"] = dict(
+                        B=B, S=Sq, H=H, Hkv=Hkv, D=D, scale=scale,
+                        dtype=dname, **timing_)
             emit("lm_kernels", kernel="flash_attention", case=name, B=B,
                  Sq=Sq, Skv=Skv, H=H, Hkv=Hkv, D=D, window=window,
-                 dtype=dname, max_abs_err=err, timing=timing_)
+                 scale=scale, dtype=dname, max_abs_err=err, timing=timing_)
             del q, k, v, out
     for name, B, S, H, P, N, Q in SSD_CASES:
         for dname in ("float32", "bfloat16"):
@@ -2705,10 +2778,12 @@ def fault_readings(torch, module, faults, call, plain, tol, step,
     check (``tol`` against ``plain``, the plain version's output of
     ``call``'s inputs) fails on ``call(fault)``, its worst error there,
     and the relative L2 error of ``step()``'s last-position logits
-    against ``want`` with the fault in place."""
+    against ``want`` with the fault in place.  The real wrapper must pass
+    that kernel check (its worst error is ``"kernel"``'s reading)."""
     name = module.__name__.rsplit(".", 1)[-1]
     real = getattr(module, name)
-    out = {}
+    out = {"kernel": dict(max_abs_err=max_err(
+        torch, call(real), plain, tol, f"{name} at the model's shape"))}
     try:
         for fault_name, fault in faults.items():
             err = (call(fault).double() - plain).abs()
@@ -2723,13 +2798,14 @@ def fault_readings(torch, module, faults, call, plain, tol, step,
     return out
 
 
-def flash_fault_readings(torch, step, want) -> dict:
+def flash_fault_readings(torch, step, want, shape=None) -> dict:
     """Faults planted in the bf16 flash route by a change of the kernel's
     inputs: the diagonal key hidden (kp < qp: Skv one short, so query i
     sits at key i - 1), one key ahead visible (kp <= qp + 1: a zero key
     appended), the KV heads reversed (a wrong GQA map), and scores scaled
-    without the log2 e fold (x ln 2); fault_readings at qwen3's prefill
-    shape (FLASH_TOL at bf16, against ref_attention)."""
+    without the log2 e fold (x ln 2); fault_readings at ``shape`` (B, S,
+    H, Hkv, D, window, scale; default qwen3's prefill), FLASH_TOL at bf16
+    against ref_attention."""
     from repro_torch.kernels import flash_attention as fa, ref
     real = fa.flash_attention
 
@@ -2746,25 +2822,31 @@ def flash_fault_readings(torch, step, want) -> dict:
         "scale_without_log2e": lambda q, k, v, **kw: real(
             q, k, v, **{**kw, "scale": q.shape[-1] ** -0.5 * math.log(2)}),
     }
-    _, B, Sq, Skv, H, Hkv, D, _ = FLASH_CASES[0]
-    g = torch.Generator(device="cuda").manual_seed(Sq + D)
+    if shape is None:
+        _, B, S, _, H, Hkv, D, window = FLASH_CASES[0]
+        shape = (B, S, H, Hkv, D, window, None)
+    B, S, H, Hkv, D, window, scale = shape
+    g = torch.Generator(device="cuda").manual_seed(S + D)
     q, k, v = (torch.randn(shape, generator=g, device="cuda")
                .to(torch.bfloat16) for shape in
-               ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+               ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
     plain = ref.ref_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2)).transpose(1, 2).double()
+                              v.transpose(1, 2), window=window,
+                              scale=scale).transpose(1, 2).double()
     return fault_readings(
-        torch, fa, faults, lambda f: f(q, k, v, causal=True), plain,
-        FLASH_TOL["bfloat16"], step, want)
+        torch, fa, faults,
+        lambda f: f(q, k, v, causal=True, window=window, scale=scale),
+        plain, FLASH_TOL["bfloat16"], step, want)
 
 
-def ssd_fault_readings(torch, step, want) -> dict:
+def ssd_fault_readings(torch, step, want, shape=None) -> dict:
     """Faults planted in the bf16 ssd_scan route by a change of the
     kernel's inputs: B and C one token ahead (each token paired with the
     next token's B and C, a zero row at the end), A halved (the decay of
     every head too slow), D dropped (no skip term), and the heads of x
-    reversed (a wrong head map); fault_readings at mamba2-130m's prefill
-    shape (SSD_TOL at bf16 on y, against ref_ssd)."""
+    reversed (a wrong head map); fault_readings at ``shape`` (B, S, H,
+    P, N, Q; default mamba2-130m's prefill), SSD_TOL at bf16 on y against
+    ref_ssd."""
     from repro_torch.kernels import ref, ssd_scan as ss
     real = ss.ssd_scan
 
@@ -2781,7 +2863,7 @@ def ssd_fault_readings(torch, step, want) -> dict:
         "heads_reversed": lambda x, dt, A, Bm, Cm, D, **kw: real(
             x.flip(2), dt, A, Bm, Cm, D, **kw),
     }
-    _, B, S, H, P, N, Q = SSD_CASES[0]
+    B, S, H, P, N, Q = shape or SSD_CASES[0][1:]
     args = ssd_inputs(torch, B, S, H, P, N, torch.bfloat16)
     plain = ref.ref_ssd(*args)[0].double()
     return fault_readings(
@@ -2794,12 +2876,60 @@ def _lm_tokens(torch, vocab, shape, seed):
     return torch.randint(0, vocab, shape, generator=g, device="cuda")
 
 
-def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
-    """Phases 15-16: ``arch`` at full width on the card through its LM
-    kernel, against the torch-ref route and against teacher-forced
-    decode at f32, then timed at bf16.  Returns the kernel's launches in
-    the main path's run (one prefill step) and the CUDA launches, by
-    ``__global__`` function, of one bf16 prefill step."""
+def lm_batch(torch, cfg, B, S, seed) -> dict:
+    """A prefill batch of S positions drawn on the card from ``seed``:
+    tokens, or a vlm's patch embeddings (the stub frontend) and then
+    S - vis_tokens tokens."""
+    from repro_torch.models.frontends import vlm_batch_stub
+    if cfg.modality == "vlm":
+        return vlm_batch_stub(torch.Generator(device="cuda").manual_seed(seed),
+                              B, S, cfg)
+    return {"tokens": _lm_tokens(torch, cfg.vocab_size, (B, S), seed)}
+
+
+def lm_kernel_shapes(cfg, B, S) -> dict:
+    """The shapes at which a prefill of B x S calls each LM kernel:
+    flash (B, S, H, Hkv, D, window, scale) -- MLA's with V padded to the
+    query-key head dim and the scale (dn + dr)^-1/2 --, ssd_scan (B, S,
+    H, P, N, Q)."""
+    if cfg.attn_impl == "mla":
+        D = cfg.nope_head_dim + cfg.rope_head_dim
+        flash = (B, S, cfg.n_heads, cfg.n_heads, D, cfg.sliding_window,
+                 D ** -0.5)
+    else:
+        flash = (B, S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                 cfg.sliding_window, None)
+    return {"flash_attention": flash,
+            "ssd_scan": (B, S, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
+                         cfg.ssm_chunk)}
+
+
+def last_and_aux(torch, params, batch, cfg):
+    """make_prefill_step's function with the aux loss beside it: the
+    last position's f32 logits and the MoE load-balance loss."""
+    from repro_torch.models import transformer as tfm
+    with torch.no_grad():
+        x, aux = tfm.hidden_states(params, batch, cfg)
+        return tfm.logits_of(params, x[:, -1], cfg), aux
+
+
+def lm_phase(torch, arch: str, phase: str, want: dict, *, layers=None,
+             prefill=LM_PREFILL, gen=LM_GEN, f32_rows=None,
+             route_catches_faults=True) -> tuple[dict, dict]:
+    """Phases 16-17b: ``arch`` (cut to ``layers`` where given) at full
+    width on the card through its LM kernels, ``want`` the launches of
+    one prefill step by kernel.  At f32 on the first ``f32_rows`` rows
+    of the prefill batch (all by default): the kernel route against
+    torch-ref, last-position logits and the MoE aux loss within LM_TOL;
+    teacher-forced decode (``gen``) against the kernel forward.  Then
+    the serving copy at bf16, cast in place a leaf at a time: the prefill
+    step on the whole batch (the main path's counted run), its route
+    against bf16 torch-ref by relative L2, which must reject each planted
+    fault of its kernels (with ``route_catches_faults`` False, the fault
+    may be caught by the kernel check at the model's shape instead),
+    prefill tokens/s, decode ms and profiles; the peak device memory
+    under the card's.  Returns the launches of the bf16 prefill step by
+    wrapper and by ``__global__`` function."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.launch.serve import generate_tokens
@@ -2808,7 +2938,11 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
         LanguageModel, count_params, init_params, serving_params)
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -2816,115 +2950,155 @@ def lm_phase(torch, arch: str, kernel: str, phase: str) -> int:
     n_params = count_params(params)
     require(n_params == cfg.n_params(),
             f"{arch}: {n_params} parameters, want {cfg.n_params()}")
-    B, S = LM_PREFILL
-    toks = _lm_tokens(torch, cfg.vocab_size, (B, S), seed=1)
+    B, S = prefill
+    batch = lm_batch(torch, cfg, B, S, seed=1)
+    rows = {k: v[:f32_rows] for k, v in batch.items()}
 
-    # f32: the kernel route (the counted run) against torch-ref
+    # f32: the kernel route against torch-ref
     model32 = LanguageModel(cfg32, params)
-    prefill32 = make_prefill_step(cfg32)
     _build.LAUNCHES.clear()
-    last_k = prefill32(model32.params, {"tokens": toks})
+    last_k, aux_k = last_and_aux(torch, model32.params, rows, cfg32)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    require(launches == {kernel: cfg.n_layers},
-            f"{arch}: prefill launches {launches}, want {cfg.n_layers} "
-            f"{kernel}")
+    launches32 = dict(_build.LAUNCHES)
+    require(launches32 == want,
+            f"{arch} f32: prefill launches {launches32}, want {want}")
     with ops.backend_scope("torch-ref"):
-        last_r = prefill32(model32.params, {"tokens": toks})
+        last_r, aux_r = last_and_aux(torch, model32.params, rows, cfg32)
     e_route = max_err(torch, last_k, last_r, LM_TOL,
                       f"{arch} f32 prefill: kernel vs torch-ref route")
+    e_aux = max_err(torch, aux_k, aux_r, LM_TOL,
+                    f"{arch} f32 aux loss: kernel vs torch-ref route")
+    require(bool(aux_k > 0) == bool(cfg.n_experts),
+            f"{arch}: aux loss {float(aux_k)}")
 
-    # generate: teacher-forced decode logits against the kernel forward
-    Bg, prompt_len, gen = LM_GEN
+    # decode: teacher-forced logits against the kernel forward; a MoE's
+    # at a capacity at which the forward drops no token
+    Bg, prompt_len, n_gen = gen
     prompt = _lm_tokens(torch, cfg.vocab_size, (Bg, prompt_len), seed=2)
+    cfg_dec = cfg32 if not cfg.n_experts else dataclasses.replace(
+        cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
+    model_dec = LanguageModel(cfg_dec, params)
     _build.LAUNCHES.clear()
-    tokens, stats = generate_tokens(model32, prompt, gen,
+    tokens, stats = generate_tokens(model_dec, prompt, n_gen,
                                     keep_prefill_logits=True)
     gen_launches = dict(_build.LAUNCHES)
     require(not gen_launches, f"{arch}: decode launched {gen_launches}")
-    full = model32(prompt)
-    e_decode = max_err(torch, stats.pop("prefill_logits"), full, LM_TOL,
+    kept = stats.pop("prefill_logits")
+    full = model_dec(prompt)
+    e_decode = max_err(torch, kept, full, LM_TOL,
                        f"{arch} f32: teacher-forced decode vs kernel forward")
-    require(tokens.shape == (Bg, gen) and int(tokens.max()) < cfg.vocab_size,
+    require(tokens.shape == (Bg, n_gen)
+            and int(tokens.max()) < cfg.vocab_size,
             f"{arch}: generated tokens {tuple(tokens.shape)}")
-    del full, model32
+    del full, kept, model32, model_dec, last_r
 
-    # bf16: linear weights cast once; error against f32, speed, busy share
-    model16 = LanguageModel(cfg, serving_params(params, cfg))
-    del params
+    # bf16: the serving copy, cast in place a leaf at a time
+    serving_params(params, cfg)
     torch.cuda.empty_cache()
+    model16 = LanguageModel(cfg, params)
+    del params
     prefill16 = make_prefill_step(cfg)
     _build.LAUNCHES.clear()
     _build.KERNEL_LAUNCHES.clear()
-    last16 = prefill16(model16.params, {"tokens": toks})
+    last16 = prefill16(model16.params, batch)
     torch.cuda.synchronize()
     launches16 = dict(_build.LAUNCHES)
     kernel_launches16 = dict(_build.KERNEL_LAUNCHES)
-    want16 = {name: cfg.n_layers for name in LM_BF16_KERNELS[kernel]}
-    require(launches16 == {kernel: cfg.n_layers}
-            and kernel_launches16 == want16,
+    want16 = {name: n for kernel, n in want.items()
+              for name in LM_BF16_KERNELS[kernel]}
+    require(launches16 == want and kernel_launches16 == want16,
             f"{arch} bf16: prefill launches {launches16}, CUDA launches "
-            f"{kernel_launches16}, want {cfg.n_layers} {kernel} and "
-            f"{want16}")
-    require(bool(torch.isfinite(last16).all()), f"{arch} bf16: non-finite")
-    e_bf16 = float((last16 - last_k).abs().max())
-    # the bf16 route through the tensor-core kernel against the bf16
+            f"{kernel_launches16}, want {want} and {want16}")
+    require(bool(torch.isfinite(last16).all()) and bool(
+        torch.isfinite(last_k).all()), f"{arch}: non-finite logits")
+    e_bf16 = float((last16[:f32_rows] - last_k).abs().max())
+    # the bf16 route through the tensor-core kernels against the bf16
     # torch-ref route: both round every activation to bf16 and part only
-    # inside the kernel (flash rounds P to bf16; ssd_scan rounds M, h_c
-    # and x exp(seg - cum) dt)
-    limit, caught = LM_BF16_ROUTE[kernel]
-    readings = {"flash_attention": flash_fault_readings,
-                "ssd_scan": ssd_fault_readings}[kernel]
+    # inside the kernels (flash rounds P to bf16; ssd_scan rounds M, h_c
+    # and x exp(seg - cum) dt), and where a MoE router's top-k parts
+    limit = (LM_SSM_BF16_REL_L2 if "ssd_scan" in want else LM_BF16_REL_L2)
     with ops.backend_scope("torch-ref"):
-        last16_ref = prefill16(model16.params, {"tokens": toks})
+        last16_ref = prefill16(model16.params, batch)
+    shapes = lm_kernel_shapes(cfg, B, S)
+    readers = {"flash_attention": flash_fault_readings,
+               "ssd_scan": ssd_fault_readings}
+    faults = {}
+    for kernel in want:
+        faults[kernel] = readers[kernel](
+            torch, lambda: prefill16(model16.params, batch), last16_ref,
+            shapes[kernel])
     bf16_route = dict(
         rel_l2=rel_l2(torch, last16, last16_ref), limit=limit,
-        max_abs_err=float((last16 - last16_ref).abs().max()),
-        faults=readings(
-            torch, lambda: prefill16(model16.params, {"tokens": toks}),
-            last16_ref))
+        max_abs_err=float((last16 - last16_ref).abs().max()), faults=faults)
     require(bf16_route["rel_l2"] <= limit,
             f"{arch} bf16 prefill: kernel vs torch-ref route "
             f"{bf16_route} above {limit}")
-    blind = [f for f in caught
-             if not bf16_route["faults"][f]["logits_rel_l2"] > limit]
-    require(not blind, f"{arch} bf16: the route check misses the "
-                       f"planted faults {blind}: {bf16_route}")
+    caught = [f for kernel in want for f in LM_BF16_ROUTE[kernel][1]]
+    by_route = {f: faults[k][f]["logits_rel_l2"] > limit
+                for k in want for f in LM_BF16_ROUTE[k][1]}
+    by_kernel = {f: faults[k][f]["kernel_check_fails"]
+                 for k in want for f in LM_BF16_ROUTE[k][1]}
+    blind = [f for f in caught if not by_route[f]
+             and (route_catches_faults or not by_kernel[f])]
+    require(not blind, f"{arch} bf16: the checks miss the planted faults "
+                       f"{blind}: {bf16_route}")
     del last16_ref
     reps = 3
     t1 = time.perf_counter()
     for _ in range(reps):
-        prefill16(model16.params, {"tokens": toks})
+        prefill16(model16.params, batch)
     torch.cuda.synchronize()
     prefill_s = (time.perf_counter() - t1) / reps
     generate_tokens(model16, prompt[:, :4], 4)            # warm
-    _, stats16 = generate_tokens(model16, prompt, gen)
-    prof_prefill = profiled(torch, lambda: prefill16(model16.params,
-                                                     {"tokens": toks}))
+    _, stats16 = generate_tokens(model16, prompt, n_gen)
+    prof_prefill = profiled(torch, lambda: prefill16(model16.params, batch))
+
     def decode_steps():
         state = model16.init_cache(Bg, LM_DECODE_PROFILE)
         for i in range(LM_DECODE_PROFILE):
-            _, state = model16.decode_step(state, prompt[:, i:i + 1])
+            _, state = model16.decode_step(state, prompt[:, i % prompt_len:
+                                                         i % prompt_len + 1])
     prof_decode = profiled(torch, decode_steps)
-    emit(phase, arch=arch, params=n_params, init_s=init_s,
-         prefill_batch=B, prefill_len=S, launches=launches,
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(peak < total, f"{arch}: peak {peak} bytes, card {total}")
+    emit(phase, arch=arch, layers=cfg.n_layers,
+         layers_published=get_config(arch).n_layers, params=n_params,
+         init_s=init_s, prefill_batch=B, prefill_len=S,
+         vis_tokens=cfg.vis_tokens if "vis_embed" in batch else 0,
+         f32_rows=last_k.shape[0], launches=launches32,
          f32_kernel_vs_torch_ref_max_abs_err=e_route,
+         aux_loss=float(aux_k), aux_kernel_vs_torch_ref_abs_err=e_aux,
          f32_decode_vs_forward_max_abs_err=e_decode,
+         decode_capacity_factor=cfg_dec.capacity_factor,
          bf16_launches=launches16, bf16_kernel_launches=kernel_launches16,
-         generate=dict(batch=Bg, prompt=prompt_len, gen=gen,
+         generate=dict(batch=Bg, prompt=prompt_len, gen=n_gen,
                        first_row=tokens[0].tolist()),
          bf16_vs_f32_max_abs_err=e_bf16,
          bf16_kernel_vs_torch_ref=bf16_route,
+         faults_caught_by_route=by_route, faults_caught_by_kernel=by_kernel,
          bf16_prefill_s=prefill_s, bf16_prefill_tok_per_s=B * S / prefill_s,
          bf16_teacher_forced_prefill_s=stats16["prefill_s"],
-         bf16_decode_ms_per_token=stats16["decode_s"] / gen * 1e3,
-         bf16_decode_tok_per_s=Bg * gen / stats16["decode_s"],
+         bf16_decode_ms_per_token=stats16["decode_s"] / n_gen * 1e3,
+         bf16_decode_tok_per_s=Bg * n_gen / stats16["decode_s"],
          profile_prefill=prof_prefill,
          profile_decode=dict(steps=LM_DECODE_PROFILE, **prof_decode),
+         peak_memory_gib=peak / 2 ** 30, card_memory_gib=total / 2 ** 30,
          clock="host, ended by a device synchronize")
     del model16
     torch.cuda.empty_cache()
-    return launches[kernel], kernel_launches16
+    return launches16, kernel_launches16
+
+
+def lm_plans_phase(torch) -> dict:
+    """Phase 17b: lm_phase for each configuration of LM_PLANS.  Returns
+    {arch: (launches of a bf16 prefill step by wrapper, by __global__
+    function)}."""
+    return {arch: lm_phase(torch, arch, "lm_plans", want, layers=layers,
+                           prefill=prefill, gen=LM_PLANS_GEN,
+                           f32_rows=LM_PLANS_F32_ROWS,
+                           route_catches_faults=False)
+            for arch, layers, prefill, want in LM_PLANS}
 
 
 def train_launches(cfg, strategy, n_comm, kernel) -> dict:
@@ -3406,6 +3580,9 @@ def main(argv=None) -> int:
     parser.add_argument("--train", action="store_true",
                         help="only build the kernels and run the train "
                              "phase")
+    parser.add_argument("--lm-plans", action="store_true",
+                        help="only build the kernels and run the lm_plans "
+                             "phase")
     parser.add_argument("--src", type=Path, default=SRC,
                         help="with --kernel-times or --grad-oracle: the src "
                              "directory of the tree to run")
@@ -3467,6 +3644,10 @@ def main(argv=None) -> int:
     if args.train:
         print(json.dumps({"launches_train": train_phase(torch)}), flush=True)
         return 0
+    if args.lm_plans:
+        print(json.dumps({"launches_lm_plans": lm_plans_phase(torch)}),
+              flush=True)
+        return 0
     launch_floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
     emit("launch_floor", ms=launch_floor_ms)
     rows = check_kernels(torch)
@@ -3485,11 +3666,12 @@ def main(argv=None) -> int:
     launches_serving = serving_phase(torch, spec, mat, trace)
     serving_frontier(torch, trace.U_nodes[0])
     lm_errs, lm_timing = check_lm_kernels(torch)
-    lm_launches, lm_kernel_launches = zip(
-        lm_phase(torch, "qwen3-1.7b", "flash_attention", "lm_dense"),
-        lm_phase(torch, "mamba2-130m", "ssd_scan", "lm_ssm"))
-    lm_launches = dict(zip(("flash_attention", "ssd_scan"), lm_launches))
-    ssd_kernel_launches = lm_kernel_launches[1]
+    dense_launches, _ = lm_phase(torch, "qwen3-1.7b", "lm_dense",
+                                 {"flash_attention": 28})
+    ssm_launches, ssd_kernel_launches = lm_phase(
+        torch, "mamba2-130m", "lm_ssm", {"ssd_scan": 24})
+    lm_launches = {**dense_launches, **ssm_launches}
+    launches_plans = lm_plans_phase(torch)
     launches_train = train_phase(torch)
 
     main_row = rows[("exp1", "float32")]
@@ -3560,15 +3742,20 @@ def main(argv=None) -> int:
     # flash's row is its bf16 tensor-core kernel, the main path's (times,
     # bound, error); the f32 CUDA-core kernel is another __global__
     # function, whose error rides beside it
+    plans = {name: {arch: launches[0].get(name, 0)
+                    for arch, launches in launches_plans.items()}
+             for name in ("flash_attention", "ssd_scan")}
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": SOURCES["flash_attention"],
                     "replaces": REPLACES["flash_attention"],
                     "launches": lm_launches["flash_attention"],
                     "launches_train_per_step":
                         launches_train["flash_attention"],
+                    "launches_lm_plans": plans["flash_attention"],
                     "dtype": "bfloat16",
                     "max_abs_err": lm_errs["flash_attention_bf16"],
                     "max_abs_err_f32_kernel": lm_errs["flash_attention"],
+                    "mla_shape": lm_timing["flash_attention_mla"],
                     **lm_timing["flash_attention"]})
     # ssd_scan's row likewise: the bf16 three-pass tensor-core kernels
     # (their CUDA launches a call, counted over a bf16 prefill step of
@@ -3578,6 +3765,9 @@ def main(argv=None) -> int:
                     "replaces": REPLACES["ssd_scan"],
                     "launches": lm_launches["ssd_scan"],
                     "launches_train_per_step": launches_train["ssd_scan"],
+                    "launches_lm_plans": plans["ssd_scan"],
+                    "cuda_launches_by_kernel_zamba2":
+                        launches_plans["zamba2-7b"][1],
                     "dtype": "bfloat16",
                     "cuda_launches_per_call":
                         sum(ssd_kernel_launches.values())

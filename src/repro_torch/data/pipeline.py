@@ -24,9 +24,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-FRONTENDS = ("the vlm frontend is not ported yet: Queue 1 item 6 of "
-             "ROADMAP.md (the other LM plans)")
-
+from repro_torch.models.frontends import vlm_batch_stub
 
 def fold_generator(*keys: int) -> torch.Generator:
     """A CPU generator seeded from the integers ``keys``: distinct tuples
@@ -77,11 +75,13 @@ class SyntheticLM:
 
 def make_lm_batch(generator: torch.Generator, cfg, batch: int, seq: int):
     """One random batch matching cfg's modality (labels = shifted
-    tokens), drawn from ``generator``."""
+    tokens), drawn from ``generator``: a vlm's is ``vis_tokens`` patch
+    embeddings and ``seq − vis_tokens`` text tokens."""
     if cfg.modality == "vlm":
-        raise NotImplementedError(FRONTENDS)
-    b = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
-                                 generator=generator)}
+        b = vlm_batch_stub(generator, batch, seq, cfg)
+    else:
+        b = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                     generator=generator)}
     b["labels"] = torch.roll(b["tokens"], -1, dims=1)
     return b
 

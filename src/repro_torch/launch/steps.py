@@ -55,18 +55,21 @@ def replicate_for_nodes(tree, n_nodes: int):
         lambda x: x.detach().expand(n_nodes, *x.shape).contiguous(), tree)
 
 
-def _node_slices(tree, g: int, fn):
+def _node_slices(tree, g: int, fn, plan):
     """``fn`` on node g's slice of every leaf of a node-stacked parameter
-    tree, each segment's stacked layers split into a list of one tree a
-    layer (the form ``transformer._layers`` reads as it is)."""
+    tree whose segments follow ``plan``, each segment's stacked layers
+    split into a list of one tree a layer — a zamba segment's into a
+    list of groups, each a list of layers (the form
+    ``transformer._index`` reads as it is)."""
+    def split(sub, axes, idx):
+        if not axes:
+            return tree_map(lambda x: fn(x[(g, *idx)]), sub)
+        return [split(sub, axes[1:], (*idx, j)) for j in range(axes[0])]
+
     out = {}
     for key, sub in tree.items():
-        if key.startswith("seg"):
-            n = tree_leaves(sub)[0].shape[1]
-            out[key] = [tree_map(lambda x, j=j: fn(x[g, j]), sub)
-                        for j in range(n)]
-        else:
-            out[key] = tree_map(lambda x: fn(x[g]), sub)
+        seg = plan[int(key[3:])] if key.startswith("seg") else None
+        out[key] = split(sub, tfm.layer_axes(seg) if seg else (), ())
     return out
 
 
@@ -90,11 +93,13 @@ def node_value_and_grad(params, batch, cfg, n_nodes: int):
     zero-filled full-size gradient.  A parameter the loss does not reach
     gets a zero gradient, as ``jax.grad`` gives."""
     _check_nodes(params, batch, n_nodes)
+    plan = tfm.build_plan(cfg)
     grads = tree_map(torch.empty_like, params)
     losses = []
     for g in range(n_nodes):
-        p_g = _node_slices(params, g, lambda x: x.detach().requires_grad_())
-        dst = tree_leaves(_node_slices(grads, g, lambda x: x))
+        p_g = _node_slices(params, g, lambda x: x.detach().requires_grad_(),
+                           plan)
+        dst = tree_leaves(_node_slices(grads, g, lambda x: x, plan))
         with torch.enable_grad():
             loss = loss_fn(p_g, {k: v[g] for k, v in batch.items()}, cfg)
             leaves = tree_leaves(p_g)

@@ -23,9 +23,10 @@ import torch
 from repro_torch.api.runner import resolve_device
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config
-from repro_torch.data.pipeline import FRONTENDS, SyntheticLM, fold_generator
+from repro_torch.data.pipeline import SyntheticLM, fold_generator
 from repro_torch.distributed.aggregation import AggregationConfig
 from repro_torch.launch import steps as steps_lib
+from repro_torch.models.frontends import vlm_batch_stub
 from repro_torch.models.transformer import init_params
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.utils.log import get_logger
@@ -34,13 +35,20 @@ log = get_logger("repro_torch.train")
 
 
 def make_batch(cfg, generator, n_nodes, per_node, seq):
-    """Uniform random tokens (n_nodes, per_node, seq) from ``generator``,
-    labels the tokens shifted by one."""
+    """Uniform random tokens (n_nodes, per_node, seq) from ``generator``
+    — a vlm's ``vis_tokens`` patch embeddings (n_nodes, per_node,
+    vis_tokens, d) and ``seq − vis_tokens`` text tokens — labels the
+    tokens shifted by one."""
     if cfg.modality == "vlm":
-        raise NotImplementedError(FRONTENDS)
-    toks = torch.randint(0, cfg.vocab_size, (n_nodes, per_node, seq),
-                         generator=generator)
-    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+        b = vlm_batch_stub(generator, n_nodes * per_node, seq, cfg)
+        b = {k: v.reshape(n_nodes, per_node, *v.shape[1:])
+             for k, v in b.items()}
+    else:
+        b = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (n_nodes, per_node, seq),
+                                     generator=generator)}
+    b["labels"] = torch.roll(b["tokens"], -1, dims=-1)
+    return b
 
 
 LOCAL_PATTERNS = ("embed", "lm_head")      # node-local, never communicated

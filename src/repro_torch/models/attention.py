@@ -1,7 +1,8 @@
-"""Attention mixers: GQA/MQA/MHA (+ RoPE, qk-norm, sliding window), with
-a full-sequence path (prefill) and a KV-cache single-token path (decode).
+"""Attention mixers: GQA/MQA/MHA (+ RoPE, qk-norm, sliding window) and MLA
+(multi-head latent attention, DeepSeek-V3), with a full-sequence path
+(prefill) and a KV-cache single-token path (decode).
 
-Port of the GQA half of ``src/repro/models/attention.py``.  The softmax
+Port of ``src/repro/models/attention.py``.  The softmax
 core has the JAX package's two plain implementations:
   * ``attention_core`` — materializes the score matrix (short S);
   * ``chunked_attention`` — a loop over KV chunks with an online softmax
@@ -17,15 +18,17 @@ There every row's positions are ``arange(S)`` (``transformer.
 embed_inputs``), which is what the kernel's index-based causal and
 window masks express.  ``gqa_decode`` keeps the plain core on every
 backend: its query faces a ring buffer with explicit positions and −1
-(empty) slots.
-
-MLA (multi-head latent attention, DeepSeek-V3) is not ported yet.
+(empty) slots.  ``mla_forward`` goes the same way, with V padded from
+the value head dim up to the query-key one (the kernel takes one head
+dim) and the scale (dn + dr)^-1/2; ``mla_decode`` is the absorbed-matmul
+decode against the latent cache, plain torch as in the JAX package.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
@@ -107,19 +110,32 @@ def attention_dispatch(q, k, v, q_pos, k_pos, *, window=None, scale=None):
     return attention_core(q, k, v, q_pos, k_pos, window=window, scale=scale)
 
 
-def kernel_attention(q, k, v, positions, *, window=None):
+def kernel_attention(q, k, v, positions, *, window=None, scale=None):
     """Causal attention of a full sequence through the ``flash_attention``
     kernel, differentiable: the backward runs ``attention_dispatch`` (the
     plain core) on the saved q, k, v a second time and returns its
     gradients (``ops.with_plain_backward``).  ``positions`` (B, S), each
-    row ``arange(S)``, is what the kernel's index-based masks express."""
+    row ``arange(S)``, is what the kernel's index-based masks express;
+    ``scale`` defaults to D^-1/2."""
     def plain(q, k, v):
         return attention_dispatch(q, k, v, positions, positions,
-                                  window=window)
+                                  window=window, scale=scale)
     return ops.with_plain_backward(
         lambda q, k, v: ops.flash_attention(q, k, v, causal=True,
-                                            window=window, backend="cuda"),
+                                            window=window, scale=scale,
+                                            backend="cuda"),
         plain, q, k, v)
+
+
+def full_attention(q, k, v, positions, *, window=None, scale=None):
+    """The causal core of a full sequence: the kernel on the ``cuda``
+    backend (:func:`kernel_attention`), the plain ``attention_dispatch``
+    elsewhere."""
+    if ops.resolve_backend(None, q.device) == "cuda":
+        return kernel_attention(q, k, v, positions, window=window,
+                                scale=scale)
+    return attention_dispatch(q, k, v, positions, positions, window=window,
+                              scale=scale)
 
 
 # ======================================================================
@@ -167,11 +183,7 @@ def gqa_forward(p, x, cfg, positions):
     """Full-sequence path (prefill). x: (B,S,d); positions: (B,S), each
     row ``arange(S)``."""
     q, k, v = _qkv(p, x, cfg, positions)
-    if ops.resolve_backend(None, x.device) == "cuda":
-        o = kernel_attention(q, k, v, positions, window=cfg.sliding_window)
-    else:
-        o = attention_dispatch(q, k, v, positions, positions,
-                               window=cfg.sliding_window)
+    o = full_attention(q, k, v, positions, window=cfg.sliding_window)
     return linear(p["wo"], o.reshape(x.shape[0], x.shape[1], -1))
 
 
@@ -200,3 +212,112 @@ def gqa_decode(p, x, cfg, cache: KVCache, pos: int):
     o = attention_dispatch(q, cache.k, cache.v, positions, cache.positions,
                            window=cfg.sliding_window)
     return linear(p["wo"], o.reshape(B, 1, -1)), cache
+
+
+# ======================================================================
+# MLA — multi-head latent attention (DeepSeek-V3)
+# ======================================================================
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor         # (B, capacity, kv_lora) compressed latent
+    k_rope: torch.Tensor      # (B, capacity, rope_dim) shared rope key
+    positions: torch.Tensor   # (B, capacity) int64, −1 ⇒ empty slot
+
+
+def init_mla(generator, cfg, device, lead=()):
+    d, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    dt = getattr(torch, cfg.param_dtype)
+
+    def lin(d_in, d_out):
+        return init_linear(generator, d_in, d_out, dt, device, lead=lead)
+    return {
+        "wdq": lin(d, qr),
+        "q_norm": init_rms_norm(qr, dt, device, lead),
+        "wuq": lin(qr, H * (dn + dr)),
+        "wdkv": lin(d, kvr + dr),
+        "kv_norm": init_rms_norm(kvr, dt, device, lead),
+        "wuk": lin(kvr, H * dn),
+        "wuv": lin(kvr, H * dv),
+        "wo": lin(H * dv, d),
+    }
+
+
+def _mla_q(p, x, cfg, positions):
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    cq = rms_norm(p["q_norm"], linear(p["wdq"], x), cfg.norm_eps)
+    q = linear(p["wuq"], cq).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, x, cfg, positions):
+    kvr = cfg.kv_lora_rank
+    dkv = linear(p["wdkv"], x)
+    ckv = rms_norm(p["kv_norm"], dkv[..., :kvr], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., kvr:][:, :, None], positions,
+                        cfg.rope_theta)[:, :, 0]              # (B,S,dr)
+    return ckv, k_rope
+
+
+def mla_forward(p, x, cfg, positions):
+    """Full-sequence MLA: the latent expanded to per-head K/V (prefill).
+    x: (B,S,d); positions: (B,S), each row ``arange(S)``."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope = linear(p["wuk"], ckv).reshape(B, S, H, dn)
+    v = linear(p["wuv"], ckv).reshape(B, S, H, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
+    # V padded up to the query-key head dim so the shared cores (and the
+    # kernel) apply, then sliced
+    o = full_attention(q, k, F.pad(v, (0, dn + dr - dv)), positions,
+                       window=cfg.sliding_window, scale=(dn + dr) ** -0.5)
+    return linear(p["wo"], o[..., :dv].reshape(B, S, H * dv))
+
+
+def mla_init_cache(cfg, batch, capacity, dtype, device, lead=()):
+    return MLACache(
+        ckv=torch.zeros((*lead, batch, capacity, cfg.kv_lora_rank),
+                        dtype=dtype, device=device),
+        k_rope=torch.zeros((*lead, batch, capacity, cfg.rope_head_dim),
+                           dtype=dtype, device=device),
+        positions=torch.full((*lead, batch, capacity), -1, dtype=torch.long,
+                             device=device))
+
+
+def mla_decode(p, x, cfg, cache: MLACache, pos: int):
+    """Absorbed-matmul decode: scores against the latent cache directly,
+    never materializing per-head K/V.  x: (B,1,d).  The cache is written
+    IN PLACE at slot ``pos % capacity``, as ``gqa_decode``'s; the
+    returned cache is the same object."""
+    B = x.shape[0]
+    H, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    kvr = cfg.kv_lora_rank
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)        # (B,1,H,dn/dr)
+    ckv_t, k_rope_t = _mla_latent(p, x, cfg, positions)  # (B,1,kvr/dr)
+    slot = pos % cache.ckv.shape[1]
+    cache.ckv[:, slot] = ckv_t[:, 0]
+    cache.k_rope[:, slot] = k_rope_t[:, 0]
+    cache.positions[:, slot] = pos
+    ckv = cache.ckv.to(f32)
+    # W_uk absorbed into q: q_lat (B,1,H,kvr)
+    wuk = p["wuk"]["w"].reshape(kvr, H, dn).to(f32)
+    q_lat = torch.einsum("bqhn,khn->bqhk", q_nope.to(f32), wuk)
+    s = (torch.einsum("bqhk,bsk->bhqs", q_lat, ckv)
+         + torch.einsum("bqhr,bsr->bhqs", q_rope.to(f32),
+                        cache.k_rope.to(f32))) * (dn + dr) ** -0.5
+    mask = _build_mask(positions, cache.positions,
+                       cfg.sliding_window)[:, None]
+    a = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)   # (B,H,1,S)
+    o_lat = torch.einsum("bhqs,bsk->bqhk", a, ckv)
+    wuv = p["wuv"]["w"].reshape(kvr, H, dv).to(f32)
+    o = torch.einsum("bqhk,khv->bqhv", o_lat, wuv)
+    return linear(p["wo"], o.reshape(B, 1, H * dv).to(x.dtype)), cache

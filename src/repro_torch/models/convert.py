@@ -6,8 +6,10 @@ returns (nested dicts whose leaves are arrays: numpy, or anything
 ``numpy.asarray`` reads, such as a JAX array) and returns the
 :class:`~repro_torch.models.transformer.LanguageModel` that computes the
 same function.  No layout changes: the port keeps the JAX package's —
-each segment's leaves carry a leading layer axis, and linear weights
-are ``(d_in, d_out)`` — so every leaf is checked, path and shape, against
+each segment's leaves carry its leading layer axes ((n,), or a zamba
+segment's (n_groups, period)), the MoE experts are stacked (E, d, dff) /
+(E, dff, d), and linear weights are ``(d_in, d_out)`` — so every leaf is
+checked, path and shape, against
 the tree :func:`~repro_torch.models.transformer.init_params` builds for
 ``cfg`` (on the meta device), and copied as it is.  This module imports
 nothing of the JAX package.

@@ -1,12 +1,18 @@
 """Decoder-only language model assembly, generic over the architecture
 zoo.
 
-Port of ``src/repro/models/transformer.py`` for the ``scan`` plans.  The
-layer stack is described by a *plan*: a list of segments, each a
-contiguous run of ``n`` identical (mixer, ffn) blocks, ``("scan", kind,
-n)``.  A segment's parameters and caches keep the JAX package's layout,
-every leaf stacked along a leading layer axis of size ``n``; the JAX
-package scans over that axis, the port loops over it.
+Port of ``src/repro/models/transformer.py``.  The layer stack is
+described by a *plan*: a list of segments, each a contiguous run of
+layers with identical block structure:
+  ("scan", kind, n)            — n identical (mixer, ffn) blocks;
+  ("zamba", n_groups, period)  — n_groups × [period ssm blocks + ONE
+                                 weight-tied shared-attention block]
+                                 (Zamba2; the shared block's weights live
+                                 once at the top level, "shared_attn").
+A segment's parameters and caches keep the JAX package's layout, every
+leaf stacked along the segment's layer axes — (n,) for a scan, (n_groups,
+period) for a zamba segment; the JAX package scans over them, the port
+loops.
 
 Parameters are a nested dict of tensors (the JAX package's pytree, leaf
 for leaf: linear weights ``(d_in, d_out)``), on which the functions
@@ -15,11 +21,10 @@ here work; :class:`LanguageModel` is the same tree as an
 (:func:`init_params`) or carried across from the JAX package
 (:func:`repro_torch.models.convert.params_from_jax`).
 
-Text and audio (a token stream) are ported.  The zamba plan (a shared
-attention block every few SSM layers), MoE FFNs, MLA attention and the
-vlm frontend are not, and raise NotImplementedError naming the later
-slice: that covers arctic-480b, deepseek-v3-671b, zamba2-7b and
-llava-next-mistral-7b.
+Modalities (stub frontends, :mod:`repro_torch.models.frontends`): text
+and audio are token ids (B, S) through the embedding table; vlm
+prepends pre-projected patch embeddings ``vis_embed`` (B, S_vis, d) to
+the text's token embeddings.  Decode is token-only.
 """
 from __future__ import annotations
 
@@ -43,41 +48,47 @@ f32 = torch.float32
 
 # ----------------------------------------------------------------- plan
 
+SSM_ONLY = ("ssm", "none")
+
+
 def build_plan(cfg):
     """Segment the layer stack into homogeneous runs."""
     if cfg.block_pattern == "zamba":
-        blk._unported(f"the zamba plan ({cfg.name})")
-    if cfg.n_experts:
-        blk._unported(f"the MoE FFN ({cfg.name})")
-    if cfg.attn_impl == "mla":
-        blk._unported(f"MLA attention ({cfg.name})")
-    if cfg.modality == "vlm":
-        blk._unported(f"the vlm frontend ({cfg.name})")
+        period = cfg.shared_attn_period
+        n_groups, rest = divmod(cfg.n_layers, period)
+        plan = []
+        if n_groups:
+            plan.append(("zamba", n_groups, period))
+        if rest:
+            plan.append(("scan", SSM_ONLY, rest))
+        return plan
     if cfg.block_pattern == "ssm":
-        return [("scan", ("ssm", "none"), cfg.n_layers)]
-    return [("scan", ("attn", "dense"), cfg.n_layers)]
+        return [("scan", SSM_ONLY, cfg.n_layers)]
+    # attention backbones, possibly with leading dense layers before MoE
+    if not cfg.n_experts:
+        return [("scan", ("attn", "dense"), cfg.n_layers)]
+    k = min(cfg.first_dense_layers, cfg.n_layers)
+    plan = [("scan", ("attn", "dense"), k)] if k else []
+    return plan + [("scan", ("attn", "moe"), cfg.n_layers - k)]
+
+
+def layer_axes(seg) -> tuple[int, ...]:
+    """The layer axes that lead every leaf of segment ``seg``: (n,) for a
+    scan, (n_groups, period) for a zamba segment."""
+    return (seg[2],) if seg[0] == "scan" else (seg[1], seg[2])
 
 
 def _index(tree, i):
-    """Layer ``i`` of a stacked segment: every leaf indexed (views)."""
-    if isinstance(tree, torch.Tensor):
+    """Entry ``i`` of a segment's leading layer axis: every leaf indexed
+    (views).  A segment given as a list holds one tree an entry (the
+    trainer's per-layer leaves, see
+    :func:`repro_torch.launch.steps.node_value_and_grad`) and is read as
+    it is."""
+    if isinstance(tree, (list, torch.Tensor)):
         return tree[i]
     if isinstance(tree, tuple):                    # a cache NamedTuple
         return type(tree)(*(t[i] for t in tree))
     return {k: _index(v, i) for k, v in tree.items()}
-
-
-def _layers(params, plan):
-    """(kind, layer params) of every layer, in order.  A segment given as
-    a list holds one tree a layer (the trainer's per-layer leaves, see
-    :func:`repro_torch.launch.steps.node_value_and_grad`) and is read as
-    it is."""
-    out = []
-    for s, (_, kind, n) in enumerate(plan):
-        seg = params[f"seg{s}"]
-        out += [(kind, seg[j] if isinstance(seg, list) else _index(seg, j))
-                for j in range(n)]
-    return out
 
 
 # ----------------------------------------------------------------- params
@@ -100,8 +111,12 @@ def init_params(cfg, *, seed: int = 0, generator=None, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(g, cfg.d_model, cfg.vocab_size, dt,
                                         device)
-    for i, (_, kind, n) in enumerate(plan):
-        params[f"seg{i}"] = blk.init_block(g, cfg, kind, device, lead=(n,))
+    if cfg.block_pattern == "zamba":
+        params["shared_attn"] = blk.init_shared_attn(g, cfg, device)
+    for i, seg in enumerate(plan):
+        kind = seg[1] if seg[0] == "scan" else SSM_ONLY
+        params[f"seg{i}"] = blk.init_block(g, cfg, kind, device,
+                                           lead=layer_axes(seg))
     return params
 
 
@@ -118,31 +133,44 @@ def count_params(params) -> int:
 
 
 def serving_params(params, cfg):
-    """``params`` with every linear weight and bias cast to the
-    activation dtype ``cfg.dtype``, once, as the JAX package's serving
-    specs do (``launch/specs.py``).  ``linear`` casts them at use anyway,
-    so results do not change; norm scales, the embedding table (which
-    ``unembed`` reads in f32), the conv and the SSM's f32 leaves keep
-    their dtype."""
+    """``params`` with every linear weight and bias and the MoE expert
+    stacks cast to the activation dtype ``cfg.dtype``, once, as the JAX
+    package's serving specs do (``launch/specs.py``).  ``linear`` and
+    ``moe_forward`` cast them at use anyway, so results do not change;
+    norm scales, the embedding table (which ``unembed`` reads in f32),
+    the MoE router (f32 by design), the conv and the SSM's f32 leaves
+    keep their dtype.
+
+    The cast is IN PLACE, one leaf at a time: each cast leaf replaces
+    its entry in ``params`` (nested dicts), which is returned, so the
+    old leaf is freed as soon as its copy exists if nothing else holds
+    it — a model whose weights and their cast copy would not fit
+    together (a MoE cut at full width) still gets its serving copy."""
     dt = getattr(torch, cfg.dtype)
 
-    def cast(tree):
+    def cast(tree, name):
         is_linear = "w" in tree
-        return {k: (v.to(dt) if is_linear and k in ("w", "b") else v)
-                if isinstance(v, torch.Tensor) else cast(v)
-                for k, v in tree.items()}
-    return cast(params)
+        for k, v in tree.items():
+            if not isinstance(v, torch.Tensor):
+                cast(v, k)
+            elif name == "experts" or (is_linear and k in ("w", "b")):
+                tree[k] = v.to(dt)
+        return tree
+    return cast(params, "")
 
 
 # ----------------------------------------------------------------- forward
 
 def embed_inputs(params, batch, cfg):
-    """batch: {"tokens": (B, S)} → (x (B, S, d) in cfg.dtype,
-    positions (B, S), each row arange(S))."""
-    tokens = batch["tokens"]
-    x = embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    """batch: {"tokens": (B, S)} or vlm {"tokens": (B, S_text),
+    "vis_embed": (B, S_vis, d)} → (x (B, S, d) in cfg.dtype, the patch
+    embeddings first; positions (B, S), each row arange(S))."""
+    dt = getattr(torch, cfg.dtype)
+    x = embed(params["embed"], batch["tokens"]).to(dt)
+    if cfg.modality == "vlm" and "vis_embed" in batch:
+        x = torch.cat([batch["vis_embed"].to(dt), x], dim=1)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
     return x, positions
 
 
@@ -164,17 +192,27 @@ def _save_dots():
     return create_selective_checkpoint_contexts(list(_DOTS))
 
 
-def _block(p_layer, x, cfg, kind, positions):
-    """One block, checkpointed as ``cfg.remat`` / ``cfg.remat_policy``
-    ask while autograd records: "all" keeps only the block's inputs and
-    recomputes the rest in the backward, "dots" keeps the matrix
-    products' outputs too.  Recomputation runs the block's forward, its
-    kernels included, a second time; values do not change."""
+def _remat(fn, cfg, *args):
+    """``fn(*args)`` — one block, or one zamba group — checkpointed as
+    ``cfg.remat`` / ``cfg.remat_policy`` ask while autograd records:
+    "all" keeps only its inputs and recomputes the rest in the backward,
+    "dots" keeps the matrix products' outputs too.  Recomputation runs
+    the forward, its kernels included, a second time; values do not
+    change."""
     if not (cfg.remat and torch.is_grad_enabled()):
-        return blk.block_forward(p_layer, x, cfg, kind, positions)
+        return fn(*args)
     context_fn = _save_dots if cfg.remat_policy == "dots" else noop_context_fn
-    return checkpoint(blk.block_forward, p_layer, x, cfg, kind, positions,
-                      use_reentrant=False, context_fn=context_fn)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def _zamba_group(p_group, p_shared, x, cfg, period, positions):
+    """``period`` SSM blocks, then the shared attention block."""
+    aux = torch.zeros((), dtype=f32, device=x.device)
+    for j in range(period):
+        x, da = blk.block_forward(_index(p_group, j), x, cfg, SSM_ONLY,
+                                  positions)
+        aux = aux + da
+    return blk.shared_attn_forward(p_shared, x, cfg, positions), aux
 
 
 def hidden_states(params, batch, cfg):
@@ -182,9 +220,17 @@ def hidden_states(params, batch, cfg):
     aux_loss scalar)."""
     x, positions = embed_inputs(params, batch, cfg)
     aux = torch.zeros((), dtype=f32, device=x.device)
-    for kind, p_layer in _layers(params, build_plan(cfg)):
-        x, da = _block(p_layer, x, cfg, kind, positions)
-        aux = aux + da
+    for s, seg in enumerate(build_plan(cfg)):
+        seg_params = params[f"seg{s}"]
+        for i in range(layer_axes(seg)[0]):
+            if seg[0] == "scan":
+                x, da = _remat(blk.block_forward, cfg, _index(seg_params, i),
+                               x, cfg, seg[1], positions)
+            else:
+                x, da = _remat(_zamba_group, cfg, _index(seg_params, i),
+                               params["shared_attn"], x, cfg, seg[2],
+                               positions)
+            aux = aux + da
     return rms_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -197,8 +243,9 @@ def forward(params, batch, cfg):
 # ----------------------------------------------------------------- decode
 
 class DecodeState(NamedTuple):
-    caches: Any           # per segment: a cache with a leading layer axis
-    shared_caches: Any    # zamba shared-attn caches (None: not ported)
+    caches: Any           # per segment: a cache stacked like its params
+    shared_caches: Any    # zamba: the shared block's KV cache, one a
+    #                       group (leading axis n_groups); else None
     pos: int              # next position to write
 
 
@@ -208,10 +255,16 @@ def init_cache(cfg, batch, capacity, dtype=None, *, device=None):
     ``cfg.dtype``."""
     device = resolve_device(device)
     dtype = getattr(torch, dtype or cfg.dtype)
-    caches = [blk.block_init_cache(cfg, kind, batch, capacity, dtype, device,
-                                   lead=(n,))
-              for _, kind, n in build_plan(cfg)]
-    return DecodeState(caches=caches, shared_caches=None, pos=0)
+    caches, shared = [], None
+    for seg in build_plan(cfg):
+        kind = seg[1] if seg[0] == "scan" else SSM_ONLY
+        caches.append(blk.block_init_cache(cfg, kind, batch, capacity, dtype,
+                                           device, lead=layer_axes(seg)))
+        if seg[0] == "zamba":
+            shared = blk.block_init_cache(cfg, ("attn", "dense"), batch,
+                                          capacity, dtype, device,
+                                          lead=(seg[1],))
+    return DecodeState(caches=caches, shared_caches=shared, pos=0)
 
 
 def decode_step(params, state: DecodeState, tokens, cfg):
@@ -220,12 +273,22 @@ def decode_step(params, state: DecodeState, tokens, cfg):
     tensors and ``pos + 1``."""
     x = embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     pos = state.pos
-    plan = build_plan(cfg)
-    for s, (_, kind, n) in enumerate(plan):
-        seg = params[f"seg{s}"]
-        for j in range(n):
-            x, _ = blk.block_decode(_index(seg, j), x, cfg, kind,
-                                    _index(state.caches[s], j), pos)
+    for s, seg in enumerate(build_plan(cfg)):
+        seg_params, cache = params[f"seg{s}"], state.caches[s]
+        if seg[0] == "scan":
+            for j in range(seg[2]):
+                x, _ = blk.block_decode(_index(seg_params, j), x, cfg,
+                                        seg[1], _index(cache, j), pos)
+            continue
+        _, n_groups, period = seg
+        for i in range(n_groups):
+            p_group, c_group = _index(seg_params, i), _index(cache, i)
+            for j in range(period):
+                x, _ = blk.block_decode(_index(p_group, j), x, cfg, SSM_ONLY,
+                                        _index(c_group, j), pos)
+            x, _ = blk.shared_attn_decode(params["shared_attn"], x, cfg,
+                                          _index(state.shared_caches, i),
+                                          pos)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return logits_of(params, x, cfg), DecodeState(
         caches=state.caches, shared_caches=state.shared_caches, pos=pos + 1)

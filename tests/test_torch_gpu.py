@@ -1142,6 +1142,107 @@ def test_smoke_model_through_the_kernels_matches_torch_ref(cuda, name):
     assert tokens.is_cuda and tokens.shape == (2, 4)
 
 
+# the kernels at the shapes of the plans past the scan stacks: MLA's head
+# dim 192 (128 heads, V padded to it) with its scale passed explicitly
+# ((dn + dr)^-1/2, and another), llava's GQA 32/8 past its 4096-token
+# window, zamba2's SSM heads (112 of P 64, N 64)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [192 ** -0.5, 0.1])
+def test_flash_attention_mla_head_dim_with_scale(cuda, dtype, scale):
+    from repro_torch.kernels import flash_attention, ref
+    g = torch.Generator(device="cuda").manual_seed(192)
+    q, k, v = (torch.randn((2, 300, 128, 192), generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    out = flash_attention.flash_attention(q, k, v, causal=True, scale=scale)
+    want = ref.ref_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), scale=scale).transpose(1, 2)
+    _close(out, want, FLASH_TOL[dtype])
+
+
+def test_flash_attention_gqa_window_past_it(cuda):
+    """llava-next's attention at its prefill: B 1, S 8192, 32 query heads
+    on 8 KV heads, D 128, window 4096, bf16."""
+    from repro_torch.kernels import flash_attention, ref
+    g = torch.Generator(device="cuda").manual_seed(4096)
+    q, k, v = (torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+               for s in ((1, 8192, 32, 128), (1, 8192, 8, 128),
+                         (1, 8192, 8, 128)))
+    out = flash_attention.flash_attention(q, k, v, causal=True, window=4096)
+    want = ref.ref_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), window=4096).transpose(1, 2)
+    _close(out, want, FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_zamba2_heads(cuda, dtype):
+    """zamba2-7b's SSM: 112 heads of P 64, N 64, chunk 128; at bf16 the
+    three tensor-core passes, one launch each."""
+    from repro_torch.kernels import _build, ref, ssd_scan
+    args = _ssd_case(2, 512, 112, 64, 64, dtype, seed=112)
+    _build.KERNEL_LAUNCHES.clear()
+    y, h = ssd_scan.ssd_scan(*args, chunk=128)
+    if dtype == torch.bfloat16:
+        assert dict(_build.KERNEL_LAUNCHES) == _SSD_PASSES
+    y_ref, h_ref = ref.ref_ssd(*args)
+    _close(y, y_ref, SSD_TOL[dtype])
+    _close(h, h_ref, SSD_TOL[dtype])
+
+
+def _plan_launches(cfg):
+    """The LM kernels' launches of one forward of ``cfg``: one flash a
+    attention layer (and a zamba group's shared block), one ssd_scan an
+    SSM layer."""
+    from repro_torch.models.transformer import build_plan
+    out = {}
+    for seg in build_plan(cfg):
+        if seg[0] == "zamba":
+            out["ssd_scan"] = out.get("ssd_scan", 0) + seg[1] * seg[2]
+            out["flash_attention"] = out.get("flash_attention", 0) + seg[1]
+        else:
+            name = "flash_attention" if seg[1][0] == "attn" else "ssd_scan"
+            out[name] = out.get(name, 0) + seg[2]
+    return out
+
+
+@pytest.mark.parametrize("name", ["arctic-480b", "deepseek-v3-671b",
+                                  "zamba2-7b", "llava-next-mistral-7b"])
+def test_new_plans_smoke_through_the_kernels(cuda, name):
+    """The smoke MoE, MLA, zamba and vlm models on the card through their
+    LM kernels against the torch-ref route on the same weights (the MoE
+    aux loss too), with the launches by kernel; prefill ≡ teacher-forced
+    decode at 2e-3 (a MoE's at a capacity at which the forward drops no
+    token)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import LanguageModel, init_params
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.frontends import vlm_batch_stub
+    cfg = get_config(name).smoke()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    model = LanguageModel(cfg, init_params(cfg, seed=0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = (vlm_batch_stub(g, 2, 40, cfg) if cfg.modality == "vlm" else
+             {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                      device="cuda", generator=g)})
+    _build.LAUNCHES.clear()
+    got, aux = tfm.forward(model.params, batch, cfg)
+    assert dict(_build.LAUNCHES) == _plan_launches(cfg)
+    with ops.backend_scope("torch-ref"):
+        want, want_aux = tfm.forward(model.params, batch, cfg)
+    assert dict(_build.LAUNCHES) == _plan_launches(cfg)
+    _close(got, want, dict(rtol=1e-4, atol=1e-4))
+    _close(aux, want_aux, dict(rtol=1e-4, atol=1e-4))
+    toks = batch["tokens"]
+    _, stats = serve.generate_tokens(model, toks, 4,
+                                     keep_prefill_logits=True)
+    _close(stats["prefill_logits"], model(toks), dict(rtol=2e-3, atol=2e-3))
+    tokens, _ = serve.generate(name, batch=2, prompt_len=8, gen=4)
+    assert tokens.is_cuda and tokens.shape == (2, 4)
+
+
 # ------------------------------------------------------- the sparse tier
 
 def _sparse_setup(L, seed=0, family="erdos_renyi"):

@@ -1,16 +1,21 @@
 """The port's LM serving path against the JAX package's, on the CPU.
 
-* ``make_prefill_step`` (last-position logits of a full forward) and
-  ``make_serve_step`` (one decode token against the cache) against
+* ``make_prefill_step`` (last-position logits of a full forward; the
+  vlm's batch carries its patch embeddings) and ``make_serve_step`` (one
+  decode token against the cache, token-only) against
   ``repro.launch.steps``' on the same weights (carried across by
   ``params_from_jax``) and tokens: rtol = atol = 1e-5 at float32.
 * The ``generate`` helper's greedy tokens equal those of a JAX
   ``decode_step`` loop that prefills the same prompt by teacher-forced
   decode and takes the argmax, as ``repro.launch.serve.generate`` does;
   its kept prefill logits equal the JAX loop's.
+* ``serving_params`` casts the linear weights and the MoE expert stacks
+  in place, not the router, and changes no logit.
 * ``generate()`` runs on the card unless given ``device=``, and raises
   without one; seeded runs repeat; ``main`` runs on the CPU.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -26,7 +31,8 @@ from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import params_from_jax  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-ARCHS = ("qwen3-1.7b", "mamba2-130m")
+ARCHS = ("qwen3-1.7b", "mamba2-130m", "arctic-480b", "deepseek-v3-671b",
+         "zamba2-7b", "llava-next-mistral-7b")
 
 _MODELS = {}
 
@@ -53,10 +59,14 @@ def _close(got, want):
 @pytest.mark.parametrize("name", ARCHS)
 def test_prefill_step_matches_jax(name):
     cfg, params, model = _model(name)
-    toks = _tokens(cfg, 0)
-    got = steps.make_prefill_step(cfg)(model.params,
-                                       {"tokens": torch.from_numpy(toks)})
-    want = rsteps.make_prefill_step(cfg)(params, {"tokens": jnp.asarray(toks)})
+    batch = {"tokens": _tokens(cfg, 0)}
+    if cfg.modality == "vlm":
+        batch["vis_embed"] = (np.random.default_rng(3).standard_normal(
+            (2, cfg.vis_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+    got = steps.make_prefill_step(cfg)(
+        model.params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    want = rsteps.make_prefill_step(cfg)(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
     assert got.shape == (2, cfg.vocab_size) and got.dtype == torch.float32
     _close(got, want)
 
@@ -125,8 +135,42 @@ def test_generate_on_the_cpu_repeats_from_its_seed(temperature):
     assert int(a.max()) < rcfg.get_config("qwen3-1.7b").smoke().vocab_size
 
 
-def test_serve_main_on_the_cpu(capsys):
-    serve.main(["--arch", "mamba2-130m", "--device", "cpu", "--gen", "3",
+@pytest.mark.parametrize("name", ARCHS[1:])
+def test_serve_main_on_the_cpu(capsys, name):
+    serve.main(["--arch", name, "--device", "cpu", "--gen", "3",
                 "--prompt-len", "4"])
     out = capsys.readouterr().out
     assert "generated token ids (first row):" in out and "tok_per_s" in out
+
+
+def test_serving_params_cast_the_expert_stacks_once():
+    """The serving copy casts every linear weight and the MoE expert
+    stacks to the activation dtype and keeps the router (f32 by design),
+    the norms and the embedding, in place: each leaf is replaced in the
+    tree itself.  The model's function does not change: linear and
+    moe_forward cast at use anyway."""
+    from repro_torch.models import transformer as ttfm
+    cfg, _, model = _model("deepseek-v3-671b")
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    own = _as_dict(model.params)
+    assert ttfm.serving_params(own, cfg16) is own
+    tree = dict(ttfm.leaves(own))
+    moe = "seg1/ffn"
+    for part in ("gate", "up", "down"):
+        assert tree[f"{moe}/experts/{part}"].dtype == torch.bfloat16
+    assert tree[f"{moe}/router"].dtype == torch.float32
+    assert tree[f"{moe}/shared/up/w"].dtype == torch.bfloat16
+    assert tree["seg0/mixer/wuk/w"].dtype == torch.bfloat16
+    assert tree["seg0/mixer/kv_norm/scale"].dtype == torch.float32
+    assert tree["embed/table"].dtype == torch.float32
+    assert model.params["seg1"]["ffn"]["experts"]["up"].dtype == \
+        torch.float32
+    toks = torch.from_numpy(_tokens(cfg, 4, seq=8)).long()
+    a = ttfm.forward(model.params, {"tokens": toks}, cfg16)
+    b = ttfm.forward(own, {"tokens": toks}, cfg16)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _as_dict(node):
+    return {k: _as_dict(v) if hasattr(v, "items") else v.detach()
+            for k, v in node.items()}

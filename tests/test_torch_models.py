@@ -5,10 +5,10 @@ carried across by ``params_from_jax``, and the same inputs (numpy), and
 must match ``repro.models`` within rtol = atol = 1e-5 at float32: the
 layers, the three attention cores (−1 cache slots and sliding windows
 included), ``ssd_chunked`` / ``ssd_step``, the blocks, and ``forward``
-and ``decode_step`` of every preset the slice ports (smoke variants).
+(its MoE aux loss included) and ``decode_step`` of all ten presets
+(smoke variants; the vlm's forward with its patch embeddings).
 Teacher-forced decode equals the full forward within 2e-3, the
-tolerance of tests/test_arch_smoke.py.  The presets whose plans the
-slice lacks raise NotImplementedError.
+tolerance of tests/test_arch_smoke.py.
 """
 import dataclasses
 
@@ -36,12 +36,13 @@ from repro_torch.models import transformer as ttfm  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 PREFILL_DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
-# every preset the slice ports: dense GQA (qk-norm, MQA, parallel
-# blocks), the Mamba2 stack, the audio token stream
+# every preset: dense GQA (qk-norm, MQA, parallel blocks), the Mamba2
+# stack, the audio token stream, MoE (softmax router with a dense
+# residual; sigmoid router with a shared expert, MLA and leading dense
+# layers), the zamba hybrid, the vlm frontend
 PORTED = ("qwen3-1.7b", "mamba2-130m", "granite-20b", "command-r-35b",
-          "phi4-mini-3.8b", "musicgen-medium")
-UNPORTED = ("arctic-480b", "deepseek-v3-671b", "zamba2-7b",
-            "llava-next-mistral-7b")
+          "phi4-mini-3.8b", "musicgen-medium", "arctic-480b",
+          "deepseek-v3-671b", "zamba2-7b", "llava-next-mistral-7b")
 SEQ = 24
 
 
@@ -102,10 +103,11 @@ def test_registry_matches_the_jax_presets():
         tcfg.get_config("gpt-2")
 
 
-@pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-130m"])
+@pytest.mark.parametrize("name", tuple(rcfg.REGISTRY))
 def test_full_width_parameter_count(name):
     """init_params on the meta device at full width: the analytic count
-    (≈ 1.72 B for qwen3-1.7b, 0.13 B for mamba2-130m)."""
+    (≈ 1.72 B for qwen3-1.7b, 0.13 B for mamba2-130m, 691 B for
+    deepseek-v3-671b)."""
     cfg = tcfg.get_config(name)
     params = ttfm.init_params(cfg, device="meta")
     assert ttfm.count_params(params) == cfg.n_params()
@@ -260,11 +262,20 @@ def test_block_forward_and_decode_match_jax(name):
 def test_forward_matches_jax(name):
     cfg, params, model = _model(name)
     toks = _tokens(cfg, 10)
-    logits, aux = ttfm.forward(model.params, {"tokens": _t(toks)}, cfg)
-    want, _ = rtfm.forward(params, {"tokens": jnp.asarray(toks)}, cfg)
-    assert logits.shape == (2, SEQ, cfg.vocab_size)
-    assert logits.dtype == torch.float32 and float(aux) == 0.0
+    batch = {"tokens": toks}
+    if cfg.modality == "vlm":             # the patch embeddings go first
+        batch["vis_embed"] = _f32(_rng(14), 2, cfg.vis_tokens,
+                                  cfg.d_model) * 0.02
+    logits, aux = ttfm.forward(model.params,
+                               {k: _t(v) for k, v in batch.items()}, cfg)
+    want, want_aux = rtfm.forward(
+        params, {k: jnp.asarray(v) for k, v in batch.items()}, cfg)
+    S = SEQ + (cfg.vis_tokens if cfg.modality == "vlm" else 0)
+    assert logits.shape == (2, S, cfg.vocab_size)
+    assert logits.dtype == torch.float32 and aux.dtype == torch.float32
     _close(_np(logits), want)
+    _close(_np(aux), want_aux)
+    assert (float(aux) > 0) == bool(cfg.n_experts)
 
 
 def _decode_both(cfg, params, model, toks, capacity):
@@ -304,7 +315,8 @@ def test_sliding_window_ring_buffer_matches_jax():
         _close(got, want)
 
 
-@pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-130m"])
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-130m", "zamba2-7b",
+                                  "deepseek-v3-671b"])
 def test_prefill_matches_teacher_forced_decode(name):
     """tests/test_arch_smoke.py's check on the port alone: decode steps
     over the tokens ≡ the full-sequence forward."""
@@ -319,16 +331,7 @@ def test_prefill_matches_teacher_forced_decode(name):
     _close(_np(torch.stack(dec, dim=1)), _np(full), PREFILL_DECODE_TOL)
 
 
-# ---------------------------------------------------------------- gaps
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_plans_raise(name):
-    cfg = tcfg.get_config(name).smoke()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttfm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttfm.init_cache(cfg, 1, 4, device="cpu")
-
+# ---------------------------------------------------------------- weights
 
 def test_params_from_jax_checks_the_tree():
     cfg, params, _ = _model("qwen3-1.7b")

@@ -1,4 +1,5 @@
-"""The port's trainer on its own, on the CPU (no JAX): the aggregation
+"""The port's trainer on its own, on the CPU (no JAX, but for the vlm
+batches' shapes, held against the JAX package's): the aggregation
 strategies' semantics on a real (smoke) model as
 ``tests/test_train_steps.py`` holds the JAX package's, fused ≡ unfused,
 the bfloat16 wire, remat, the synthetic data, the autograd wrapper of
@@ -156,7 +157,8 @@ def test_remat_same_values_and_gradients(arch, policy, monkeypatch):
     assert len(calls) == 2 * cfg.n_layers
     calls.clear()
     with torch.no_grad():
-        steps_lib.loss_fn(steps_lib._node_slices(params, 0, lambda x: x),
+        steps_lib.loss_fn(steps_lib._node_slices(params, 0, lambda x: x,
+                                                 tfm.build_plan(cfg)),
                           {k: v[0] for k, v in batch.items()}, cfg_r)
     assert len(calls) == cfg.n_layers
     assert torch.equal(l1, l2)
@@ -227,11 +229,29 @@ def test_lm_batches():
     assert torch.equal(b["labels"], torch.roll(b["tokens"], -1, dims=1))
     assert torch.equal(b["tokens"], make_lm_batch(fold_generator(1), cfg, 3,
                                                   10)["tokens"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        make_batch_for(get_config("llava-next-mistral-7b").smoke(), 2, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        train_lib.make_batch(get_config("llava-next-mistral-7b").smoke(),
-                             fold_generator(0), 2, 1, 8)
+    # the vlm's: patch embeddings, then the text; shapes and dtypes as the
+    # JAX package's batches (imported here: the rest of the file runs
+    # without jax)
+    jax = pytest.importorskip("jax")
+    from repro.data import pipeline as rpipeline
+    from repro.launch import train as rtrain
+    vlm = get_config("llava-next-mistral-7b").smoke()
+    got = {"make_batch_for": make_batch_for(vlm, 2, 24, seed=1),
+           "make_batch": train_lib.make_batch(vlm, fold_generator(0), 2, 3,
+                                              24)}
+    want = {"make_batch_for": rpipeline.make_batch_for(vlm, 2, 24, seed=1),
+            "make_batch": rtrain.make_batch(vlm, jax.random.PRNGKey(0), 2,
+                                            3, 24)}
+    for name, b in got.items():
+        assert {k: tuple(v.shape) for k, v in b.items()} == \
+            {k: tuple(v.shape) for k, v in want[name].items()}, name
+        assert b["vis_embed"].dtype == getattr(torch, vlm.dtype)
+        assert str(want[name]["vis_embed"].dtype) == vlm.dtype
+        assert b["tokens"].shape[-1] == 24 - vlm.vis_tokens
+        assert torch.equal(b["labels"], torch.roll(b["tokens"], -1, dims=-1))
+        assert 0 <= int(b["tokens"].min()) <= int(b["tokens"].max()) < \
+            vlm.vocab_size
+        assert float(b["vis_embed"].std()) == pytest.approx(0.02, rel=0.2)
 
 
 def test_node_task_loader_is_the_nodes_shard():

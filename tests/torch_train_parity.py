@@ -64,6 +64,7 @@ import repro.configs as rcfg
 from repro import optim as ropt
 from repro.distributed import aggregation as ragg
 from repro.launch import steps as rsteps
+from repro.launch import train as rtrain
 from repro.models import init_params as rinit
 from repro_torch.configs.base import ModelConfig
 from repro_torch import optim as topt
@@ -161,9 +162,14 @@ def train_setup(arch, dtype):
         tparams = tsteps.replicate_for_nodes(_torch_params(params, cfg),
                                              N_NODES)
         params = rsteps.replicate_for_nodes(params, N_NODES)
-        toks = jax.random.randint(jax.random.PRNGKey(1), (N_NODES, 2, 16),
-                                  0, cfg.vocab_size, dtype=jnp.int32)
-        batch = {"tokens": toks, "labels": jnp.roll(toks, -1, axis=-1)}
+        if cfg.modality == "vlm":        # 16 text tokens after the patches
+            batch = rtrain.make_batch(cfg, jax.random.PRNGKey(1), N_NODES, 2,
+                                      cfg.vis_tokens + 16)
+        else:
+            toks = jax.random.randint(jax.random.PRNGKey(1),
+                                      (N_NODES, 2, 16), 0, cfg.vocab_size,
+                                      dtype=jnp.int32)
+            batch = {"tokens": toks, "labels": jnp.roll(toks, -1, axis=-1)}
         tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
         opt = _optimizer(ropt, dtype)
         vg = jax.jit(jax.vmap(jax.value_and_grad(
@@ -257,6 +263,32 @@ def check_train_step(arch, strategy, dtype):
                 break
             if dtype == "float64":
                 _close_f64_params(gp, wp, strategy)
+
+
+def check_fused_step(arch, steps=2):
+    """The port's fused step as ``launch.train`` runs it (diffusion, AdamW
+    on a warmup-cosine schedule, the embedding and LM head local) against
+    the JAX package's own jitted ``make_train_step_fused``: the first
+    step's per-node losses and gradients before aggregation (GRAD_F32),
+    then the per-node losses of ``steps`` steps (LOSS_F32), the MoE aux
+    loss inside every one."""
+    setup = train_setup(arch, "float32")
+    cfg, tc, params, tparams, batch, tbatch, opt, vg = setup[:8]
+    losses, grads = tsteps.node_value_and_grad(tparams, tbatch, tc, N_NODES)
+    want_losses, want_grads = vg(params, batch)
+    np.testing.assert_allclose(as_np(losses), as_np(want_losses), **LOSS_F32)
+    close_trees(grads, want_grads, GRAD_F32)
+    ja, ta = agg_pair(strategy="diffusion", local_patterns=LOCAL)
+    step = jax.jit(rsteps.make_train_step_fused(cfg, opt, ja, N_NODES))
+    state = rsteps.TrainState(params, opt.init(params),
+                              jnp.zeros((), jnp.int32))
+    got = _port_steps(tsteps.make_train_step_fused, tc,
+                      _optimizer(topt, "float32"), ta, tparams, tbatch,
+                      steps=steps)
+    for gl, _ in got:
+        state, metrics = step(state, batch)
+        np.testing.assert_allclose(as_np(gl), as_np(metrics["loss_per_node"]),
+                                   **LOSS_F32)
 
 
 def check_reference_step(arch):
