@@ -39,6 +39,26 @@ Phases, each printing one JSON line and raising on failure:
                node_fused_iter's time with one and with two CTAs a task
                forced (each also held to the plain version), at each
                shape and dtype, beside the kernel's pick;
+ 3b. lint    — the static checks' launch budgets (JX001) on the card:
+               ``repro_torch.analysis.harness`` runs all twelve programs
+               on the simulator at f32 at its tiny shape (L 8, d 16,
+               r 2, T_con 2) with NO recording context, so the real
+               kernels launch, at T_GD 1 and 2 (LINT_LENGTHS: the
+               difference is one iteration), then the same on the CPU
+               inside ``_build.recording()``; then the virtual tier,
+               both devices, in one spawn of 8 gloo ranks on the card
+               (L 24, block 3), forked from a forkserver started before
+               the kernels' build (``harness.warm_ranks``), so its
+               imports of torch and the port run beside the build and
+               not in this phase.  The CPU runs
+               record counts only: no op recorder, whose shapes and
+               dtypes JX002 / JX003 read on the CPU, not here.  Each
+               case's ``_build.LAUNCHES`` an iteration and outside the
+               loop on the card, beside the CPU
+               recording's and the program's DispatchBudget, by kernel;
+               the virtual tier's sends beside R·K·wire_virtual; any
+               disagreement fails the run.  The phase's seconds (at
+               most LINT_MAX_S);
   4. main    — ``run_experiment`` on the EXPERIMENT1 preset (T_con=10,
                L=20, d=T=600, r=4, n=30, ER p=0.5 Metropolis, T_pm=30,
                T_GD=500) at float32 on the cuda backend, with the launch
@@ -355,6 +375,11 @@ launch floor beside mix_rows,
 compress_topk, dequant and gossip_combine), the card line, and the
 result line.  Exits non-zero,
 printing no result, without a CUDA device or outside the repo.
+
+    python3 chip_smoke.py --lint
+
+builds the kernels and runs phase 3b only, then prints each case's
+launches an iteration on the card.
 
     python3 chip_smoke.py --train
 
@@ -962,6 +987,90 @@ def timings(torch, X, U, y, Wp, Z, B, tiles, G, c, out):
             torch, gossip_axpy.mix_rows, ref.ref_mix_rows, (Wp, Z),
             nbytes(Wp, Z, out), 2 * Z.shape[0] ** 2 * Z.shape[1],
             library=torch.matmul)}
+
+
+# phase 3b: the static checks' harness on the card, each case at T_GD 1
+# and 2 (an iteration's count is the same at any two lengths; the CLI
+# runs 3 and 4); the virtual tier's spawn of harness.N_DEV ranks; the
+# phase's ceiling
+LINT_LENGTHS = (1, 2)
+LINT_TIMEOUT = 240
+LINT_MAX_S = 45.0
+
+
+def lint_phase(torch) -> dict:
+    """Phase 3b: JX001 with the real kernels.  Every program on the
+    simulator (this process) and on the virtual tier (one spawn of
+    harness.N_DEV gloo ranks on the card), each case run on the card
+    without a recording context and on the CPU inside
+    ``_build.recording()``; the launches an iteration and outside the
+    loop of the two, by kernel, must equal each other and the
+    DispatchBudget, and the virtual tier's sends R·K·wire_virtual on
+    both.  One line a case, then the phase's seconds.  → {program/
+    substrate: launches an iteration on the card, by kernel}."""
+    from repro_torch.analysis import harness, torchlint
+    from repro_torch.core.program import get_program, program_names
+
+    t0 = time.perf_counter()
+    harness.warm_ranks()        # started before the build; here a no-op
+    # the CPU runs count launches and sends only (record_ops=False): the
+    # op recorder's shapes and dtypes are JX002 / JX003's, read on the
+    # CPU, and its first use in eight ranks at once is most of a spawn
+    pairs = []
+    for name in program_names():
+        pairs.append((harness.run_case(name, "simulator", device="cuda",
+                                       lengths=LINT_LENGTHS),
+                      harness.run_case(name, "simulator", record_ops=False,
+                                       lengths=LINT_LENGTHS)))
+    sim_s = time.perf_counter() - t0
+    specs = [(name, "virtual", "float32", device)
+             for name in program_names() for device in ("cuda", "cpu")]
+    t1, wall1 = time.perf_counter(), time.time()
+    virtual = harness.spawn_cases(specs, device="cuda", lengths=LINT_LENGTHS,
+                                  timeout=LINT_TIMEOUT, record_ops=False)
+    spawn_s = time.perf_counter() - t1
+    rank0_s = sum(c.seconds for c in virtual)
+    # rank 0's first case began ready_s into the spawn; the spawn ended
+    # teardown_s after its last
+    ready_s = virtual[0].started - wall1
+    teardown_s = wall1 + spawn_s - virtual[-1].started - virtual[-1].seconds
+    pairs += list(zip(virtual[0::2], virtual[1::2]))
+    out = {}
+    for card, cpu in pairs:
+        budget = get_program(card.program).dispatch_budget
+        want = budget.per_iter(card.substrate, card.rounds, card.n_shifts,
+                               card.local_steps)
+        by_card = {k: v for k, v in card.launches_by_kernel.items() if v}
+        by_cpu = {k: v for k, v in cpu.launches_by_kernel.items() if v}
+        line = {"program": card.program, "substrate": card.substrate,
+                "budget": want, "launches": card.launches[0],
+                "launches_cpu": cpu.launches[0], "outside": card.launches[1],
+                "outside_cpu": cpu.launches[1], "by_kernel": by_card,
+                "R": card.rounds, "K": card.n_shifts,
+                "card_s": card.seconds, "cpu_s": cpu.seconds}
+        if card.substrate == "virtual":
+            line.update(sends=card.sends[0], sends_cpu=cpu.sends[0],
+                        sends_priced=card.rounds * card.n_shifts
+                        * budget.wire_virtual)
+        emit("lint", **line)
+        found = (torchlint.check_dispatch_budget(card, budget)
+                 + torchlint.check_comm_pricing(card, budget))
+        require(not found and card.launches == cpu.launches
+                and by_card == by_cpu and card.sends == cpu.sends,
+                f"lint {card.program}/{card.substrate}: card launches "
+                f"{card.launches} {by_card}, CPU recording {cpu.launches} "
+                f"{by_cpu}, budget {want}; sends {card.sends} / "
+                f"{cpu.sends}; {[f.render() for f in found]}")
+        out[f"{card.program}/{card.substrate}"] = by_card
+    seconds = time.perf_counter() - t0
+    emit("lint_summary", seconds=seconds, simulator_s=sim_s,
+         spawn_s=spawn_s, rank0_cases_s=rank0_s,
+         spawn_overhead_s=spawn_s - rank0_s, ranks_ready_s=ready_s,
+         teardown_s=teardown_s, cases=len(pairs),
+         nvidia_smi=nvidia_smi_line())
+    require(seconds <= LINT_MAX_S, f"the lint phase took {seconds:.1f} s, "
+            f"above its {LINT_MAX_S} s")
+    return out
 
 
 def main_path(torch):
@@ -3577,6 +3686,9 @@ def main(argv=None) -> int:
                         help="only build the kernels and run the sparse "
                              "tier's three phases, all twelve programs "
                              "in the first")
+    parser.add_argument("--lint", action="store_true",
+                        help="only build the kernels and run the lint "
+                             "phase")
     parser.add_argument("--train", action="store_true",
                         help="only build the kernels and run the train "
                              "phase")
@@ -3621,6 +3733,11 @@ def main(argv=None) -> int:
          device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
+    if not (args.sparse_tier or args.train or args.lm_plans):
+        # phase 3b's ranks fork from this server: its imports of torch
+        # and the port run beside the kernels' build
+        from repro_torch.analysis import harness
+        harness.warm_ranks()
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     paths = _build.build()
@@ -3641,6 +3758,9 @@ def main(argv=None) -> int:
         sparse_tier(torch, [name for name, _, _ in SPARSE_PROGRAMS],
                     profile=True)
         return 0
+    if args.lint:
+        print(json.dumps({"launches_lint": lint_phase(torch)}), flush=True)
+        return 0
     if args.train:
         print(json.dumps({"launches_train": train_phase(torch)}), flush=True)
         return 0
@@ -3651,6 +3771,7 @@ def main(argv=None) -> int:
     launch_floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
     emit("launch_floor", ms=launch_floor_ms)
     rows = check_kernels(torch)
+    lint_phase(torch)
     spec, mat, launches, trace = main_path(torch)
     profile(torch, spec, mat, label="main")
     slice_errs, slice_timing = check_slice_kernels(torch)

@@ -176,7 +176,8 @@ class TopologySpec:
             return _mixing.circulant_weights(L, self.shifts, self.self_weight)
         g = graph if graph is not None else self.build_graph(L)
         if isinstance(g, _graphs.SparseGraph):
-            g = g.to_dense()        # raises above DENSE_MATERIALIZE_MAX
+            # reprolint: allow=RL002 — dense-weights branch; to_dense raises above DENSE_MATERIALIZE_MAX
+            g = g.to_dense()
         if self.weights == "metropolis":
             return _mixing.metropolis_weights(g)
         if self.weights == "equal_neighbor":

@@ -316,6 +316,7 @@ def neighbor_average_matrix(adj):
     if isinstance(adj, SparseGraph):
         return neighbor_average_weights_sparse(adj)
     if isinstance(adj, Graph):
+        # reprolint: allow=RL002 — dense-Graph input tier; a SparseGraph returns SparseWeights above
         adj = torch.as_tensor(adj.adj, dtype=torch.float64)
     deg = torch.clamp(torch.sum(adj, dim=1), min=1.0)
     return adj / deg[:, None]
@@ -336,6 +337,7 @@ def mesh_weights_from_matrix(W) -> tuple[tuple[int, ...], np.ndarray]:
     one-node-a-rank mesh is small-L by construction (the large-L mesh
     form is :class:`VirtualTopology`)."""
     if isinstance(W, SparseWeights):
+        # reprolint: allow=RL002 — one-node-per-rank mesh tier is small-L by construction; large L uses VirtualTopology
         W = W.to_dense()
     Wn = W.detach().cpu().numpy() if torch.is_tensor(W) else np.asarray(W)
     if Wn.ndim != 2 or Wn.shape[0] != Wn.shape[1]:
@@ -363,6 +365,7 @@ def place_weights(weights, device):
         return weights, torch.tensor(weights, dtype=torch.float32,
                                      device=device)
     table = torch.as_tensor(weights, device=device)
+    # reprolint: allow=JX003 — the kernel's copy: read only where _fused_wanted admits the operands, never for float64 ones
     return table, table.to(torch.float32)
 
 
@@ -397,6 +400,7 @@ def mesh_weights_relabeled(W, *, verify: bool = True
     the table rebuilt densely equals the relabeled matrix entry for
     entry, and un-permuting recovers W."""
     if isinstance(W, SparseWeights):
+        # reprolint: allow=RL002 — one-node-per-rank mesh tier is small-L by construction; large L uses VirtualTopology
         W = W.to_dense()
     Wn = W.detach().cpu().numpy() if torch.is_tensor(W) else np.asarray(W)
     L = Wn.shape[0]
@@ -1880,6 +1884,7 @@ class PushSumGossipCombine(MaskedGossipCombine):
         is not implemented."""
         if W is not None:
             if isinstance(W, SparseWeights):
+                # reprolint: allow=RL002 — one-node-per-rank mesh tier is small-L by construction; large L uses VirtualTopology
                 Wn = W.to_dense()
             else:
                 Wn = W.detach().cpu().numpy() if torch.is_tensor(W) \

@@ -200,14 +200,16 @@ def _rank_main(rank: int, world_size: int, store_path: str, backend: str,
 
 def spawn(fn: Callable, world_size: int, *, args: tuple = (),
           backend: str = "gloo", device: str = "cpu",
-          timeout: float = 600.0) -> list:
+          timeout: float = 600.0, start_method: str = "spawn") -> list:
     """Run ``fn(*args)`` on each of ``world_size`` fresh processes joined
     in one ``backend`` process group; return the results, rank by rank.
 
     ``fn`` must be importable by name (a module-level function), since
-    each rank starts from a fresh interpreter; ``args`` and the results
-    are pickled.  With ``device="cuda"`` rank g computes on card
-    g mod (number of cards).  The rendezvous is a ``FileStore`` in a
+    each rank starts from a fresh interpreter (``start_method``
+    ``"spawn"``) or a fork of the forkserver (``"forkserver"``: the
+    caller set its preloads, which must not touch the card); ``args``
+    and the results are pickled.  With ``device="cuda"`` rank g computes
+    on card g mod (number of cards).  The rendezvous is a ``FileStore`` in a
     temporary directory, so concurrent groups cannot collide.
 
     Raises RuntimeError with the rank's traceback as soon as one rank
@@ -217,7 +219,7 @@ def spawn(fn: Callable, world_size: int, *, args: tuple = (),
     returns or raises."""
     if world_size < 1:
         raise ValueError(f"world_size must be >= 1, got {world_size}")
-    ctx = torch.multiprocessing.get_context("spawn")
+    ctx = torch.multiprocessing.get_context(start_method)
     with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as tmp:
         results = ctx.Queue()
         stacks = [os.path.join(tmp, f"stacks{g}.txt")

@@ -222,6 +222,7 @@ def equal_neighbor_weights(graph: Graph) -> np.ndarray:
     """The paper's AGREE update written as a mixing matrix:
     W = I - D^{-1} L_graph  (row-stochastic always; doubly stochastic iff the
     graph is regular)."""
+    # reprolint: allow=RL002 — dense-Graph weights; sparse graphs take neighbor_average_weights_sparse
     a = graph.adj.astype(np.float64)
     deg = np.maximum(a.sum(axis=1), 1.0)
     w = a / deg[:, None]
@@ -232,6 +233,7 @@ def equal_neighbor_weights(graph: Graph) -> np.ndarray:
 def metropolis_weights(graph: Graph) -> np.ndarray:
     """Metropolis–Hastings weights: symmetric & doubly stochastic on any
     connected graph.  W_ij = 1/(1+max(d_i,d_j)) for edges."""
+    # reprolint: allow=RL002 — dense-Graph weights; sparse graphs take metropolis_weights_sparse
     a = graph.adj.astype(np.float64)
     deg = a.sum(axis=1)
     L = graph.n_nodes

@@ -14,10 +14,18 @@ kernel wrappers raise on anything but 0 and count their launches in
 :data:`LAUNCHES`, one a call.  Where a call picks one of several
 ``__global__`` functions or launches several, its C entry reports which
 and how often, and the wrapper adds that to :data:`KERNEL_LAUNCHES`.
+
+:func:`recording` is the counterpart of Pallas interpret mode for the
+static checks (``repro_torch.analysis``): inside it a kernel wrapper
+given CPU tensors runs its plain version in place of the launch, and
+counts in :data:`LAUNCHES` where the launch counts, so a run on the CPU
+takes the ``cuda`` route's structure and its count is the card's.
+Outside it the ``cuda`` route refuses CPU tensors, as always.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,6 +46,34 @@ LAUNCHES: collections.Counter = collections.Counter()
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_recording = False
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the ``with`` body, a kernel wrapper called on CPU tensors
+    runs the kernel's plain version (:mod:`repro_torch.kernels.ref`) in
+    place of the launch and counts it in :data:`LAUNCHES` as the launch
+    would be counted; nothing is built or loaded.  Only the static
+    checks enter it."""
+    global _recording
+    prev, _recording = _recording, True
+    try:
+        yield
+    finally:
+        _recording = prev
+
+
+def recorded(*tensors) -> bool:
+    """Whether a wrapper call on ``tensors`` runs the plain version in
+    place of its launch: inside :func:`recording`, on CPU tensors."""
+    return _recording and not any(t.is_cuda for t in tensors)
+
+
+def on_card(t) -> bool:
+    """Whether a wrapper may take ``t``: a CUDA tensor, or a CPU tensor
+    inside :func:`recording`."""
+    return t.is_cuda or recorded(t)
 
 
 def _nvcc() -> str:

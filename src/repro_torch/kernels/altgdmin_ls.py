@@ -45,6 +45,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 
 R_MAX = 16
 
@@ -69,7 +70,7 @@ def _operands(X, U, y):
     """Validate shapes and device; bring X, U, y to one kernel dtype
     (f32 or bf16), contiguous.  Returns (X, U, y, dims, dtype code)."""
     for name, t in (("X", X), ("U", U), ("y", y)):
-        if not t.is_cuda:
+        if not _build.on_card(t):
             raise ValueError(f"the CUDA kernel needs {name} on a CUDA "
                              f"device, got {t.device}")
         if t.device != X.device:
@@ -117,7 +118,7 @@ def _single_operands(X, U, y):
 
 def _checked_B(B, X, shape):
     """B on X's card, of ``shape``, as contiguous float32."""
-    if not B.is_cuda or B.device != X.device:
+    if not _build.on_card(B) or B.device != X.device:
         raise ValueError(f"B must be on {X.device} with X, got {B.device}")
     if tuple(B.shape) != shape:
         raise ValueError(f"want B of shape {shape}, got {tuple(B.shape)}")
@@ -126,7 +127,33 @@ def _checked_B(B, X, shape):
     return B.to(torch.float32).contiguous()
 
 
+def _plain_fused(X, U, y, B, tiles):
+    B_, tiles_ = _ref.ref_fused_iter(X, U, y)
+    B.copy_(B_)
+    tiles.copy_(tiles_)
+
+
+def _plain_gram(X, U, y, G, c):
+    G_, c_ = _ref.ref_task_gram(X, U, y)
+    G.copy_(G_)
+    c.copy_(c_)
+
+
+def _plain_grad(X, U, B, y, tiles):
+    tiles.copy_(_ref.ref_node_grad_tiles(X, U, B, y))
+
+
+# what each C entry computes, in plain torch into the same outputs: run
+# in place of the launch inside _build.recording()
+_PLAIN = {"altgdmin_node_fused_iter": _plain_fused,
+          "altgdmin_node_task_gram": _plain_gram,
+          "altgdmin_node_grad_tiles": _plain_grad}
+
+
 def _launch(fn: str, tensors, dims, code, *extra):
+    if _build.recorded(*tensors):
+        _PLAIN[fn](*tensors)
+        return
     lib = _build.load("altgdmin_ls", _SIGNATURES)
     device = tensors[0].device
     with torch.cuda.device(device):

@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 
 D_MAX = 12000            # the kernel's shared-memory bound on d (kDMax)
 _DEQUANT_PER = 1024      # dequant: values a block (kDequantPer)
@@ -53,7 +54,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _on_card(**tensors):
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
-        if not t.is_cuda:
+        if not _build.on_card(t):
             raise ValueError(f"the CUDA kernel needs {name} on a CUDA "
                              f"device, got {t.device}")
         if t.device != first.device:
@@ -87,13 +88,17 @@ def compress_topk(M, k: int):
     M = M.contiguous()
     vals = torch.empty((N, k, r), dtype=M.dtype, device=M.device)
     idx = torch.empty((N, k), dtype=torch.int32, device=M.device)
-    lib = _build.load("compress", _SIGNATURES)
-    with torch.cuda.device(M.device):
-        err = lib.compress_topk(M.data_ptr(), vals.data_ptr(),
-                                idx.data_ptr(), N, d, r, k,
-                                _DTYPE_CODE[M.dtype], M.device.index,
-                                _stream(M.device))
-    _build.check(lib, "compress_error_string", err, "compress_topk")
+    if _build.recorded(M):
+        for t, plain in zip((vals, idx), _ref.ref_compress_topk(M, k)):
+            t.copy_(plain)
+    else:
+        lib = _build.load("compress", _SIGNATURES)
+        with torch.cuda.device(M.device):
+            err = lib.compress_topk(M.data_ptr(), vals.data_ptr(),
+                                    idx.data_ptr(), N, d, r, k,
+                                    _DTYPE_CODE[M.dtype], M.device.index,
+                                    _stream(M.device))
+        _build.check(lib, "compress_error_string", err, "compress_topk")
     _build.LAUNCHES["compress_topk"] += 1
     return vals, idx
 
@@ -117,13 +122,16 @@ def dequant(q, scale):
         return out
     if N >= 2**31 or per_node > 65535 * _DEQUANT_PER:
         raise ValueError(f"q {tuple(q.shape)} exceeds one launch grid")
-    lib = _build.load("compress", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        err = lib.compress_dequant(q.data_ptr(), scale.data_ptr(),
-                                   out.data_ptr(), N, per_node,
-                                   _DTYPE_CODE[scale.dtype], q.device.index,
-                                   _stream(q.device))
-    _build.check(lib, "compress_error_string", err, "compress_dequant")
+    if _build.recorded(q, scale):
+        out.copy_(_ref.ref_dequant(q, scale))
+    else:
+        lib = _build.load("compress", _SIGNATURES)
+        with torch.cuda.device(q.device):
+            err = lib.compress_dequant(q.data_ptr(), scale.data_ptr(),
+                                       out.data_ptr(), N, per_node,
+                                       _DTYPE_CODE[scale.dtype],
+                                       q.device.index, _stream(q.device))
+        _build.check(lib, "compress_error_string", err, "compress_dequant")
     _build.LAUNCHES["dequant"] += 1
     _build.KERNEL_LAUNCHES["dequant_kernel"] += 1
     return out
@@ -159,13 +167,20 @@ def int8_round(Z, xhat, u=None):
     xhat_new = torch.empty_like(Z)
     if N == 0:
         return q, scale, xhat_new
-    lib = _build.load("compress", _SIGNATURES)
-    with torch.cuda.device(Z.device):
-        err = lib.compress_int8_round(
-            Z.data_ptr(), xhat.data_ptr(), None if u is None else u.data_ptr(),
-            q.data_ptr(), scale.data_ptr(), xhat_new.data_ptr(), N, per_node,
-            _DTYPE_CODE[Z.dtype], Z.device.index, _stream(Z.device))
-    _build.check(lib, "compress_error_string", err, "compress_int8_round")
+    if _build.recorded(*tensors.values()):
+        for t, plain in zip((q, scale, xhat_new),
+                            _ref.ref_int8_round(Z, xhat, u)):
+            t.copy_(plain)
+    else:
+        lib = _build.load("compress", _SIGNATURES)
+        with torch.cuda.device(Z.device):
+            err = lib.compress_int8_round(
+                Z.data_ptr(), xhat.data_ptr(),
+                None if u is None else u.data_ptr(), q.data_ptr(),
+                scale.data_ptr(), xhat_new.data_ptr(), N, per_node,
+                _DTYPE_CODE[Z.dtype], Z.device.index, _stream(Z.device))
+        _build.check(lib, "compress_error_string", err,
+                     "compress_int8_round")
     _build.LAUNCHES["dequant"] += 1
     _build.KERNEL_LAUNCHES["int8_round_kernel"] += 1
     return q, scale, xhat_new

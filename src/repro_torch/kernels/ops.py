@@ -21,6 +21,7 @@ import contextlib
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import altgdmin_ls as _ls
 from repro_torch.kernels import compress as _cp
 from repro_torch.kernels import flash_attention as _fa
@@ -82,7 +83,7 @@ def _resolve_for(backend, *tensors) -> str:
     """Resolve the backend for operands on one device; ``cuda`` needs
     CUDA tensors."""
     name = resolve_backend(backend, tensors[0].device)
-    if name == "cuda" and not all(t.is_cuda for t in tensors):
+    if name == "cuda" and not all(_build.on_card(t) for t in tensors):
         raise ValueError("backend 'cuda' needs CUDA tensors; got "
                          f"{sorted({str(t.device) for t in tensors})}")
     return name

