@@ -322,8 +322,10 @@ Phases, each printing one JSON line and raising on failure:
                LM_SSM_BF16_REL_L2, the rest LM_BF16_REL_L2), each kernel
                against its plain version at the model's own shape, each
                planted fault caught by the route or by that kernel check
-               (both readings printed), tokens/s, decode ms, profiles,
-               and the peak device memory under the card's.
+               (the route's reading taken only where the kernel check
+               misses the fault), tokens/s, decode ms, profiles of
+               LM_PLANS_DECODE_PROFILE decode steps, and the peak device
+               memory under the card's.
  18. train   — launch.train's trainer at full width on the card (its
                parts, make_trainer, then launch.train.train itself for 2
                steps on qwen3-1.7b): mamba2-130m (24 layers) and qwen3-1.7b cut to 4
@@ -344,11 +346,35 @@ Phases, each printing one JSON line and raising on failure:
                round), ms a step (host clock ended by a synchronize),
                tokens/s, peak device memory and one profiled step's
                device ms and busy share; 2 steps at f32 activations on
-               both routes within LM_TOL; for mamba2-130m the other six
-               strategies, 2 steps each on both routes: allreduce keeps
+               both routes within LM_TOL; for mamba2-130m cut to
+               TRAIN_STRATEGY_LAYERS layers the other six strategies, 2
+               steps each on both routes: allreduce keeps
                the communicated leaves equal on every node, local lets
                them part, and after one step every strategy's node-local
                leaves are the local strategy's.
+ 19. examples — the six port examples (EXAMPLES, ``examples/*_torch.py``)
+               at their default sizes on the card, each imported by path
+               and its main called in this process (the mesh example's
+               ranks forked from the warm forkserver), with the launch
+               counts set to 0 just before and read just after: each
+               one's seconds and key line; quickstart's Dif-AltGDmin
+               final SD within EXAMPLE_SD_RATIO of the centralized run's
+               and DGD's above EXAMPLE_DGD_FLOOR; distributed_mtrl's 8
+               gloo ranks on the card within EXAMPLE_MESH_TOL of the
+               simulator at f64; train_lm's loss falling and its
+               checkpoint round trip bit for bit; serve_personalize's θ
+               error falling over the checkpoints; serve_decode's prefill
+               step within LM_TOL of its decode; every kernel of
+               EXAMPLE_KERNELS launched.
+ 20. dryrun  — ``repro_torch.launch.dryrun`` on a (1, 1) mesh, its
+               prediction for qwen3-1.7b's bf16 prefill at B 4 x S 2048
+               and phase 18's qwen3-1.7b train step (4 layers, 4 nodes x
+               2 x 1024) against the real step on the card: argument
+               bytes exactly the tensors' bytes, the peak within
+               DRYRUN_PEAK_RTOL of max_memory_allocated (from a
+               reset_peak_memory_stats() taken with the arguments in
+               place, less what other phases hold), the launches equal;
+               the step's ms beside the prediction's roofline terms.
 
 Then the kernels line (each kernel's launches from its own path's run;
 flash's and ssd_scan's rows are their bf16 tensor-core kernels,
@@ -368,7 +394,9 @@ launches on the sparse tier (``launches_sparse``), node_fused_iter's and
 node_task_gram's times and bounds at its shape (``sparse_shape``),
 gossip_combine's per mesh program; flash_attention's, ssd_scan's and
 gossip_combine's launches a train step (``launches_train_per_step``,
-phase 18); flash_attention's and ssd_scan's launches a prefill step of
+phase 18); every kernel's launches over the six examples
+(``launches_examples``, phase 19); flash_attention's and ssd_scan's
+launches a prefill step of
 each plan of phase 17b (``launches_lm_plans``), flash's time at the MLA
 shape (``mla_shape``), ssd_scan's CUDA launches in zamba2's step; the
 launch floor beside mix_rows,
@@ -390,6 +418,12 @@ launches a step by kernel.
 
 builds the kernels and runs phase 17b only, then prints each plan's
 launches of a bf16 prefill step by wrapper and by __global__ function.
+
+    python3 chip_smoke.py --examples --dryrun
+
+builds the kernels and runs phase 20 (``--dryrun``) and phase 19
+(``--examples``), either alone or both, then prints the dry run's
+readings and the examples' launches by kernel.
 
     python3 chip_smoke.py --sparse-tier
 
@@ -450,11 +484,28 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
+
+def _load_file(name: str, path: Path):
+    """The module of ``path``, imported under ``name`` without importing
+    its package."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit): HBM
-# bandwidth, and float32 outside the tensor cores — the kernels' f32 FMAs.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12      # dense bf16 on the tensor cores
+# bandwidth, float32 outside the tensor cores (the kernels' f32 FMAs) and
+# dense bf16 on the tensor cores.  One source, repro_torch.launch.mesh,
+# read from this checkout's file (it imports nothing but the standard
+# library), so that --src may name another tree.
+_H100 = _load_file("_repro_torch_launch_mesh",
+                   SRC / "repro_torch" / "launch" / "mesh.py")
+HBM_BYTES_PER_S = _H100.HBM_BW
+F32_FLOP_PER_S = _H100.PEAK_FLOPS_F32
+BF16_FLOP_PER_S = _H100.PEAK_FLOPS_BF16
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=5e-2, atol=5e-2),
@@ -562,7 +613,9 @@ MASKED_T_GD = 100
 # of it on a slow host, and 50 left too little room for the train phase.
 # dif_altgdmin runs MESH_DECAY_T_GD: its decay is checked over two spans
 # of 20 iterations (41 is the least T_GD that holds them), and over the
-# preset's whole 500 iterations in the virtual_mesh phase.
+# preset's whole 500 iterations in the virtual_mesh phase.  The ranks of
+# the three mesh phases fork from the forkserver with torch preloaded
+# (spawn_ranks).
 MESH_SOLVERS = ("dif_altgdmin", "dec_altgdmin", "dgd_altgdmin",
                 "exact_diffusion", "beyond_central", "centralized_altgdmin")
 MESH_T_GD = 30
@@ -762,7 +815,10 @@ LM_PLANS = (("zamba2-7b", None, (4, 2048),
             ("deepseek-v3-671b", 4, (4, 2048), {"flash_attention": 4}),
             ("arctic-480b", 1, (4, 2048), {"flash_attention": 1}))
 LM_PLANS_F32_ROWS = 1
-LM_PLANS_GEN = (4, 32, 8)
+# cut for time (from (4, 32, 8) and 16 profiled steps: the deep
+# stacks' decode is host-bound, ~0.2 s a step for zamba2-7b)
+LM_PLANS_GEN = (4, 8, 4)
+LM_PLANS_DECODE_PROFILE = 4
 # Phase 18, train: launch.train's trainer (AdamW on a warmup-cosine
 # schedule, the embedding and LM head node-local) at full width, 4 nodes,
 # a per-node batch of 2 x 1024 tokens, bf16 activations, diffusion with
@@ -783,10 +839,48 @@ TRAIN_LOSS_RTOL = 2e-2
 TRAIN_ENTRY = "qwen3-1.7b"
 TRAIN_STRATEGIES = ("local", "allreduce", "consensus", "dgd", "topk",
                     "quantized")
+# the six other strategies run mamba2-130m cut to this depth (cut for
+# time: ~2.6 s a step at its 24 layers on a slow host, 24 steps).  What
+# they hold (allreduce keeps the replicas equal, local lets them part,
+# node-local leaves stay unmixed) does not depend on depth, and their
+# losses within TRAIN_LOSS_RTOL catch none of ssd_scan's planted faults
+# at 6 layers or at 24 (worst 2.6e-3 on an "NVIDIA H100 80GB HBM3,
+# 700.00 W"): a wrong ssd_scan in training is for the first step's
+# gradients to catch, at the whole depth
+TRAIN_STRATEGY_LAYERS = 6
 # a node-local leaf after one step: what the local strategy leaves there
 # (the embedding's backward sums with atomics on the card, so not bit for
 # bit); mixing would move it by ~lr = 3e-4
 TRAIN_LOCAL_ATOL = 1e-6
+
+# Phase 19, examples: the six port examples at their default sizes on the
+# card, in this process (imported by path, main([]) called), each one's
+# key line printed, and the launches of all six by kernel, of which
+# EXAMPLE_KERNELS must each be nonzero.  Held: quickstart's Dif-AltGDmin
+# final SD within EXAMPLE_SD_RATIO of the centralized run's and DGD's
+# above EXAMPLE_DGD_FLOOR; the mesh within EXAMPLE_MESH_TOL of the
+# simulator (f64); train_lm's loss falling and its checkpoint round trip
+# bit for bit; serve_personalize's θ error falling over the checkpoints;
+# serve_decode's prefill step within LM_TOL of its decode.
+EXAMPLES = ("quickstart_torch", "distributed_mtrl_torch",
+            "federated_multitask_torch", "serve_personalize_torch",
+            "serve_decode_torch", "train_lm_torch")
+EXAMPLE_KERNELS = ("node_fused_iter", "mix_rows", "node_task_gram",
+                   "task_gram", "task_grad_tiles", "flash_attention",
+                   "ssd_scan", "gossip_combine")
+EXAMPLE_SD_RATIO = 10.0
+EXAMPLE_DGD_FLOOR = 1e-1
+EXAMPLE_MESH_TOL = 1e-8
+# Phase 20, dryrun: the meta-device dry run's prediction on one device,
+# mesh (1, 1), against the card: qwen3-1.7b's bf16 prefill at B 4 x S
+# 2048, and phase 18's qwen3-1.7b train step (4 of 28 layers, 4 nodes x
+# 2 x 1024 tokens).  Argument bytes exact, the peak within
+# DRYRUN_PEAK_RTOL of max_memory_allocated (counted from a
+# reset_peak_memory_stats() taken with the arguments in place, less what
+# other phases hold), the launches equal.
+DRYRUN_PREFILL = ("qwen3-1.7b", 4, 2048)
+DRYRUN_TRAIN = ("qwen3-1.7b", 4)
+DRYRUN_PEAK_RTOL = 0.15
 
 
 T_START = time.perf_counter()
@@ -1702,9 +1796,10 @@ def check_gossip_kernel(torch):
         if dname == "float32":
             errs.append(e)
             w0, wk = float(w_floats[0]), wt[1:]
+            flops, n_bytes = gossip_axpy.combine_cost(z, nbrs, wt)
             times[name] = timing(
                 torch, gossip_axpy.gossip_combine, ref.ref_gossip_combine,
-                (z, nbrs, wt), nbytes(z, nbrs, wt, out), 2 * (K + 1) * n,
+                (z, nbrs, wt), n_bytes, flops,
                 library=lambda z_, nb, _w: torch.addmv(z_, nb.T, wk,
                                                        beta=w0))
         emit("gossip_kernels", case=name, n=n, K=K, dtype=dname,
@@ -1748,6 +1843,18 @@ def roll_form(torch):
          bitwise_equal_torch_ref=bool(torch.equal(out, plain)),
          max_abs_err_vs_stacked_product=e_dense, first_call_ms=run_ms)
     return launches["gossip_combine"]
+
+
+def spawn_ranks(fn, n, *, args, device, timeout):
+    """``mesh.spawn`` of ``n`` gloo ranks forked from the forkserver with
+    torch preloaded (``harness.warm_ranks``, started before the build in
+    the full run): the ranks skip importing torch, which took most of a
+    20-rank spawn."""
+    from repro_torch.analysis import harness
+    from repro_torch.distributed.mesh import spawn
+    harness.warm_ranks()
+    return spawn(fn, n, args=args, backend="gloo", device=device,
+                 timeout=timeout)
 
 
 def program_runs(spec, T_GD, state_T_GD, *, own=None):
@@ -1966,16 +2073,15 @@ def mesh_phase(torch, spec, mat, *, T_GD=MESH_T_GD,
     program's timings."""
     from repro_torch.api.runner import run_on_mesh
     from repro_torch.distributed.consensus import mesh_weights_from_matrix
-    from repro_torch.distributed.mesh import spawn
 
     require(spec.problem.L == L, f"the preset has L={spec.problem.L}")
     device = mat.Xg.device.type
     runs, specs = program_runs(spec, T_GD, state_T_GD,
                                own={"dif_altgdmin": MESH_DECAY_T_GD})
     t0 = time.perf_counter()
-    ranks = spawn(run_on_mesh, L, args=(device, [s.to_dict() for s in specs],
-                                        0),
-                  backend="gloo", device=device, timeout=timeout)
+    ranks = spawn_ranks(run_on_mesh, L,
+                        args=(device, [s.to_dict() for s in specs], 0),
+                        device=device, timeout=timeout)
     spawn_s = time.perf_counter() - t0
     K = {"W": len(mesh_weights_from_matrix(mat.W)[0]),
          "adj": len(mesh_weights_from_matrix(mat.adj)[0]), "none": 0}
@@ -1997,7 +2103,6 @@ def virtual_mesh_phase(torch, spec, mat, mesh_out, *, D=VIRTUAL_RANKS,
     from repro_torch.api.runner import run_on_mesh
     from repro_torch.distributed.consensus import (VirtualTopology,
                                                    neighbor_average_matrix)
-    from repro_torch.distributed.mesh import spawn
 
     L = spec.problem.L
     require(L % D == 0, f"{D} ranks do not divide L={L}")
@@ -2008,9 +2113,9 @@ def virtual_mesh_phase(torch, spec, mat, mesh_out, *, D=VIRTUAL_RANKS,
            "adj": VirtualTopology.from_weights(
                neighbor_average_matrix(mat.adj).cpu().numpy(), D)}
     t0 = time.perf_counter()
-    ranks = spawn(run_on_mesh, D, args=(device, [s.to_dict() for s in specs],
-                                        0),
-                  backend="gloo", device=device, timeout=timeout)
+    ranks = spawn_ranks(run_on_mesh, D,
+                        args=(device, [s.to_dict() for s in specs], 0),
+                        device=device, timeout=timeout)
     spawn_s = time.perf_counter() - t0
     K = {"W": len(vts["W"].dev_shifts), "adj": len(vts["adj"].dev_shifts),
          "none": 0}
@@ -2347,9 +2452,10 @@ def sparse_virtual_phase(torch, mat, sims, *, D=SPARSE_VIRTUAL_RANKS,
             "sparse_virtual decomposes W alone")
     vt = VirtualTopology.from_weights(mat.W, D)
     t0 = time.perf_counter()
-    ranks = spawn(run_on_mesh, D, args=("cuda", [s.to_dict() for s in specs],
-                                        0, sparse_arrays(mat), "float32"),
-                  backend="gloo", device="cuda", timeout=timeout)
+    ranks = spawn_ranks(run_on_mesh, D,
+                        args=("cuda", [s.to_dict() for s in specs], 0,
+                              sparse_arrays(mat), "float32"),
+                        device="cuda", timeout=timeout)
     spawn_s = time.perf_counter() - t0
     K = {"W": len(vt.dev_shifts)}
     block_mb = (SPARSE_L // D) * base.problem.d * base.problem.r * 4 / 1e6
@@ -2658,16 +2764,6 @@ def serving_frontier(torch, U):
          clock="host, ended by a device synchronize")
 
 
-def visible_pairs(Sq: int, Skv: int, window) -> int:
-    """(query, key) pairs that the causal mask, aligned at the ends, and
-    the window leave visible: the work the attention must do."""
-    qp = np.arange(Sq) + (Skv - Sq)
-    hi = np.minimum(qp, Skv - 1)
-    lo = np.zeros_like(qp) if window is None else np.maximum(
-        qp - window + 1, 0)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 # kernel templates by name in the mangled symbols of cuobjdump and ptxas:
 # the bf16 flash kernel (DMAX), the three bf16 ssd_scan passes (PMAX,
 # NMAX; the state pass by its vector width), the resident
@@ -2678,6 +2774,23 @@ KERNEL_SYMBOL = re.compile(r"(flash_mma_kernel|chunk_state_kernel|"
                            r"fused_resident_kernel|stream_gram_kernel)"
                            r"I(f|13__nv_bfloat16)?((?:L[ib]\d+E)+)E")
 MANGLED_DTYPE = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+# each library's SASS by path, dumped once (sass_texts)
+_SASS: dict = {}
+
+
+def sass_texts(libs) -> None:
+    """Dump the SASS of each library of ``libs`` (cuobjdump), all at once,
+    into _SASS."""
+    from concurrent.futures import ThreadPoolExecutor
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def dump(lib):
+        return subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+    todo = sorted({str(lib) for lib in libs} - set(_SASS))
+    with ThreadPoolExecutor(max(len(todo), 1)) as pool:
+        _SASS.update(zip(todo, pool.map(dump, todo)))
 
 
 def sass_report(_build, lib, source: str) -> dict:
@@ -2686,9 +2799,8 @@ def sass_report(_build, lib, source: str) -> dict:
     instructions in its SASS (cuobjdump), registers and spill bytes
     (ptxas -v of the build of ``source``).  The template args are its
     dtype's name, where it has a type parameter, then its ints."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
+    sass_texts([lib])
+    sass = _SASS[str(lib)]
 
     def key_of(line):
         m = KERNEL_SYMBOL.search(line)
@@ -2829,9 +2941,10 @@ def check_lm_kernels(torch):
             errs[key] = max(errs[key], err)
             timing_ = None
             if dname in FLASH_TIMED.get(name, ()):
+                flops, n_bytes = flash_attention.cost(q, k, v,
+                                                      window=window)
                 timing_ = timing(
-                    torch, kernel, plain, (q, k, v), nbytes(q, k, v, out),
-                    4 * D * B * H * visible_pairs(Sq, Skv, window),
+                    torch, kernel, plain, (q, k, v), n_bytes, flops,
                     library if window is None and Sq == Skv else None,
                     flop_per_s=peak[dname],
                     plain_reps=3 if name == "mla_prefill" else None)
@@ -2859,11 +2972,10 @@ def check_lm_kernels(torch):
             errs[key] = max(errs[key], err)
             timing_ = None
             if name == "mamba2_prefill":
-                # the recurrence's 5 P N flops a token and head: 3 for
-                # the state update, 2 for the readout
-                timing_ = timing(torch, kernel, ref.ref_ssd, args,
-                                 nbytes(*args, y, h), 5 * B * S * H * P * N,
-                                 flop_per_s=peak[dname], plain_reps=3)
+                flops, n_bytes = ssd_scan.cost(*args)
+                timing_ = timing(torch, kernel, ref.ref_ssd, args, n_bytes,
+                                 flops, flop_per_s=peak[dname],
+                                 plain_reps=3)
                 times["ssd_scan" if dname == "bfloat16"
                       else "ssd_scan_f32"] = timing_
             emit("lm_kernels", kernel="ssd_scan", case=name, B=B, S=S, H=H,
@@ -2881,14 +2993,16 @@ def rel_l2(torch, got, want) -> float:
 
 
 def fault_readings(torch, module, faults, call, plain, tol, step,
-                   want) -> dict:
+                   want, route_catches_faults=True) -> dict:
     """For each planted fault -- a stand-in for ``module``'s wrapper of
     the same name, swapped in where ``ops`` calls it: whether the kernel
     check (``tol`` against ``plain``, the plain version's output of
     ``call``'s inputs) fails on ``call(fault)``, its worst error there,
     and the relative L2 error of ``step()``'s last-position logits
     against ``want`` with the fault in place.  The real wrapper must pass
-    that kernel check (its worst error is ``"kernel"``'s reading)."""
+    that kernel check (its worst error is ``"kernel"``'s reading).  With
+    ``route_catches_faults`` False, the logits are read only for a fault
+    the kernel check misses (None for the others)."""
     name = module.__name__.rsplit(".", 1)[-1]
     real = getattr(module, name)
     out = {"kernel": dict(max_abs_err=max_err(
@@ -2896,18 +3010,21 @@ def fault_readings(torch, module, faults, call, plain, tol, step,
     try:
         for fault_name, fault in faults.items():
             err = (call(fault).double() - plain).abs()
+            fails = bool((err > tol["atol"] + tol["rtol"] * plain.abs()).any())
             setattr(module, name, fault)
             out[fault_name] = dict(
-                kernel_check_fails=bool(
-                    (err > tol["atol"] + tol["rtol"] * plain.abs()).any()),
+                kernel_check_fails=fails,
                 kernel_max_abs_err=float(err.max()),
-                logits_rel_l2=rel_l2(torch, step(), want))
+                logits_rel_l2=(rel_l2(torch, step(), want)
+                               if route_catches_faults or not fails
+                               else None))
     finally:
         setattr(module, name, real)
     return out
 
 
-def flash_fault_readings(torch, step, want, shape=None) -> dict:
+def flash_fault_readings(torch, step, want, shape=None,
+                         route_catches_faults=True) -> dict:
     """Faults planted in the bf16 flash route by a change of the kernel's
     inputs: the diagonal key hidden (kp < qp: Skv one short, so query i
     sits at key i - 1), one key ahead visible (kp <= qp + 1: a zero key
@@ -2945,10 +3062,11 @@ def flash_fault_readings(torch, step, want, shape=None) -> dict:
     return fault_readings(
         torch, fa, faults,
         lambda f: f(q, k, v, causal=True, window=window, scale=scale),
-        plain, FLASH_TOL["bfloat16"], step, want)
+        plain, FLASH_TOL["bfloat16"], step, want, route_catches_faults)
 
 
-def ssd_fault_readings(torch, step, want, shape=None) -> dict:
+def ssd_fault_readings(torch, step, want, shape=None,
+                       route_catches_faults=True) -> dict:
     """Faults planted in the bf16 ssd_scan route by a change of the
     kernel's inputs: B and C one token ahead (each token paired with the
     next token's B and C, a zero row at the end), A halved (the decay of
@@ -2977,7 +3095,7 @@ def ssd_fault_readings(torch, step, want, shape=None) -> dict:
     plain = ref.ref_ssd(*args)[0].double()
     return fault_readings(
         torch, ss, faults, lambda f: f(*args, chunk=Q)[0], plain,
-        SSD_TOL["bfloat16"], step, want)
+        SSD_TOL["bfloat16"], step, want, route_catches_faults)
 
 
 def _lm_tokens(torch, vocab, shape, seed):
@@ -3024,7 +3142,8 @@ def last_and_aux(torch, params, batch, cfg):
 
 def lm_phase(torch, arch: str, phase: str, want: dict, *, layers=None,
              prefill=LM_PREFILL, gen=LM_GEN, f32_rows=None,
-             route_catches_faults=True) -> tuple[dict, dict]:
+             route_catches_faults=True,
+             decode_profile=LM_DECODE_PROFILE) -> tuple[dict, dict]:
     """Phases 16-17b: ``arch`` (cut to ``layers`` where given) at full
     width on the card through its LM kernels, ``want`` the launches of
     one prefill step by kernel.  At f32 on the first ``f32_rows`` rows
@@ -3035,8 +3154,10 @@ def lm_phase(torch, arch: str, phase: str, want: dict, *, layers=None,
     step on the whole batch (the main path's counted run), its route
     against bf16 torch-ref by relative L2, which must reject each planted
     fault of its kernels (with ``route_catches_faults`` False, the fault
-    may be caught by the kernel check at the model's shape instead),
-    prefill tokens/s, decode ms and profiles; the peak device memory
+    may be caught by the kernel check at the model's shape instead, and
+    the route is not read for a fault that check catches), prefill
+    tokens/s, decode ms and profiles (``decode_profile`` decode steps);
+    the peak device memory
     under the card's.  Returns the launches of the bf16 prefill step by
     wrapper and by ``__global__`` function."""
     from repro_torch.configs import get_config
@@ -3135,7 +3256,7 @@ def lm_phase(torch, arch: str, phase: str, want: dict, *, layers=None,
     for kernel in want:
         faults[kernel] = readers[kernel](
             torch, lambda: prefill16(model16.params, batch), last16_ref,
-            shapes[kernel])
+            shapes[kernel], route_catches_faults)
     bf16_route = dict(
         rel_l2=rel_l2(torch, last16, last16_ref), limit=limit,
         max_abs_err=float((last16 - last16_ref).abs().max()), faults=faults)
@@ -3143,7 +3264,7 @@ def lm_phase(torch, arch: str, phase: str, want: dict, *, layers=None,
             f"{arch} bf16 prefill: kernel vs torch-ref route "
             f"{bf16_route} above {limit}")
     caught = [f for kernel in want for f in LM_BF16_ROUTE[kernel][1]]
-    by_route = {f: faults[k][f]["logits_rel_l2"] > limit
+    by_route = {f: (faults[k][f]["logits_rel_l2"] or 0.0) > limit
                 for k in want for f in LM_BF16_ROUTE[k][1]}
     by_kernel = {f: faults[k][f]["kernel_check_fails"]
                  for k in want for f in LM_BF16_ROUTE[k][1]}
@@ -3163,8 +3284,8 @@ def lm_phase(torch, arch: str, phase: str, want: dict, *, layers=None,
     prof_prefill = profiled(torch, lambda: prefill16(model16.params, batch))
 
     def decode_steps():
-        state = model16.init_cache(Bg, LM_DECODE_PROFILE)
-        for i in range(LM_DECODE_PROFILE):
+        state = model16.init_cache(Bg, decode_profile)
+        for i in range(decode_profile):
             _, state = model16.decode_step(state, prompt[:, i % prompt_len:
                                                          i % prompt_len + 1])
     prof_decode = profiled(torch, decode_steps)
@@ -3191,7 +3312,7 @@ def lm_phase(torch, arch: str, phase: str, want: dict, *, layers=None,
          bf16_decode_ms_per_token=stats16["decode_s"] / n_gen * 1e3,
          bf16_decode_tok_per_s=Bg * n_gen / stats16["decode_s"],
          profile_prefill=prof_prefill,
-         profile_decode=dict(steps=LM_DECODE_PROFILE, **prof_decode),
+         profile_decode=dict(steps=decode_profile, **prof_decode),
          peak_memory_gib=peak / 2 ** 30, card_memory_gib=total / 2 ** 30,
          clock="host, ended by a device synchronize")
     del model16
@@ -3206,7 +3327,8 @@ def lm_plans_phase(torch) -> dict:
     return {arch: lm_phase(torch, arch, "lm_plans", want, layers=layers,
                            prefill=prefill, gen=LM_PLANS_GEN,
                            f32_rows=LM_PLANS_F32_ROWS,
-                           route_catches_faults=False)
+                           route_catches_faults=False,
+                           decode_profile=LM_PLANS_DECODE_PROFILE)
             for arch, layers, prefill, want in LM_PLANS}
 
 
@@ -3403,8 +3525,9 @@ def train_phase(torch) -> dict:
              clock="host, ended by a device synchronize")
         if arch == "mamba2-130m":
             t_strat = time.perf_counter()
-            emit("train_strategies", arch=arch,
-                 strategies=train_strategies(torch, cfg, n_comm, kernel),
+            cut = dataclasses.replace(cfg, n_layers=TRAIN_STRATEGY_LAYERS)
+            emit("train_strategies", arch=arch, layers=cut.n_layers,
+                 strategies=train_strategies(torch, cut, n_comm, kernel),
                  seconds=time.perf_counter() - t_strat)
     emit("train_phase", seconds=time.perf_counter() - t_phase)
     return launches_train
@@ -3467,6 +3590,160 @@ def train_strategies(torch, cfg, n_comm, kernel) -> dict:
         out[strategy] = dict(launches_per_step=want, loss_max_rel=rel,
                              **{route.replace("-", "_"): r
                                 for route, r in runs.items()})
+    return out
+
+
+def _example_key_line(name: str, text: str) -> str:
+    """The line of an example's output that carries its result."""
+    keys = {"quickstart_torch": "Dif-AltGDmin (paper",
+            "distributed_mtrl_torch": "max |U_hw",
+            "federated_multitask_torch": "diffusion (T_con",
+            "serve_personalize_torch": "closed loop",
+            "serve_decode_torch": "qwen3-1.7b",
+            "train_lm_torch": "over"}
+    lines = [ln for ln in text.splitlines() if keys[name] in ln]
+    return lines[-1].strip() if lines else ""
+
+
+def examples_phase(torch) -> dict:
+    """Phase 19: the six port examples on the card (EXAMPLES), with the
+    launch counts set to 0 just before and read just after.  → launches
+    by kernel."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis import harness
+    from repro_torch.kernels import _build
+
+    # the mesh example's ranks fork from the warm forkserver
+    harness.warm_ranks()
+    t_phase = time.perf_counter()
+    _build.LAUNCHES.clear()
+    out, seconds = {}, {}
+    for name in EXAMPLES:
+        mod = _load_file(f"_example_{name}", ROOT / "examples" / f"{name}.py")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out[name] = mod.main([])
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        emit("examples", example=name, seconds=seconds[name],
+             key_line=_example_key_line(name, buf.getvalue()),
+             result=out[name])
+    launches = dict(_build.LAUNCHES)
+    sd = out["quickstart_torch"]["final_sd_max"]
+    require(sd["dif_altgdmin"] <= EXAMPLE_SD_RATIO
+            * sd["centralized_altgdmin"],
+            f"quickstart: Dif-AltGDmin {sd['dif_altgdmin']:.3e} against "
+            f"centralized {sd['centralized_altgdmin']:.3e}")
+    require(sd["dgd_altgdmin"] > EXAMPLE_DGD_FLOOR,
+            f"quickstart: DGD reached {sd['dgd_altgdmin']:.3e}")
+    mesh = out["distributed_mtrl_torch"]
+    require(mesh["max_abs_diff"] <= EXAMPLE_MESH_TOL,
+            f"distributed_mtrl: mesh vs simulator {mesh['max_abs_diff']}")
+    lm = out["train_lm_torch"]
+    require(lm["loss"] < lm["loss0"] and lm["roundtrip_equal"],
+            f"train_lm: {lm}")
+    errs = out["serve_personalize_torch"]["errs"]
+    require(errs[-1] < errs[0], f"serve_personalize: θ errors {errs}")
+    dec = out["serve_decode_torch"]
+    require(all(v["prefill_vs_decode"] <= LM_TOL["atol"]
+                for v in dec.values()), f"serve_decode: {dec}")
+    missing = [k for k in EXAMPLE_KERNELS if not launches.get(k)]
+    require(not missing, f"examples: no launch of {missing}: {launches}")
+    emit("examples_summary", seconds=time.perf_counter() - t_phase,
+         seconds_by_example=seconds, launches=launches,
+         mesh_rank0_launches=mesh["launches_rank0"])
+    return launches
+
+
+def dryrun_check(torch, phase: str, rec: dict, args, step) -> dict:
+    """Phase 20's reading of one configuration: the real ``step(*args)``
+    on the card against the dry run's record ``rec``: argument bytes
+    exactly, the peak within DRYRUN_PEAK_RTOL, the launches equal; the
+    step's host ms (ended by a synchronize) beside the record's roofline
+    terms."""
+    from repro_torch.kernels import _build
+    from repro_torch.utils.trees import tree_leaves
+
+    arg_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(args))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    other = torch.cuda.memory_allocated() - arg_bytes   # other phases'
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - other
+    del out
+    mem = rec["memory"]
+    got = dict(
+        argument_bytes=arg_bytes,
+        argument_bytes_predicted=mem["argument_bytes"], peak_bytes=peak,
+        peak_bytes_predicted=mem["peak_bytes"],
+        peak_rel_err=(mem["peak_bytes"] - peak) / peak,
+        temp_bytes=peak - arg_bytes, temp_bytes_predicted=mem["temp_bytes"],
+        other_phases_bytes=other, launches=launches,
+        launches_predicted=rec["kernel_launches"], step_ms=step_ms,
+        roofline_ms={k: v * 1e3 for k, v in rec["roofline"].items()
+                     if k.endswith("_s")},
+        flops_predicted=rec["cost"]["flops"],
+        bytes_accessed_predicted=rec["cost"]["bytes_accessed"],
+        dry_run_s=rec["lower_s"])
+    emit("dryrun", config=phase, **got)
+    require(arg_bytes == mem["argument_bytes"],
+            f"dryrun {phase}: argument bytes {arg_bytes}, predicted "
+            f"{mem['argument_bytes']}")
+    require(abs(got["peak_rel_err"]) <= DRYRUN_PEAK_RTOL,
+            f"dryrun {phase}: peak {peak}, predicted {mem['peak_bytes']}")
+    require(launches == rec["kernel_launches"],
+            f"dryrun {phase}: launches {launches}, predicted "
+            f"{rec['kernel_launches']}")
+    return got
+
+
+def dryrun_phase(torch) -> dict:
+    """Phase 20: repro_torch.launch.dryrun on mesh (1, 1) against the
+    card, for DRYRUN_PREFILL and DRYRUN_TRAIN."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.models.transformer import init_params, serving_params
+
+    mesh = MeshShape(("data", "model"), (1, 1))
+    out = {}
+    arch, B, S = DRYRUN_PREFILL
+    cfg = get_config(arch)
+    rec = dryrun.run_one(arch, InputShape(f"prefill_{B}x{S}", S, B,
+                                          "prefill"), mesh=mesh, cfg=cfg)
+    torch.cuda.empty_cache()
+    params = serving_params(init_params(cfg, seed=0, device="cuda"), cfg)
+    batch = lm_batch(torch, cfg, B, S, seed=1)
+    out["prefill"] = dryrun_check(torch, f"{arch} bf16 prefill {B}x{S}",
+                                  rec, (params, batch),
+                                  make_prefill_step(cfg))
+    del params, batch
+    torch.cuda.empty_cache()
+    arch, layers = DRYRUN_TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    shape = InputShape("train_phase", TRAIN_SEQ,
+                       TRAIN_NODES * TRAIN_PER_NODE, "train")
+    rec = dryrun.run_one(arch, shape, mesh=mesh, cfg=cfg,
+                         n_nodes=TRAIN_NODES)
+    state, step_fn, batch = make_trainer(
+        cfg, steps=10, n_nodes=TRAIN_NODES, per_node_batch=TRAIN_PER_NODE,
+        seq=TRAIN_SEQ, device="cuda")
+    out["train"] = dryrun_check(
+        torch, f"{arch} {layers} layers train, {TRAIN_NODES} nodes x "
+        f"{TRAIN_PER_NODE} x {TRAIN_SEQ}", rec, (state, batch(0)), step_fn)
+    del state, batch
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3695,6 +3972,12 @@ def main(argv=None) -> int:
     parser.add_argument("--lm-plans", action="store_true",
                         help="only build the kernels and run the lm_plans "
                              "phase")
+    parser.add_argument("--examples", action="store_true",
+                        help="only build the kernels and run the examples "
+                             "phase (with --dryrun: both)")
+    parser.add_argument("--dryrun", action="store_true",
+                        help="only build the kernels and run the dryrun "
+                             "phase (with --examples: both)")
     parser.add_argument("--src", type=Path, default=SRC,
                         help="with --kernel-times or --grad-oracle: the src "
                              "directory of the tree to run")
@@ -3733,7 +4016,8 @@ def main(argv=None) -> int:
          device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    if not (args.sparse_tier or args.train or args.lm_plans):
+    if not (args.sparse_tier or args.train or args.lm_plans
+            or args.examples or args.dryrun):
         # phase 3b's ranks fork from this server: its imports of torch
         # and the port run beside the kernels' build
         from repro_torch.analysis import harness
@@ -3744,7 +4028,11 @@ def main(argv=None) -> int:
     ptxas = [line.strip() for name in _build.SOURCES
              for line in _build.build_log(name).splitlines()
              if "registers" in line or "spill" in line]
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
+    build_s = time.perf_counter() - t0
+    sass_texts(paths[name] for name in ("flash_attention", "ssd_scan",
+                                        "altgdmin_ls"))
+    emit("build", seconds=build_s, sass_s=time.perf_counter() - t0 - build_s,
+         ptxas=ptxas,
          flash_mma_kernel=flash_mma_report(_build, paths["flash_attention"]),
          ssd_kernels=ssd_mma_report(_build, paths["ssd_scan"]),
          fused_resident_kernel=altgdmin_report(
@@ -3767,6 +4055,13 @@ def main(argv=None) -> int:
     if args.lm_plans:
         print(json.dumps({"launches_lm_plans": lm_plans_phase(torch)}),
               flush=True)
+        return 0
+    if args.examples or args.dryrun:
+        if args.dryrun:
+            print(json.dumps({"dryrun": dryrun_phase(torch)}), flush=True)
+        if args.examples:
+            print(json.dumps({"launches_examples": examples_phase(torch)}),
+                  flush=True)
         return 0
     launch_floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
     emit("launch_floor", ms=launch_floor_ms)
@@ -3794,6 +4089,8 @@ def main(argv=None) -> int:
     lm_launches = {**dense_launches, **ssm_launches}
     launches_plans = lm_plans_phase(torch)
     launches_train = train_phase(torch)
+    dryrun_phase(torch)
+    launches_examples = examples_phase(torch)
 
     main_row = rows[("exp1", "float32")]
     kernels = []
@@ -3898,6 +4195,9 @@ def main(argv=None) -> int:
                     "max_abs_err_f32_kernel": lm_errs["ssd_scan"],
                     "f32_kernel_ms": lm_timing["ssd_scan_f32"]["ms"],
                     **lm_timing["ssd_scan"]})
+    # each kernel's launches over the six examples (phase 19)
+    for row in kernels:
+        row["launches_examples"] = launches_examples.get(row["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,6 @@ import contextlib
 import dataclasses
 import functools
 import importlib
-import multiprocessing
-import multiprocessing.forkserver
 import sys
 import time
 
@@ -416,8 +414,8 @@ def warm_ranks() -> None:
     with torch and the port's modules preloaded (none touches the card),
     and return at once: its imports overlap the caller's work.  Once
     started, a later call changes nothing."""
-    multiprocessing.forkserver.set_forkserver_preload(list(_RANK_PRELOAD))
-    multiprocessing.forkserver.ensure_running()
+    from repro_torch.distributed.mesh import warm_forkserver
+    warm_forkserver(_RANK_PRELOAD)
 
 
 def spawn_cases(specs, *, device: str = "cpu", lengths=RUN_LENGTHS,

@@ -1986,6 +1986,10 @@ def get_rule(name: str):
                          f"{sorted(COMBINE_RULES)}") from None
 
 
+def rule_names() -> tuple[str, ...]:
+    return tuple(sorted(COMBINE_RULES))
+
+
 for _rule in (GossipCombine(), NeighborCombine(), CentralCombine(),
               NoCombine(), ExactDiffusionCombine(), BeyondCentralCombine(),
               TopkGossipCombine(), QuantizedGossipCombine(),

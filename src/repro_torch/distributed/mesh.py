@@ -20,7 +20,8 @@ The choice follows the group's backend and is reported as
 the host seconds a rank spends in each half of its collectives, and
 :data:`SENDS` its point-to-point sends.
 
-:func:`spawn` starts one process per rank (``spawn`` start method, a
+:func:`spawn` starts one process per rank (``spawn`` start method, or
+forks of the forkserver that :func:`warm_forkserver` started; a
 ``FileStore`` rendezvous in a temporary directory, no TCP port), runs a
 function of an importable module on each, and returns every rank's
 result, failing with the rank's traceback if one fails and with the
@@ -31,6 +32,7 @@ from __future__ import annotations
 import collections
 import datetime
 import faulthandler
+import multiprocessing.forkserver
 import os
 import queue as queue_mod
 import tempfile
@@ -51,6 +53,9 @@ TRANSPORT: collections.Counter = collections.Counter()
 # NodeMesh.ppermute_many: R·K·wire an outer iteration of a gossip
 # program (the DispatchBudget's wire_mesh).
 SENDS: collections.Counter = collections.Counter()
+# spawn's start method where its caller names none: "forkserver" once
+# warm_forkserver has started the server in this process
+_start_method = "spawn"
 
 
 class NodeMesh:
@@ -198,16 +203,29 @@ def _rank_main(rank: int, world_size: int, store_path: str, backend: str,
             faulthandler.cancel_dump_traceback_later()
 
 
+def warm_forkserver(preload: Sequence[str]) -> None:
+    """Start the forkserver with the modules ``preload`` imported once
+    (none may touch the card), and return at once: its imports overlap
+    the caller's work.  From then on :func:`spawn`'s ranks fork from it
+    unless the caller names a start method.  Once started, a later call
+    changes nothing."""
+    global _start_method
+    multiprocessing.forkserver.set_forkserver_preload(list(preload))
+    multiprocessing.forkserver.ensure_running()
+    _start_method = "forkserver"
+
+
 def spawn(fn: Callable, world_size: int, *, args: tuple = (),
           backend: str = "gloo", device: str = "cpu",
-          timeout: float = 600.0, start_method: str = "spawn") -> list:
+          timeout: float = 600.0, start_method: str | None = None) -> list:
     """Run ``fn(*args)`` on each of ``world_size`` fresh processes joined
     in one ``backend`` process group; return the results, rank by rank.
 
     ``fn`` must be importable by name (a module-level function), since
     each rank starts from a fresh interpreter (``start_method``
-    ``"spawn"``) or a fork of the forkserver (``"forkserver"``: the
-    caller set its preloads, which must not touch the card); ``args``
+    ``"spawn"``, the default) or a fork of the forkserver
+    (``"forkserver"``, the default once :func:`warm_forkserver` has run:
+    its preloads must not touch the card); ``args``
     and the results are pickled.  With ``device="cuda"`` rank g computes
     on card g mod (number of cards).  The rendezvous is a ``FileStore`` in a
     temporary directory, so concurrent groups cannot collide.
@@ -219,7 +237,7 @@ def spawn(fn: Callable, world_size: int, *, args: tuple = (),
     returns or raises."""
     if world_size < 1:
         raise ValueError(f"world_size must be >= 1, got {world_size}")
-    ctx = torch.multiprocessing.get_context(start_method)
+    ctx = torch.multiprocessing.get_context(start_method or _start_method)
     with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as tmp:
         results = ctx.Queue()
         stacks = [os.path.join(tmp, f"stacks{g}.txt")

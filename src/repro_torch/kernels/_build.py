@@ -15,12 +15,17 @@ kernel wrappers raise on anything but 0 and count their launches in
 ``__global__`` functions or launches several, its C entry reports which
 and how often, and the wrapper adds that to :data:`KERNEL_LAUNCHES`.
 
-:func:`recording` is the counterpart of Pallas interpret mode for the
-static checks (``repro_torch.analysis``): inside it a kernel wrapper
-given CPU tensors runs its plain version in place of the launch, and
-counts in :data:`LAUNCHES` where the launch counts, so a run on the CPU
-takes the ``cuda`` route's structure and its count is the card's.
-Outside it the ``cuda`` route refuses CPU tensors, as always.
+:func:`recording` is the counterpart of Pallas interpret mode: inside
+it a kernel wrapper given tensors off the card stands in for its launch
+and counts in :data:`LAUNCHES` where the launch counts, so a run off
+the card takes the ``cuda`` route's structure and its count is the
+card's.  On CPU tensors (the static checks, ``repro_torch.analysis``)
+the wrapper runs its plain version; on meta tensors (the dry run,
+:mod:`repro_torch.launch.dryrun`) the wrappers of the language models'
+kernels (``flash_attention``, ``ssd_scan``, ``gossip_combine``) return
+empty outputs of the kernel's shape and dtype and hand their operands
+to the scope's ``on_meta``.  Outside it the ``cuda`` route refuses
+tensors off the card, as always.
 """
 from __future__ import annotations
 
@@ -47,31 +52,44 @@ KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _recording = False
+_on_meta = None
 
 
 @contextlib.contextmanager
-def recording():
-    """Inside the ``with`` body, a kernel wrapper called on CPU tensors
-    runs the kernel's plain version (:mod:`repro_torch.kernels.ref`) in
-    place of the launch and counts it in :data:`LAUNCHES` as the launch
-    would be counted; nothing is built or loaded.  Only the static
-    checks enter it."""
-    global _recording
-    prev, _recording = _recording, True
+def recording(on_meta=None):
+    """Inside the ``with`` body, a kernel wrapper called on tensors off
+    the card stands in for its launch and counts it in :data:`LAUNCHES`
+    as the launch would be counted; nothing is built or loaded.  On CPU
+    tensors it runs the kernel's plain version
+    (:mod:`repro_torch.kernels.ref`); on meta tensors it returns empty
+    outputs of the kernel's shape and dtype and calls
+    ``on_meta(name, *operands, **options)``, where given, with the
+    wrapper's name and arguments (:func:`meta_call`).  The static checks
+    enter it with CPU tensors, the dry run with meta tensors."""
+    global _recording, _on_meta
+    prev = _recording, _on_meta
+    _recording, _on_meta = True, on_meta
     try:
         yield
     finally:
-        _recording = prev
+        _recording, _on_meta = prev
 
 
 def recorded(*tensors) -> bool:
-    """Whether a wrapper call on ``tensors`` runs the plain version in
-    place of its launch: inside :func:`recording`, on CPU tensors."""
+    """Whether a wrapper call on ``tensors`` stands in for its launch:
+    inside :func:`recording`, on tensors off the card."""
     return _recording and not any(t.is_cuda for t in tensors)
 
 
+def meta_call(name: str, *args, **kwargs) -> None:
+    """A wrapper's stand-in on meta tensors: hand its arguments to the
+    :func:`recording` scope's ``on_meta``, where one was given."""
+    if _on_meta is not None:
+        _on_meta(name, *args, **kwargs)
+
+
 def on_card(t) -> bool:
-    """Whether a wrapper may take ``t``: a CUDA tensor, or a CPU tensor
+    """Whether a wrapper may take ``t``: a CUDA tensor, or any tensor
     inside :func:`recording`."""
     return t.is_cuda or recorded(t)
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -64,7 +65,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
                          f"{tuple(k.shape)}")
     if D > D_MAX:
         raise ValueError(f"head dim D={D} exceeds the kernel's D_MAX={D_MAX}")
-    if (max(H, B) > 65535 or Sq > 2**30 or max(Sq, Skv) * H * D >= 2**62
+    # a device's launch grid; the dry run's meta tensors are the mesh's
+    if not q.is_meta and (
+            max(H, B) > 65535 or Sq > 2**30
+            or max(Sq, Skv) * H * D >= 2**62
             or -(-Sq // _BLOCK_Q) * H * B >= 2**31):
         raise ValueError(f"q {tuple(q.shape)} exceeds one launch grid")
     if window is not None and int(window) < 1:
@@ -72,7 +76,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     scale = D ** -0.5 if scale is None else float(scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    if _build.recorded(q, k, v):
+    if q.is_meta:
+        _build.meta_call("flash_attention", q, k, v, causal=causal,
+                         window=window)
+    elif _build.recorded(q, k, v):
         out.copy_(_ref.ref_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, scale=scale).transpose(1, 2))
@@ -89,3 +96,23 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
                      "flash_attention_fwd")
     _build.LAUNCHES["flash_attention"] += 1
     return out
+
+
+def visible_pairs(Sq: int, Skv: int, window, causal: bool = True) -> int:
+    """(query, key) pairs that the causal mask, aligned at the ends, and
+    the window leave visible: the work the attention must do."""
+    qp = np.arange(Sq) + (Skv - Sq)
+    hi = np.minimum(qp, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.zeros_like(qp) if window is None else np.maximum(
+        qp - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q, k, v, *, causal=True, window=None) -> tuple[int, int]:
+    """(operations, bytes) of one call: 4·D multiply-adds' operations a
+    visible (query, key) pair and head — Q Kᵀ and P V — and q, k, v read
+    once, the output written once."""
+    B, Sq, H, D = q.shape
+    flops = 4 * D * B * H * visible_pairs(Sq, k.shape[1], window, causal)
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    return flops, n_bytes

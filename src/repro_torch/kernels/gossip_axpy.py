@@ -108,7 +108,8 @@ def gossip_combine(z, neighbors, weights):
     n = z.numel()
     if n < 1:
         raise ValueError(f"empty operand z {tuple(z.shape)}")
-    if n > (2**31 - 1) * 64:                # grid (n/64,)
+    # grid (n/64,): a device's; the dry run's meta tensors are the mesh's
+    if n > (2**31 - 1) * 64 and not z.is_meta:
         raise ValueError(f"z of {n} elements exceeds one launch grid")
     if z.dtype not in _DTYPE_CODE and z.dtype != torch.float64:
         raise ValueError(f"unsupported z dtype {z.dtype}")
@@ -121,7 +122,9 @@ def gossip_combine(z, neighbors, weights):
     wk = weights.to(torch.float32).contiguous()
     out = torch.empty_like(zk)
     launched = (ctypes.c_int * len(_COMBINE_FORMS))()
-    if _build.recorded(zk, nk, wk):
+    if zk.is_meta:
+        _build.meta_call("gossip_combine", zk, nk, wk)
+    elif _build.recorded(zk, nk, wk):
         out.copy_(_ref.ref_gossip_combine(zk, nk, wk))
     else:
         lib = _build.load("gossip_axpy", _SIGNATURES)
@@ -135,3 +138,13 @@ def gossip_combine(z, neighbors, weights):
     _build.LAUNCHES["gossip_combine"] += 1
     _build.count_kernels(_COMBINE_FORMS, launched)
     return out.to(z.dtype)
+
+
+def combine_cost(z, neighbors, weights) -> tuple[int, int]:
+    """(operations, bytes) of one :func:`gossip_combine`: a multiply-add
+    a row and element, the K+1 rows and the weights read once, the
+    output written once."""
+    K = neighbors.shape[0]
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (z, neighbors, weights, z))
+    return 2 * (K + 1) * z.numel(), n_bytes

@@ -75,16 +75,32 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128):
     Q = int(chunk)
     if Q < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if max(H, B) > 65535 or B * S * H * P >= 2**62:
+    # a device's launch grid; the dry run's meta tensors are the mesh's
+    if not x.is_meta and (max(H, B) > 65535 or B * S * H * P >= 2**62):
         raise ValueError(f"x {tuple(x.shape)} exceeds one launch grid")
     launched = (ctypes.c_int * len(_KERNELS))()
-    if _build.recorded(x, dt, A, Bm, Cm, D):
+    if x.is_meta:
+        _build.meta_call("ssd_scan", x, dt, A, Bm, Cm, D)
+        y = torch.empty_like(x)
+        h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    elif _build.recorded(x, dt, A, Bm, Cm, D):
         y, h = _ref.ref_ssd(x, dt, A, Bm, Cm, D)
     else:
         y, h = _launch(x, dt, A, Bm, Cm, D, Q, launched)
     _build.LAUNCHES["ssd_scan"] += 1
     _build.count_kernels(_KERNELS, launched)
     return y, h
+
+
+def cost(x, dt, A, Bm, Cm, D) -> tuple[int, int]:
+    """(operations, bytes) of one call: the recurrence's 5·P·N operations
+    a token and head (3 for the state update, 2 for the readout), each
+    input read once, y and h_final written once."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    n_bytes = sum(t.numel() * t.element_size() for t in (x, dt, A, Bm, Cm,
+                                                         D, x))
+    return 5 * B * S * H * P * N, n_bytes + B * H * P * N * 4
 
 
 def _launch(x, dt, A, Bm, Cm, D, Q, launched):

@@ -81,66 +81,89 @@ def _check_nodes(params, batch, n_nodes: int):
                          f"node axis of {n_nodes}; got {sorted(lead)}")
 
 
-def node_value_and_grad(params, batch, cfg, n_nodes: int):
-    """(losses (n_nodes,), grads): every node's loss on its batch shard
-    and its gradient, stacked like ``params``.
+def node_loss_and_grad(params, batch, cfg, g: int, grads, plan=None):
+    """Node g's loss on its batch shard (detached), its gradient written
+    into slot g of ``grads`` (a tree stacked like ``params``, allocated
+    once for every node).
 
-    Node g's gradient is taken against its own slice: each leaf's slice
+    The gradient is taken against node g's own slice: each leaf's slice
     g — each layer's, for a segment's stacked leaves — is a fresh
     autograd leaf, and its gradient is written into slot g (and layer j)
-    of a gradient tree allocated once.  Indexing a stacked leaf inside
-    autograd would instead have every slice's backward write a
-    zero-filled full-size gradient.  A parameter the loss does not reach
-    gets a zero gradient, as ``jax.grad`` gives."""
+    of ``grads``.  Indexing a stacked leaf inside autograd would instead
+    have every slice's backward write a zero-filled full-size gradient.
+    A parameter the loss does not reach gets a zero gradient, as
+    ``jax.grad`` gives."""
+    plan = tfm.build_plan(cfg) if plan is None else plan
+    p_g = _node_slices(params, g, lambda x: x.detach().requires_grad_(),
+                       plan)
+    dst = tree_leaves(_node_slices(grads, g, lambda x: x, plan))
+    with torch.enable_grad():
+        loss = loss_fn(p_g, {k: v[g] for k, v in batch.items()}, cfg)
+        leaves = tree_leaves(p_g)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for d, gr in zip(dst, got, strict=True):
+        if gr is None:
+            d.zero_()
+        else:
+            d.copy_(gr)
+    return loss.detach()
+
+
+def node_value_and_grad(params, batch, cfg, n_nodes: int):
+    """(losses (n_nodes,), grads): every node's loss on its batch shard
+    and its gradient (:func:`node_loss_and_grad`), stacked like
+    ``params``."""
     _check_nodes(params, batch, n_nodes)
     plan = tfm.build_plan(cfg)
     grads = tree_map(torch.empty_like, params)
-    losses = []
-    for g in range(n_nodes):
-        p_g = _node_slices(params, g, lambda x: x.detach().requires_grad_(),
-                           plan)
-        dst = tree_leaves(_node_slices(grads, g, lambda x: x, plan))
-        with torch.enable_grad():
-            loss = loss_fn(p_g, {k: v[g] for k, v in batch.items()}, cfg)
-            leaves = tree_leaves(p_g)
-            got = torch.autograd.grad(loss, leaves, allow_unused=True)
-        for d, gr in zip(dst, got, strict=True):
-            if gr is None:
-                d.zero_()
-            else:
-                d.copy_(gr)
-        losses.append(loss.detach())
+    losses = [node_loss_and_grad(params, batch, cfg, g, grads, plan)
+              for g in range(n_nodes)]
     return torch.stack(losses), grads
+
+
+def node_loss(params, batch, cfg, g: int):
+    """Node g's loss on its batch shard, no gradients."""
+    with torch.no_grad():
+        return loss_fn(tree_map(lambda x: x[g], params),
+                       {k: v[g] for k, v in batch.items()}, cfg)
 
 
 def _node_losses(params, batch, cfg, n_nodes: int):
     """Every node's loss on its batch shard, no gradients."""
     _check_nodes(params, batch, n_nodes)
-    with torch.no_grad():
-        return torch.stack([
-            loss_fn(tree_map(lambda x: x[g], params),
-                    {k: v[g] for k, v in batch.items()}, cfg)
-            for g in range(n_nodes)])
+    return torch.stack([node_loss(params, batch, cfg, g)
+                        for g in range(n_nodes)])
+
+
+def train_step_from(state: TrainState, losses_and_grads, opt,
+                    agg: AggregationConfig):
+    """A train step around ``losses_and_grads()`` → (losses (n_nodes,),
+    grads stacked like the parameters): the gradient communication, the
+    node-local optimizer update, the parameter communication →
+    (TrainState, metrics).  The gradients are made here, so this frame
+    holds their only reference and frees them before the new parameters
+    are formed."""
+    losses, grads = losses_and_grads()
+    grads = aggregate_gradients(grads, agg)            # consensus/AR
+    updates, opt_state = opt.update(grads, state.opt_state, state.params)
+    del grads
+    params = apply_updates(state.params, updates)
+    del updates
+    params = aggregate_params(params, agg)             # diffusion/dgd
+    metrics = {"loss": torch.mean(losses), "loss_per_node": losses}
+    return TrainState(params, opt_state, state.step + 1), metrics
 
 
 def _train_step(cfg, opt, agg: AggregationConfig, n_nodes: int, fused):
-    def step(state: TrainState, batch):
+    def losses_and_grads(params, batch):
         if fused:
-            losses, grads = node_value_and_grad(state.params, batch, cfg,
-                                                n_nodes)
-        else:
-            losses = _node_losses(state.params, batch, cfg, n_nodes)
-            _, grads = node_value_and_grad(state.params, batch, cfg,
-                                           n_nodes)
-        grads = aggregate_gradients(grads, agg)            # consensus/AR
-        updates, opt_state = opt.update(grads, state.opt_state,
-                                        state.params)
-        del grads
-        params = apply_updates(state.params, updates)
-        del updates
-        params = aggregate_params(params, agg)             # diffusion/dgd
-        metrics = {"loss": torch.mean(losses), "loss_per_node": losses}
-        return TrainState(params, opt_state, state.step + 1), metrics
+            return node_value_and_grad(params, batch, cfg, n_nodes)
+        losses = _node_losses(params, batch, cfg, n_nodes)
+        return losses, node_value_and_grad(params, batch, cfg, n_nodes)[1]
+
+    def step(state: TrainState, batch):
+        return train_step_from(
+            state, lambda: losses_and_grads(state.params, batch), opt, agg)
     return step
 
 

@@ -1519,3 +1519,52 @@ def test_lint_budget_with_real_kernels_equals_the_recording(cuda):
         assert torchlint.check_dispatch_budget(card, budget) == [], name
         assert card.launches == cpu.launches, name
         assert card.launches_by_kernel == cpu.launches_by_kernel, name
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train", "train_ssm"])
+def test_dryrun_counts_equal_real_launches(cuda, kind):
+    """The dry run on the meta device (inside ``_build.recording()``)
+    against the real step on the card, on one device (mesh (1, 1)): the kernel
+    launches it counts equal the real step's ``_build.LAUNCHES``, and
+    its argument bytes the real arguments' bytes exactly; a bf16 smoke
+    model, remat on, two replicas for training."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun, specs, steps
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.trees import tree_leaves
+    arch = "mamba2-130m" if kind == "train_ssm" else "qwen3-1.7b"
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="bfloat16",
+                              remat=True)
+    mesh = MeshShape(("data", "model"), (1, 1))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "prefill":
+        rec = dryrun.run_one(arch, InputShape("p", 128, 2, "prefill"),
+                             mesh=mesh, cfg=cfg)
+        params = tfm.serving_params(tfm.init_params(cfg, device=cuda), cfg)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 128),
+                                         generator=g, device=cuda)}
+        args = (params, batch)
+        step = steps.make_prefill_step(cfg)
+    else:
+        rec = dryrun.run_one(arch, InputShape("t", 128, 4, "train"),
+                             mesh=mesh, cfg=cfg, n_nodes=2)
+        params = steps.replicate_for_nodes(
+            tfm.init_params(cfg, device=cuda), 2)
+        opt = specs.make_optimizer(cfg)
+        state = steps.TrainState(params, opt.init(params),
+                                 torch.zeros((), dtype=torch.int32,
+                                             device=cuda))
+        tok = torch.randint(0, cfg.vocab_size, (2, 2, 128), generator=g,
+                            device=cuda)
+        args = (state, {"tokens": tok, "labels": tok})
+        step = steps.make_train_step_fused(cfg, opt,
+                                           specs.make_aggregation(), 2)
+    assert rec["memory"]["argument_bytes"] == sum(
+        t.numel() * t.element_size() for t in tree_leaves(args))
+    _build.LAUNCHES.clear()
+    step(*args)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == rec["kernel_launches"]
