@@ -273,7 +273,10 @@ Phases, each printing one JSON line and raising on failure:
                Sq 16 / Skv 2048 and D = 112; ssd_scan at mamba2-130m's
                (B 4, S 2048, H 24, P 64, N 128, Q 128) and S = 1000, y
                and h_final; flash also at deepseek-v3's MLA prefill (B 4,
-               S 2048, 128 heads, D 192, the scale (dn + dr)^-1/2 passed),
+               S 2048, 128 heads, D 192, the scale (dn + dr)^-1/2 passed)
+               and at the prefills of the four presets phase 17b adds
+               (granite-20b MQA 48/1, command-r-35b 64/8, phi4-mini-3.8b
+               24/8, all D 128; musicgen-medium MHA 24/24 at D 64), these
                timed at bf16; times as in phase 3 at both dtypes, with
                scaled_dot_product_attention (is_causal, enable_gqa) as
                flash's library call, timed only (ssd_scan has none);
@@ -310,7 +313,13 @@ Phases, each printing one JSON line and raising on failure:
                tokens, past its 4096-token window: 32), deepseek-v3 cut to
                its 3 dense layers and first MoE layer (MLA at D 192, 256
                experts top-8 and the shared expert: 4) and arctic cut to 1
-               layer (128 experts top-2 and the dense residual: 1).  The
+               layer (128 experts top-2 and the dense residual: 1); then
+               phi4-mini-3.8b whole (GQA 24/8, tied embeddings: 32),
+               musicgen-medium whole (MHA at D 64, the audio stub's token
+               stream: 48), granite-20b cut to 26 of 52 layers (MQA 48/1:
+               26) and command-r-35b to 16 of 40 (the parallel block: 16),
+               all at B 4 x S 2048, the cuts set by the f32 tree built
+               before the serving copy.  The
                f32 checks on the first LM_PLANS_F32_ROWS rows (the kernel
                route against torch-ref, the logits and the MoE aux loss
                within LM_TOL; decode on LM_PLANS_GEN against the forward,
@@ -323,35 +332,53 @@ Phases, each printing one JSON line and raising on failure:
                against its plain version at the model's own shape, each
                planted fault caught by the route or by that kernel check
                (the route's reading taken only where the kernel check
-               misses the fault), tokens/s, decode ms, profiles of
+               misses the fault; at one KV head, granite's, the KV-head
+               reversal is no fault and is not planted, which the line
+               says), tokens/s, decode ms, profiles of
                LM_PLANS_DECODE_PROFILE decode steps, and the peak device
                memory under the card's.
  18. train   — launch.train's trainer at full width on the card (its
                parts, make_trainer, then launch.train.train itself for 2
-               steps on qwen3-1.7b): mamba2-130m (24 layers) and qwen3-1.7b cut to 4
-               of 28 layers, 4 nodes, a per-node batch of 2 x 1024
-               tokens, bf16 activations, remat "all", diffusion with
+               steps on qwen3-1.7b), TRAIN_CASES: mamba2-130m (24
+               layers) and qwen3-1.7b cut to 4 of 28 layers, 4 nodes, a
+               per-node batch of 2 x 1024 tokens; zamba2-7b cut to 6 of
+               81 layers (one group: ssd_scan and flash both under
+               autograd), 2 nodes x 2 x 1024; llava-next-mistral-7b cut
+               to 1 of 32 layers, 4 nodes x 1 x 4096 (2880 patch rows,
+               then 1216 text tokens); bf16 activations, remat "all",
+               diffusion with
                t_con 1, the embedding and LM head node-local, AdamW on a
                warmup-cosine schedule.  The first step's gradients on
                the kernel route (flash_attention / ssd_scan under
                autograd: the kernel forward, the plain core's backward)
                against torch-ref leaf by leaf within the model's bf16
-               relative L2 bound (LM_BF16_REL_L2 / LM_SSM_BF16_REL_L2),
+               relative L2 bound (LM_SSM_BF16_REL_L2 where ssd_scan runs,
+               else LM_BF16_REL_L2),
                every leaf's gradient nonzero and finite on every node;
                1 warm + 4 timed steps on each route from the same
                weights and batches, losses within TRAIN_LOSS_RTOL, the
                launches of every step held to the count derived from the
-               config and strategy (the LM kernel n_nodes x n_layers x 2
-               under remat, gossip_combine one a communicated leaf a
-               round), ms a step (host clock ended by a synchronize),
-               tokens/s, peak device memory and one profiled step's
-               device ms and busy share; 2 steps at f32 activations on
-               both routes within LM_TOL; for mamba2-130m cut to
+               config and strategy (each LM kernel's launches of a
+               forward a node, x 2 under remat, gossip_combine one a
+               communicated leaf a round), which the dry run's count
+               (launch.dryrun on a (1, 1) mesh) must equal, ms a step
+               (host clock ended by a synchronize), tokens/s, peak
+               device memory beside the dry run's prediction and one
+               profiled step's device ms and busy share; 2 steps at f32
+               activations on both routes within LM_TOL; for mamba2-130m
+               cut to
                TRAIN_STRATEGY_LAYERS layers the other six strategies, 2
                steps each on both routes: allreduce keeps
                the communicated leaves equal on every node, local lets
                them part, and after one step every strategy's node-local
-               leaves are the local strategy's.
+               leaves are the local strategy's.  Then the MoE plans'
+               backward at smoke width (TRAIN_MOE_SMOKE: arctic-480b,
+               deepseek-v3-671b; their full-width trainer state fits no
+               card): the first losses and gradients through the kernels
+               against torch-ref within TRAIN_MOE_TOL, the gradient
+               nonzero on every node at every leaf and every expert, the
+               aux loss's own gradient nonzero at every router, and
+               TRAIN_MOE_STEPS diffusion steps with the derived launches.
  19. examples — the six port examples (EXAMPLES, ``examples/*_torch.py``)
                at their default sizes on the card, each imported by path
                and its main called in this process (the mesh example's
@@ -393,12 +420,14 @@ node_fused_iter's, node_task_gram's, compress_topk's and dequant's
 launches on the sparse tier (``launches_sparse``), node_fused_iter's and
 node_task_gram's times and bounds at its shape (``sparse_shape``),
 gossip_combine's per mesh program; flash_attention's, ssd_scan's and
-gossip_combine's launches a train step (``launches_train_per_step``,
-phase 18); every kernel's launches over the six examples
+gossip_combine's launches a train step by model
+(``launches_train_per_step``, phase 18); every kernel's launches over
+the six examples
 (``launches_examples``, phase 19); flash_attention's and ssd_scan's
 launches a prefill step of
 each plan of phase 17b (``launches_lm_plans``), flash's time at the MLA
-shape (``mla_shape``), ssd_scan's CUDA launches in zamba2's step; the
+shape (``mla_shape``) and at the four new presets' prefill shapes
+(``lm_plans_shapes``), ssd_scan's CUDA launches in zamba2's step; the
 launch floor beside mix_rows,
 compress_topk, dequant and gossip_combine), the card line, and the
 result line.  Exits non-zero,
@@ -409,15 +438,12 @@ printing no result, without a CUDA device or outside the repo.
 builds the kernels and runs phase 3b only, then prints each case's
 launches an iteration on the card.
 
-    python3 chip_smoke.py --train
+    python3 chip_smoke.py --lm-plans --train
 
-builds the kernels and runs phase 18 only, then prints the train
-launches a step by kernel.
-
-    python3 chip_smoke.py --lm-plans
-
-builds the kernels and runs phase 17b only, then prints each plan's
-launches of a bf16 prefill step by wrapper and by __global__ function.
+builds the kernels and runs phase 17b (``--lm-plans``) and phase 18
+(``--train``), either alone or both, then prints each plan's launches
+of a bf16 prefill step by wrapper and by __global__ function and the
+train launches a step by kernel and model.
 
     python3 chip_smoke.py --examples --dryrun
 
@@ -433,9 +459,12 @@ with all twelve programs at L = 100 000 in phase 12c (no cut for time).
     python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]
 
 runs none of the phases: it imports ``repro_torch`` from ``DIR``
-(default: this checkout's ``src``), builds its least-squares, mixing and
-compression kernels there, and prints one JSON line: the card's name and
-power limit, and the device ms (device_ms) of ``mix_rows`` at Experiment
+(default: this checkout's ``src``), builds its least-squares, mixing,
+compression and flash kernels there, and prints one JSON line: the card's name and
+power limit, and the device ms (device_ms) of the bf16 flash kernel at
+each LM prefill shape of phase 15 that it times at bf16 (beside
+scaled_dot_product_attention's ms and the bound of its operations),
+of ``mix_rows`` at Experiment
 1's AGREE operand and tests/test_torch_gpu.py's other shapes, of
 ``node_task_gram`` at SHAPES, of ``task_gram`` and ``task_grad_tiles``
 at SINGLE_SHAPES, of ``node_task_grad_tiles`` at GRAD_TIME_SHAPES, of
@@ -749,14 +778,24 @@ FLASH_CASES = (("qwen3_prefill", 4, 2048, 2048, 16, 8, 128, None),
                ("ragged_1000", 4, 1000, 1000, 16, 8, 128, None),
                ("cross_16_2048", 4, 16, 2048, 16, 8, 128, None),
                ("d112", 2, 1024, 1024, 32, 32, 112, None),
-               ("mla_prefill", 4, 2048, 2048, 128, 128, 192, None))
+               ("mla_prefill", 4, 2048, 2048, 128, 128, 192, None),
+               ("granite_prefill", 4, 2048, 2048, 48, 1, 128, None),
+               ("command_r_prefill", 4, 2048, 2048, 64, 8, 128, None),
+               ("phi4_prefill", 4, 2048, 2048, 24, 8, 128, None),
+               ("musicgen_prefill", 4, 2048, 2048, 24, 24, 64, None))
 # the cases timed at each dtype; deepseek-v3's MLA prefill (D = dn + dr
-# = 192, V padded from 128, scale (dn + dr)^-1/2 passed explicitly) at
-# bf16 only, its plain version timed over 3 single calls (8.6 GB of
-# scores a call)
+# = 192, V padded from 128, scale (dn + dr)^-1/2 passed explicitly) and
+# the prefills of the four lm_plans presets (granite-20b MQA 48/1,
+# command-r-35b GQA 64/8, phi4-mini-3.8b GQA 24/8, musicgen-medium MHA
+# at D 64) at bf16 only, the plain version timed over 3 single calls
+# (up to 8.6 GB of scores a call)
 FLASH_TIMED = {"qwen3_prefill": ("float32", "bfloat16"),
                "window_512": ("float32", "bfloat16"),
-               "mla_prefill": ("bfloat16",)}
+               "mla_prefill": ("bfloat16",),
+               "granite_prefill": ("bfloat16",),
+               "command_r_prefill": ("bfloat16",),
+               "phi4_prefill": ("bfloat16",),
+               "musicgen_prefill": ("bfloat16",)}
 FLASH_SCALE = {"mla_prefill": 192 ** -0.5}
 SSD_CASES = (("mamba2_prefill", 4, 2048, 24, 64, 128, 128),
              ("ragged_1000", 4, 1000, 24, 64, 128, 128))
@@ -807,31 +846,55 @@ LM_DECODE_PROFILE = 16
 # of weights.  Decode: LM_PLANS_GEN (batch, prompt, gen), the MoE
 # configurations' decode check at a capacity factor of E / top_k, at
 # which the forward drops no token (decode, a token at a time, never
-# does).
+# does).  Then the four presets of the scan plan that never ran on the
+# card, B 4 x S 2048: phi4-mini-3.8b whole (GQA 24/8, tied embeddings;
+# 14.3 GiB at f32) and musicgen-medium whole (MHA 24/24 at D 64, the
+# audio token stream through the embedding; 6.8 GiB); granite-20b (MQA
+# 48/1) cut from 52 to 26 layers and command-r-35b (the parallel
+# attention || FFN block, rope theta 8e6, vocab 256 000) from 40 to 16.
+# The cut is lm_phase's f32 tree, built whole before the serving copy
+# is cast from it: 104.9 and 120.6 GiB whole, 53.6 and 57.6 GiB at the
+# cuts (deepseek's cut is 57.6 GiB at f32 and peaked at 63.3 GiB on the
+# card); whole depth would fit at bf16 (54.4 and 65.6 GiB).
 LM_PLANS = (("zamba2-7b", None, (4, 2048),
              {"ssd_scan": 81, "flash_attention": 13}),
             ("llava-next-mistral-7b", None, (1, 8192),
              {"flash_attention": 32}),
             ("deepseek-v3-671b", 4, (4, 2048), {"flash_attention": 4}),
-            ("arctic-480b", 1, (4, 2048), {"flash_attention": 1}))
+            ("arctic-480b", 1, (4, 2048), {"flash_attention": 1}),
+            ("phi4-mini-3.8b", None, (4, 2048), {"flash_attention": 32}),
+            ("musicgen-medium", None, (4, 2048), {"flash_attention": 48}),
+            ("granite-20b", 26, (4, 2048), {"flash_attention": 26}),
+            ("command-r-35b", 16, (4, 2048), {"flash_attention": 16}))
 LM_PLANS_F32_ROWS = 1
 # cut for time (from (4, 32, 8) and 16 profiled steps: the deep
 # stacks' decode is host-bound, ~0.2 s a step for zamba2-7b)
 LM_PLANS_GEN = (4, 8, 4)
 LM_PLANS_DECODE_PROFILE = 4
 # Phase 18, train: launch.train's trainer (AdamW on a warmup-cosine
-# schedule, the embedding and LM head node-local) at full width, 4 nodes,
-# a per-node batch of 2 x 1024 tokens, bf16 activations, diffusion with
-# t_con 1; remat "all", as the configs have it.  qwen3-1.7b is cut to 4
-# of its 28 layers: its f32 parameters, gradients and two moments on 4
-# nodes would need ~110 GB at 28.  mamba2-130m also runs the other six
-# strategies.  Losses of every step within a relative TRAIN_LOSS_RTOL of
-# the torch-ref route, the first step's gradients leaf by leaf within the
-# relative L2 bound of the model's bf16 kernel route (the prefill's), the
-# f32 run's losses within LM_TOL.
-TRAIN_CASES = (("mamba2-130m", None, "ssd_scan", LM_SSM_BF16_REL_L2),
-               ("qwen3-1.7b", 4, "flash_attention", LM_BF16_REL_L2))
+# schedule, the embedding and LM head node-local) at full width, bf16
+# activations, diffusion with t_con 1; remat "all", as the configs have
+# it.  Each case: (arch, layers kept (None: all), nodes, per-node batch,
+# tokens a sequence).
+# qwen3-1.7b is cut to 4 of its 28 layers: its f32 parameters,
+# gradients and two moments on 4 nodes would need ~110 GB at 28.
+# zamba2-7b is cut to 6 of 81 layers, one group (six Mamba2 layers
+# around the shared attention block; below 6 layers there is no group
+# and flash would not run), on 2 nodes: the dry run reads 52.0 GiB
+# there and 104.1 GiB on 4.  llava-next-mistral-7b is cut to 1 of 32
+# layers on 4 nodes x 1 x 4096 tokens: its 2880 patch rows leave no
+# text at 1024 tokens (launch/specs.py raises), and 2 layers read
+# 74.8 GiB, too near the card's 79.2 (its serving peak ran 3 GiB over
+# the prediction).  mamba2-130m also runs the other six strategies.  Losses of every step
+# within a relative TRAIN_LOSS_RTOL of the torch-ref route, the first
+# step's gradients leaf by leaf within the relative L2 bound of the
+# model's bf16 kernel route (LM_SSM_BF16_REL_L2 where ssd_scan runs,
+# else LM_BF16_REL_L2), the f32 run's losses within LM_TOL.
 TRAIN_NODES, TRAIN_PER_NODE, TRAIN_SEQ = 4, 2, 1024
+TRAIN_CASES = (("mamba2-130m", None, TRAIN_NODES, TRAIN_PER_NODE, TRAIN_SEQ),
+               ("qwen3-1.7b", 4, TRAIN_NODES, TRAIN_PER_NODE, TRAIN_SEQ),
+               ("zamba2-7b", 6, 2, 2, 1024),
+               ("llava-next-mistral-7b", 1, 4, 1, 4096))
 TRAIN_WARM, TRAIN_TIMED = 1, 4
 TRAIN_F32_STEPS = TRAIN_STRATEGY_STEPS = 2
 TRAIN_LOSS_RTOL = 2e-2
@@ -852,6 +915,18 @@ TRAIN_STRATEGY_LAYERS = 6
 # (the embedding's backward sums with atomics on the card, so not bit for
 # bit); mixing would move it by ~lr = 3e-4
 TRAIN_LOCAL_ATOL = 1e-6
+# The MoE dispatch's backward (index_put / index_add) and the aux loss
+# under autograd, at the MoE plans' smoke widths only: one MoE layer's
+# trainer state at published width is 270-340 GB a replica (11.3 B
+# parameters for deepseek-v3, 14 B for arctic, ~24 bytes each), which
+# no card holds.  TRAIN_MOE_STEPS fused diffusion steps of 4 nodes x 2 x
+# 64 tokens (f32, no remat, as smoke() has them) through the kernels
+# against torch-ref: losses and first gradients within TRAIN_MOE_TOL
+# (the atomics of index_add are not bit for bit).
+TRAIN_MOE_SMOKE = ("arctic-480b", "deepseek-v3-671b")
+TRAIN_MOE_SHAPE = (4, 2, 64)
+TRAIN_MOE_STEPS = 2
+TRAIN_MOE_TOL = dict(rtol=1e-4, atol=1e-5)
 
 # Phase 19, examples: the six port examples at their default sizes on the
 # card, in this process (imported by path, main([]) called), each one's
@@ -2947,13 +3022,14 @@ def check_lm_kernels(torch):
                     torch, kernel, plain, (q, k, v), n_bytes, flops,
                     library if window is None and Sq == Skv else None,
                     flop_per_s=peak[dname],
-                    plain_reps=3 if name == "mla_prefill" else None)
+                    plain_reps=(3 if FLASH_TIMED[name] == ("bfloat16",)
+                                else None))
                 if name == "qwen3_prefill" and dname == "bfloat16":
                     times["flash_attention"] = timing_
-                if name == "mla_prefill":
-                    times["flash_attention_mla"] = dict(
-                        B=B, S=Sq, H=H, Hkv=Hkv, D=D, scale=scale,
-                        dtype=dname, **timing_)
+                elif FLASH_TIMED[name] == ("bfloat16",):
+                    times.setdefault("flash_attention_shapes", {})[name] = (
+                        dict(B=B, S=Sq, H=H, Hkv=Hkv, D=D, scale=scale,
+                             dtype=dname, **timing_))
             emit("lm_kernels", kernel="flash_attention", case=name, B=B,
                  Sq=Sq, Skv=Skv, H=H, Hkv=Hkv, D=D, window=window,
                  scale=scale, dtype=dname, max_abs_err=err, timing=timing_)
@@ -3031,7 +3107,8 @@ def flash_fault_readings(torch, step, want, shape=None,
     appended), the KV heads reversed (a wrong GQA map), and scores scaled
     without the log2 e fold (x ln 2); fault_readings at ``shape`` (B, S,
     H, Hkv, D, window, scale; default qwen3's prefill), FLASH_TOL at bf16
-    against ref_attention."""
+    against ref_attention; at one KV head the faults of
+    flash_faults_not_planted are left out."""
     from repro_torch.kernels import flash_attention as fa, ref
     real = fa.flash_attention
 
@@ -3052,6 +3129,8 @@ def flash_fault_readings(torch, step, want, shape=None,
         _, B, S, _, H, Hkv, D, window = FLASH_CASES[0]
         shape = (B, S, H, Hkv, D, window, None)
     B, S, H, Hkv, D, window, scale = shape
+    for fault in flash_faults_not_planted(Hkv):
+        del faults[fault]
     g = torch.Generator(device="cuda").manual_seed(S + D)
     q, k, v = (torch.randn(shape, generator=g, device="cuda")
                .to(torch.bfloat16) for shape in
@@ -3063,6 +3142,17 @@ def flash_fault_readings(torch, step, want, shape=None,
         torch, fa, faults,
         lambda f: f(q, k, v, causal=True, window=window, scale=scale),
         plain, FLASH_TOL["bfloat16"], step, want, route_catches_faults)
+
+
+def flash_faults_not_planted(Hkv) -> dict:
+    """{fault: why} of LM_BF16_CAUGHT's faults that flash_fault_readings
+    leaves out at ``Hkv`` KV heads: at one (granite-20b's MQA) k.flip(2)
+    is k, so the KV-head reversal would be no fault, and the kernel check
+    at the model's shape against ref_attention holds the head map."""
+    return ({"kv_heads_reversed": "one KV head: reversing the KV heads is "
+                                  "no change; the kernel check at the "
+                                  "model's shape holds the head map"}
+            if Hkv == 1 else {})
 
 
 def ssd_fault_readings(torch, step, want, shape=None,
@@ -3105,12 +3195,15 @@ def _lm_tokens(torch, vocab, shape, seed):
 
 def lm_batch(torch, cfg, B, S, seed) -> dict:
     """A prefill batch of S positions drawn on the card from ``seed``:
-    tokens, or a vlm's patch embeddings (the stub frontend) and then
-    S - vis_tokens tokens."""
-    from repro_torch.models.frontends import vlm_batch_stub
+    tokens, an audio model's codec tokens (the stub frontend), or a
+    vlm's patch embeddings (the stub frontend) and then S - vis_tokens
+    tokens."""
+    from repro_torch.models.frontends import audio_token_stub, vlm_batch_stub
+    g = torch.Generator(device="cuda").manual_seed(seed)
     if cfg.modality == "vlm":
-        return vlm_batch_stub(torch.Generator(device="cuda").manual_seed(seed),
-                              B, S, cfg)
+        return vlm_batch_stub(g, B, S, cfg)
+    if cfg.modality == "audio":
+        return {"tokens": audio_token_stub(g, B, S, cfg)}
     return {"tokens": _lm_tokens(torch, cfg.vocab_size, (B, S), seed)}
 
 
@@ -3263,11 +3356,16 @@ def lm_phase(torch, arch: str, phase: str, want: dict, *, layers=None,
     require(bf16_route["rel_l2"] <= limit,
             f"{arch} bf16 prefill: kernel vs torch-ref route "
             f"{bf16_route} above {limit}")
-    caught = [f for kernel in want for f in LM_BF16_ROUTE[kernel][1]]
+    # every planted fault must be caught; flash_faults_not_planted names
+    # the ones left out at this shape
+    not_planted = (flash_faults_not_planted(shapes["flash_attention"][3])
+                   if "flash_attention" in want else {})
+    required = [(k, f) for k in want for f in LM_BF16_ROUTE[k][1]
+                if f not in not_planted]
+    caught = [f for _, f in required]
     by_route = {f: (faults[k][f]["logits_rel_l2"] or 0.0) > limit
-                for k in want for f in LM_BF16_ROUTE[k][1]}
-    by_kernel = {f: faults[k][f]["kernel_check_fails"]
-                 for k in want for f in LM_BF16_ROUTE[k][1]}
+                for k, f in required}
+    by_kernel = {f: faults[k][f]["kernel_check_fails"] for k, f in required}
     blind = [f for f in caught if not by_route[f]
              and (route_catches_faults or not by_kernel[f])]
     require(not blind, f"{arch} bf16: the checks miss the planted faults "
@@ -3307,6 +3405,7 @@ def lm_phase(torch, arch: str, phase: str, want: dict, *, layers=None,
          bf16_vs_f32_max_abs_err=e_bf16,
          bf16_kernel_vs_torch_ref=bf16_route,
          faults_caught_by_route=by_route, faults_caught_by_kernel=by_kernel,
+         faults_not_planted=not_planted,
          bf16_prefill_s=prefill_s, bf16_prefill_tok_per_s=B * S / prefill_s,
          bf16_teacher_forced_prefill_s=stats16["prefill_s"],
          bf16_decode_ms_per_token=stats16["decode_s"] / n_gen * 1e3,
@@ -3332,12 +3431,29 @@ def lm_plans_phase(torch) -> dict:
             for arch, layers, prefill, want in LM_PLANS}
 
 
-def train_launches(cfg, strategy, n_comm, kernel) -> dict:
-    """The launches one fused train step makes on the card: the LM
-    kernel once a layer a node in the forward, and again in the backward
-    where remat recomputes each block; one gossip_combine a communicated
-    leaf a round of the strategy."""
-    want = {kernel: TRAIN_NODES * cfg.n_layers * (2 if cfg.remat else 1)}
+def plan_launches(cfg) -> dict:
+    """The LM kernels' launches of one forward of ``cfg``, by kernel: one
+    flash_attention an attention layer and a zamba group's shared block,
+    one ssd_scan an SSM layer."""
+    from repro_torch.models.transformer import build_plan
+    out = {}
+    for seg in build_plan(cfg):
+        if seg[0] == "zamba":
+            out["ssd_scan"] = out.get("ssd_scan", 0) + seg[1] * seg[2]
+            out["flash_attention"] = out.get("flash_attention", 0) + seg[1]
+        else:
+            name = "flash_attention" if seg[1][0] == "attn" else "ssd_scan"
+            out[name] = out.get(name, 0) + seg[2]
+    return out
+
+
+def train_launches(cfg, strategy, n_comm, nodes) -> dict:
+    """The launches one fused train step of ``nodes`` nodes makes on the
+    card: the LM kernels of a forward once a node, again in the backward
+    where remat recomputes each block (a zamba group as one); one
+    gossip_combine a communicated leaf a round of the strategy."""
+    want = {kernel: nodes * n * (2 if cfg.remat else 1)
+            for kernel, n in plan_launches(cfg).items()}
     # t_con 1 (dgd's one neighbour round whatever t_con); allreduce takes
     # the node mean in plain torch, local sends nothing
     if strategy not in ("allreduce", "local"):
@@ -3345,24 +3461,35 @@ def train_launches(cfg, strategy, n_comm, kernel) -> dict:
     return want
 
 
+def communicated_leaves(params) -> int:
+    """The leaves of a node-stacked tree that a strategy communicates
+    (all but launch.train's node-local ones)."""
+    from repro_torch.distributed.aggregation import _split_local
+    from repro_torch.launch.train import LOCAL_PATTERNS
+    from repro_torch.utils.trees import tree_leaves
+    return sum(tree_leaves(_split_local(params, LOCAL_PATTERNS)))
+
+
 def train_run(torch, cfg, route, steps, strategy="diffusion", *,
-              want=None, keep=None, keep_last=False):
-    """``steps`` steps of launch.train's trainer for ``cfg`` on the
-    kernel route ``route``, weights and batches from seed 0: per-node
-    losses, host ms of each step (ended by a synchronize), the launches
-    of each step (held to ``want`` on cuda, none on torch-ref), and
-    ``keep(state)`` after each step; with ``keep_last`` also the last
-    state, the step function and the last batch (a qwen3 state is ~25
-    GB: nothing else keeps one)."""
+              shape=(TRAIN_NODES, TRAIN_PER_NODE, TRAIN_SEQ), want=None,
+              keep=None, keep_last=False):
+    """``steps`` steps of launch.train's trainer for ``cfg`` at ``shape``
+    (nodes, per-node batch, tokens a sequence) on the kernel route
+    ``route``, weights and batches from seed 0: per-node losses, host ms
+    of each step (ended by a synchronize), the launches of each step
+    (held to ``want`` on cuda, none on torch-ref), and ``keep(state)``
+    after each step; with ``keep_last`` also the last state, the step
+    function and the last batch (a qwen3 state is ~25 GB: nothing else
+    keeps one)."""
     from repro_torch.kernels import _build, ops
     from repro_torch.launch.train import make_trainer
 
+    nodes, per_node, seq = shape
     out = dict(losses=[], ms=[], launches=[], kept=[])
     with ops.backend_scope(route):
         state, step, batch_at = make_trainer(
-            cfg, steps=steps, n_nodes=TRAIN_NODES,
-            per_node_batch=TRAIN_PER_NODE, seq=TRAIN_SEQ,
-            aggregation=strategy, device="cuda")
+            cfg, steps=steps, n_nodes=nodes, per_node_batch=per_node,
+            seq=seq, aggregation=strategy, device="cuda")
         for i in range(steps):
             batch = batch_at(i)
             torch.cuda.synchronize()
@@ -3401,59 +3528,84 @@ def losses_agree(a, b, rtol, what) -> float:
     return rel
 
 
+def train_prediction(arch, cfg, shape) -> dict:
+    """The dry run's reading (launch.dryrun.run_one on a (1, 1) mesh) of
+    one fused diffusion step of ``cfg`` at ``shape`` (nodes, per-node
+    batch, tokens a sequence): its peak bytes and kernel launches."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import InputShape
+
+    nodes, per_node, seq = shape
+    rec = dryrun.run_one(arch, InputShape("train_phase", seq,
+                                          nodes * per_node, "train"),
+                         mesh=MeshShape(("data", "model"), (1, 1)),
+                         cfg=cfg, n_nodes=nodes)
+    return dict(peak_gib=rec["memory"]["peak_bytes"] / 2 ** 30,
+                launches=rec["kernel_launches"], dry_run_s=rec["lower_s"])
+
+
 def train_phase(torch) -> dict:
     """Phase 18: the LM trainer on the card, each model of TRAIN_CASES
     through launch.train's parts (make_trainer) on the kernel route and
-    on torch-ref, then launch.train.train itself.  Returns, per kernel,
-    the launches of one fused diffusion step of each model."""
+    on torch-ref, then launch.train.train itself; then the MoE plans'
+    backward at smoke width (train_moe_smoke).  Returns, per kernel, the
+    launches of one fused diffusion step of each model."""
     from repro_torch.configs import get_config
-    from repro_torch.distributed.aggregation import _split_local
     from repro_torch.kernels import _build, ops
     from repro_torch.launch import steps
-    from repro_torch.launch.train import LOCAL_PATTERNS, make_trainer, train
+    from repro_torch.launch.train import make_trainer, train
     from repro_torch.models.transformer import count_params
     from repro_torch.utils.trees import tree_leaves_with_path
 
     t_phase = time.perf_counter()
-    launches_train = {}
-    for arch, n_layers, kernel, grad_limit in TRAIN_CASES:
+    launches_train = {"flash_attention": {}, "ssd_scan": {},
+                      "gossip_combine": {}}
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, n_layers, nodes, per_node, seq in TRAIN_CASES:
         t_model = time.perf_counter()
+        shape = (nodes, per_node, seq)
         cfg = get_config(arch)
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
         require(cfg.remat and cfg.remat_policy == "all" and
                 cfg.dtype == "bfloat16", f"{arch}: {cfg}")
+        grad_limit = (LM_SSM_BF16_REL_L2 if "ssd_scan" in plan_launches(cfg)
+                      else LM_BF16_REL_L2)
+        predicted = train_prediction(arch, cfg, shape)
 
         # the first step's gradients, kernel route against torch-ref
-        state, _, batch_at = make_trainer(cfg, steps=1, n_nodes=TRAIN_NODES,
-                                          per_node_batch=TRAIN_PER_NODE,
-                                          seq=TRAIN_SEQ, device="cuda")
+        state, _, batch_at = make_trainer(cfg, steps=1, n_nodes=nodes,
+                                          per_node_batch=per_node, seq=seq,
+                                          device="cuda")
         params, batch = state.params, batch_at(0)
         del state
-        n_params = count_params(params) // TRAIN_NODES
-        n_comm = sum(m for _, m in tree_leaves_with_path(
-            _split_local(params, LOCAL_PATTERNS)))
-        want = train_launches(cfg, "diffusion", n_comm, kernel)
+        n_params = count_params(params) // nodes
+        n_comm = communicated_leaves(params)
+        want = train_launches(cfg, "diffusion", n_comm, nodes)
+        require(predicted["launches"] == want,
+                f"{arch}: the dry run's launches {predicted['launches']}, "
+                f"derived {want}")
         _build.LAUNCHES.clear()
-        _, g_k = steps.node_value_and_grad(params, batch, cfg, TRAIN_NODES)
+        _, g_k = steps.node_value_and_grad(params, batch, cfg, nodes)
         torch.cuda.synchronize()
         grad_launches = dict(_build.LAUNCHES)
-        want_grad = {k: v for k, v in want.items() if k == kernel}
+        want_grad = {k: v for k, v in want.items() if k != "gossip_combine"}
         require(grad_launches == want_grad,
                 f"{arch} gradients: launches {grad_launches}, want "
                 f"{want_grad}")
         with ops.backend_scope("torch-ref"):
-            _, g_r = steps.node_value_and_grad(params, batch, cfg,
-                                               TRAIN_NODES)
+            _, g_r = steps.node_value_and_grad(params, batch, cfg, nodes)
         grads = {}
         for (path, gk), (_, gr) in zip(tree_leaves_with_path(g_k),
                                        tree_leaves_with_path(g_r)):
-            per_node = [float(gk[i].abs().max()) for i in range(TRAIN_NODES)]
-            require(min(per_node) > 0 and all(map(math.isfinite, per_node)),
+            per_node_max = [float(gk[i].abs().max()) for i in range(nodes)]
+            require(min(per_node_max) > 0
+                    and all(map(math.isfinite, per_node_max)),
                     f"{arch}: gradient of {path} is zero or not finite on "
-                    f"a node: {per_node}")
+                    f"a node: {per_node_max}")
             grads[path] = dict(rel_l2=rel_l2(torch, gk, gr),
-                               min_node_max_abs=min(per_node))
+                               min_node_max_abs=min(per_node_max))
             require(grads[path]["rel_l2"] <= grad_limit,
                     f"{arch}: gradient of {path} {grads[path]} past "
                     f"{grad_limit}")
@@ -3464,24 +3616,26 @@ def train_phase(torch) -> dict:
         # then torch-ref from the same weights and batches
         n_steps = TRAIN_WARM + TRAIN_TIMED
         torch.cuda.reset_peak_memory_stats()
-        run_k = train_run(torch, cfg, "cuda", n_steps, want=want,
-                          keep_last=True)
+        run_k = train_run(torch, cfg, "cuda", n_steps, shape=shape,
+                          want=want, keep_last=True)
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(peak_gib * 2 ** 30 < total,
+                f"{arch}: peak {peak_gib} GiB, card {total / 2 ** 30}")
         prof = profiled(torch, lambda: run_k["step"](run_k["state"],
                                                      run_k["batch"]),
                         warm=False)
         del run_k["state"], run_k["step"], run_k["batch"]
         torch.cuda.empty_cache()
-        run_r = train_run(torch, cfg, "torch-ref", n_steps)
+        run_r = train_run(torch, cfg, "torch-ref", n_steps, shape=shape)
         bf16_rel = losses_agree(run_k["losses"], run_r["losses"],
                                 TRAIN_LOSS_RTOL, f"{arch} bf16 diffusion")
         timed = run_k["ms"][TRAIN_WARM:]
         step_ms = statistics.median(timed)
-        tokens = TRAIN_NODES * TRAIN_PER_NODE * TRAIN_SEQ
 
         # f32 activations, both routes
         cfg32 = dataclasses.replace(cfg, dtype="float32")
-        f32 = [train_run(torch, cfg32, route, TRAIN_F32_STEPS, want=want)
+        f32 = [train_run(torch, cfg32, route, TRAIN_F32_STEPS, shape=shape,
+                         want=want)
                for route in ("cuda", "torch-ref")]
         f32_rel = losses_agree(f32[0]["losses"], f32[1]["losses"],
                                LM_TOL["rtol"], f"{arch} f32 diffusion")
@@ -3490,7 +3644,8 @@ def train_phase(torch) -> dict:
         history = None
         if arch == TRAIN_ENTRY:
             _build.LAUNCHES.clear()
-            _, history = train(arch, smoke=False, steps=2, seq=TRAIN_SEQ,
+            _, history = train(arch, smoke=False, steps=2, n_nodes=nodes,
+                               per_node_batch=per_node, seq=seq,
                                n_layers=n_layers, device="cuda")
             entry_launches = dict(_build.LAUNCHES)
             require(entry_launches == {k: 2 * v for k, v in want.items()}
@@ -3499,12 +3654,14 @@ def train_phase(torch) -> dict:
                     f"{entry_launches}, history {history}")
             torch.cuda.empty_cache()
 
-        launches_train[kernel] = want.get(kernel, 0)
-        launches_train.setdefault("gossip_combine", {})[arch] = want.get(
-            "gossip_combine", 0)
-        emit("train", arch=arch, layers=cfg.n_layers, params=n_params,
-             nodes=TRAIN_NODES, per_node_batch=TRAIN_PER_NODE,
-             seq=TRAIN_SEQ, dtype=cfg.dtype, remat=cfg.remat_policy,
+        for kernel, per_arch in launches_train.items():
+            if kernel in want:
+                per_arch[arch] = want[kernel]
+        emit("train", arch=arch, layers=cfg.n_layers,
+             layers_published=get_config(arch).n_layers, params=n_params,
+             nodes=nodes, per_node_batch=per_node, seq=seq,
+             vis_tokens=cfg.vis_tokens if cfg.modality == "vlm" else 0,
+             dtype=cfg.dtype, remat=cfg.remat_policy,
              strategy="diffusion", communicated_leaves=n_comm,
              launches_per_step=want, gradient_launches=grad_launches,
              first_step_gradients=dict(
@@ -3518,22 +3675,129 @@ def train_phase(torch) -> dict:
                                                      for r in f32],
              f32_loss_max_rel=f32_rel, step_ms=run_k["ms"],
              step_ms_torch_ref=run_r["ms"], ms_per_step=step_ms,
-             tok_per_s=tokens / step_ms * 1e3,
+             tok_per_s=nodes * per_node * seq / step_ms * 1e3,
              f32_step_ms=[r["ms"] for r in f32], peak_memory_gib=peak_gib,
-             profile_step=prof, train_entry_history=history,
+             peak_memory_gib_predicted=predicted["peak_gib"],
+             peak_rel_err_predicted=(predicted["peak_gib"] - peak_gib)
+             / peak_gib,
+             dry_run=predicted, profile_step=prof,
+             train_entry_history=history,
              seconds=time.perf_counter() - t_model,
              clock="host, ended by a device synchronize")
         if arch == "mamba2-130m":
             t_strat = time.perf_counter()
             cut = dataclasses.replace(cfg, n_layers=TRAIN_STRATEGY_LAYERS)
             emit("train_strategies", arch=arch, layers=cut.n_layers,
-                 strategies=train_strategies(torch, cut, n_comm, kernel),
+                 strategies=train_strategies(torch, cut, n_comm),
                  seconds=time.perf_counter() - t_strat)
+    for arch, launches in train_moe_smoke(torch).items():
+        for kernel, per_arch in launches_train.items():
+            if kernel in launches:
+                per_arch[f"{arch} smoke"] = launches[kernel]
     emit("train_phase", seconds=time.perf_counter() - t_phase)
     return launches_train
 
 
-def train_strategies(torch, cfg, n_comm, kernel) -> dict:
+def train_moe_smoke(torch) -> dict:
+    """The MoE plans' backward on the card at smoke width (see
+    TRAIN_MOE_SMOKE): for each, the first step's per-node losses and
+    gradients through the kernels against torch-ref (TRAIN_MOE_TOL), the
+    loss's gradient nonzero on every node at every leaf and at every
+    expert of each expert stack, the aux loss's own gradient nonzero at
+    every router, and TRAIN_MOE_STEPS steps on both routes (losses
+    within TRAIN_MOE_TOL's rtol, the derived launches every step).
+    Returns {arch: the launches of one step by kernel}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.trees import tree_leaves_with_path
+
+    out = {}
+    nodes, per_node, seq = TRAIN_MOE_SHAPE
+    for arch in TRAIN_MOE_SMOKE:
+        t_model = time.perf_counter()
+        cfg = get_config(arch).smoke()
+        state, _, batch_at = make_trainer(cfg, steps=TRAIN_MOE_STEPS,
+                                          n_nodes=nodes,
+                                          per_node_batch=per_node, seq=seq,
+                                          device="cuda")
+        params, batch = state.params, batch_at(0)
+        del state
+        want = train_launches(cfg, "diffusion", communicated_leaves(params),
+                              nodes)
+        _build.LAUNCHES.clear()
+        loss_k, g_k = steps.node_value_and_grad(params, batch, cfg, nodes)
+        torch.cuda.synchronize()
+        grad_launches = dict(_build.LAUNCHES)
+        require(grad_launches == {k: v for k, v in want.items()
+                                  if k != "gossip_combine"},
+                f"{arch} smoke gradients: launches {grad_launches}, want "
+                f"{want}")
+        with ops.backend_scope("torch-ref"):
+            loss_r, g_r = steps.node_value_and_grad(params, batch, cfg, nodes)
+        e_loss = max_err(torch, loss_k, loss_r, TRAIN_MOE_TOL,
+                         f"{arch} smoke first losses")
+        e_grad, experts = 0.0, {}
+        for (path, gk), (_, gr) in zip(tree_leaves_with_path(g_k),
+                                       tree_leaves_with_path(g_r)):
+            e_grad = max(e_grad, max_err(torch, gk, gr, TRAIN_MOE_TOL,
+                                         f"{arch} smoke gradient of {path}"))
+            require(all(bool(gk[i].abs().max() > 0) for i in range(nodes)),
+                    f"{arch} smoke: gradient of {path} zero on a node")
+            if "/experts/" in path:
+                # (nodes, layers, E, ...): every expert's slice on every node
+                per_expert = gk.abs().flatten(3).amax(-1)
+                experts[path] = float(per_expert.min())
+                require(experts[path] > 0,
+                        f"{arch} smoke: an expert of {path} has a zero "
+                        f"gradient on some node")
+
+        # the aux loss alone, node 0, through the kernels: its gradient
+        # reaches every router
+        p0 = steps._node_slices(params, 0,
+                                lambda x: x.detach().requires_grad_(),
+                                tfm.build_plan(cfg))
+        routers = [(p, x) for p, x in tree_leaves_with_path(p0)
+                   if p.endswith("router")]
+        with torch.enable_grad():
+            _, aux = tfm.forward(p0, {k: v[0] for k, v in batch.items()},
+                                 cfg)
+            aux_grads = torch.autograd.grad(aux, [x for _, x in routers])
+        aux_router = {p: float(g.abs().max())
+                      for (p, _), g in zip(routers, aux_grads)}
+        require(routers and min(aux_router.values()) > 0,
+                f"{arch} smoke: the aux loss's gradient at the routers "
+                f"{aux_router}")
+        del params, p0, g_k, g_r, batch, batch_at
+
+        runs = {route: train_run(torch, cfg, route, TRAIN_MOE_STEPS,
+                                 shape=TRAIN_MOE_SHAPE, want=want)
+                for route in ("cuda", "torch-ref")}
+        rel = losses_agree(runs["cuda"]["losses"],
+                           runs["torch-ref"]["losses"],
+                           TRAIN_MOE_TOL["rtol"], f"{arch} smoke diffusion")
+        out[arch] = want
+        emit("train_moe_smoke", arch=arch, layers=cfg.n_layers,
+             experts=cfg.n_experts, top_k=cfg.top_k, d_model=cfg.d_model,
+             nodes=nodes, per_node_batch=per_node, seq=seq, dtype=cfg.dtype,
+             why="one MoE layer's trainer state at published width is "
+                 "270-340 GB a replica: no card holds it",
+             launches_per_step=want, gradient_launches=grad_launches,
+             first_loss_max_abs_err=e_loss, first_grad_max_abs_err=e_grad,
+             tol=TRAIN_MOE_TOL, expert_min_grad_abs=experts,
+             aux_loss=float(aux.detach()),
+             aux_grad_at_router_max_abs=aux_router,
+             losses_cuda=runs["cuda"]["losses"],
+             losses_torch_ref=runs["torch-ref"]["losses"],
+             loss_max_rel=rel, step_ms=runs["cuda"]["ms"],
+             seconds=time.perf_counter() - t_model)
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_strategies(torch, cfg, n_comm) -> dict:
     """The six other strategies on ``cfg``, TRAIN_STRATEGY_STEPS steps
     each on cuda and on torch-ref: losses within TRAIN_LOSS_RTOL, the
     derived launches; allreduce keeps the communicated leaves of every
@@ -3555,7 +3819,7 @@ def train_strategies(torch, cfg, n_comm, kernel) -> dict:
 
     out, local_after_one = {}, {}
     for strategy in TRAIN_STRATEGIES:
-        want = train_launches(cfg, strategy, n_comm, kernel)
+        want = train_launches(cfg, strategy, n_comm, TRAIN_NODES)
         runs = {}
         for route in ("cuda", "torch-ref"):
             run = train_run(torch, cfg, route, TRAIN_STRATEGY_STEPS,
@@ -3768,9 +4032,31 @@ def kernel_times(torch, src: Path, label: str) -> dict:
     import inspect
     sys.path.insert(0, str(src.resolve()))
     from repro_torch.distributed.consensus import get_rule
-    from repro_torch.kernels import _build, altgdmin_ls, compress, gossip_axpy
-    _build.build(("altgdmin_ls", "gossip_axpy", "compress"))
+    import torch.nn.functional as F
+    from repro_torch.kernels import (_build, altgdmin_ls, compress,
+                                     flash_attention, gossip_axpy)
+    _build.build(("altgdmin_ls", "gossip_axpy", "compress",
+                  "flash_attention"))
     times = {"launch_floor": device_ms(torch, lambda: torch.cuda._sleep(0))}
+    # the bf16 flash kernel at the LM prefill shapes of phase 15 timed at
+    # bf16, beside scaled_dot_product_attention and its bound
+    for name, B, Sq, Skv, H, Hkv, D, window in FLASH_CASES:
+        if "bfloat16" not in FLASH_TIMED.get(name, ()) or window:
+            continue
+        g = torch.Generator(device="cuda").manual_seed(Sq + D)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda")
+                   .to(torch.bfloat16) for shape in
+                   ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+        scale = FLASH_SCALE.get(name)
+        flops, n_bytes = flash_attention.cost(q, k, v)
+        times[f"flash_attention {name} bfloat16"] = dict(
+            ms=device_ms(torch, lambda: flash_attention.flash_attention(
+                q, k, v, causal=True, scale=scale)),
+            library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True, scale=scale)),
+            bound_ms=bound(n_bytes, flops, BF16_FLOP_PER_S)[0])
+        del q, k, v
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for L, M in MIX_TIME_SHAPES:
@@ -3968,10 +4254,10 @@ def main(argv=None) -> int:
                              "phase")
     parser.add_argument("--train", action="store_true",
                         help="only build the kernels and run the train "
-                             "phase")
+                             "phase (with --lm-plans: both)")
     parser.add_argument("--lm-plans", action="store_true",
                         help="only build the kernels and run the lm_plans "
-                             "phase")
+                             "phase (with --train: both)")
     parser.add_argument("--examples", action="store_true",
                         help="only build the kernels and run the examples "
                              "phase (with --dryrun: both)")
@@ -4049,12 +4335,13 @@ def main(argv=None) -> int:
     if args.lint:
         print(json.dumps({"launches_lint": lint_phase(torch)}), flush=True)
         return 0
-    if args.train:
-        print(json.dumps({"launches_train": train_phase(torch)}), flush=True)
-        return 0
-    if args.lm_plans:
-        print(json.dumps({"launches_lm_plans": lm_plans_phase(torch)}),
-              flush=True)
+    if args.train or args.lm_plans:
+        if args.lm_plans:
+            print(json.dumps({"launches_lm_plans": lm_plans_phase(torch)}),
+                  flush=True)
+        if args.train:
+            print(json.dumps({"launches_train": train_phase(torch)}),
+                  flush=True)
         return 0
     if args.examples or args.dryrun:
         if args.dryrun:
@@ -4173,7 +4460,12 @@ def main(argv=None) -> int:
                     "dtype": "bfloat16",
                     "max_abs_err": lm_errs["flash_attention_bf16"],
                     "max_abs_err_f32_kernel": lm_errs["flash_attention"],
-                    "mla_shape": lm_timing["flash_attention_mla"],
+                    "mla_shape": lm_timing["flash_attention_shapes"][
+                        "mla_prefill"],
+                    "lm_plans_shapes": {
+                        name: t for name, t in
+                        lm_timing["flash_attention_shapes"].items()
+                        if name != "mla_prefill"},
                     **lm_timing["flash_attention"]})
     # ssd_scan's row likewise: the bf16 three-pass tensor-core kernels
     # (their CUDA launches a call, counted over a bf16 prefill step of

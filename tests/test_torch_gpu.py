@@ -1113,11 +1113,15 @@ def test_ssd_scan_unaligned_rows_and_bases(cuda, P, N, chunk, dtype):
     _close(h, h_ref, SSD_TOL[dtype])
 
 
-@pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-130m"])
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-130m",
+                                  "granite-20b", "command-r-35b",
+                                  "phi4-mini-3.8b", "musicgen-medium"])
 def test_smoke_model_through_the_kernels_matches_torch_ref(cuda, name):
     """A smoke config's forward on the card through the LM kernel (one
     launch a layer) against the torch-ref route on the same weights, and
-    generate() end to end; prefill ≡ decode at 2e-3."""
+    generate() end to end; prefill ≡ decode at 2e-3.  granite's smoke
+    keeps its one KV head (MQA), command-r's its parallel block,
+    phi4's its tied embeddings, musicgen's its MHA at head dim 64."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.launch import serve
@@ -1450,34 +1454,40 @@ def test_a_detached_kernel_output_fails_the_autograd_check(cuda, case,
         _hold_autograd(*AUTOGRAD_CASES[case](torch.bfloat16))
 
 
-@pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-130m"])
+@pytest.mark.parametrize("name", [
+    "qwen3-1.7b", "mamba2-130m", "granite-20b", "command-r-35b",
+    "phi4-mini-3.8b", "musicgen-medium", "arctic-480b", "deepseek-v3-671b",
+    "zamba2-7b", "llava-next-mistral-7b"])
 def test_smoke_train_step_on_the_card_matches_torch_ref(cuda, name):
     """Two fused diffusion steps of a smoke config (f32, no remat), 4
     nodes, through the kernels against the torch-ref route: losses
     within 1e-4, the first step's gradients within rtol 1e-4 / atol
     1e-5, every leaf's gradient on every node nonzero, and the launches
-    of each step: one LM kernel a layer a node, one gossip_combine a
-    communicated leaf; none on torch-ref."""
+    of each step: the LM kernels of a forward (``_plan_launches``) a
+    node, twice under remat, one gossip_combine a communicated leaf;
+    none on torch-ref.  The MoE plans run their dispatch's backward and
+    the aux loss under autograd, zamba2 its group, llava its patch
+    embeddings before the text."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.aggregation import (AggregationConfig,
                                                      _split_local)
     from repro_torch.kernels import _build, ops
     from repro_torch.launch import steps
+    from repro_torch.launch.train import make_batch
     from repro_torch.models import init_params
     from repro_torch.optim import adamw, constant
     from repro_torch.utils.trees import tree_leaves
     cfg = get_config(name).smoke()
     params = steps.replicate_for_nodes(init_params(cfg, seed=0), 4)
-    g = torch.Generator(device="cuda").manual_seed(2)
-    toks = torch.randint(0, cfg.vocab_size, (4, 2, 64), generator=g,
-                         device="cuda")
-    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+    batch = {k: v.to("cuda") for k, v in make_batch(
+        cfg, torch.Generator().manual_seed(2), 4, 2, 64).items()}
     agg = AggregationConfig(strategy="diffusion", local_patterns=("embed",))
-    kernel = "ssd_scan" if name.startswith("mamba") else "flash_attention"
     n_comm = sum(tree_leaves(_split_local(params, agg.local_patterns)))
+    launches = {kernel: 4 * n * (2 if cfg.remat else 1)
+                for kernel, n in _plan_launches(cfg).items()}
     _build.LAUNCHES.clear()
     _, grads = steps.node_value_and_grad(params, batch, cfg, 4)
-    assert dict(_build.LAUNCHES) == {kernel: 4 * cfg.n_layers}
+    assert dict(_build.LAUNCHES) == launches
     with ops.backend_scope("torch-ref"):
         _, want = steps.node_value_and_grad(params, batch, cfg, 4)
     for got, ref in zip(tree_leaves(grads), tree_leaves(want)):
@@ -1498,7 +1508,7 @@ def test_smoke_train_step_on_the_card_matches_torch_ref(cuda, name):
                 got.append(metrics["loss_per_node"])
                 if route == "cuda":
                     assert dict(_build.LAUNCHES) == {
-                        kernel: 4 * cfg.n_layers, "gossip_combine": n_comm}
+                        **launches, "gossip_combine": n_comm}
                 else:
                     assert not _build.LAUNCHES
         losses.append(torch.stack(got))

@@ -32,7 +32,8 @@ from repro_torch.models import params_from_jax  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("qwen3-1.7b", "mamba2-130m", "arctic-480b", "deepseek-v3-671b",
-         "zamba2-7b", "llava-next-mistral-7b")
+         "zamba2-7b", "llava-next-mistral-7b", "granite-20b",
+         "command-r-35b", "phi4-mini-3.8b", "musicgen-medium")
 
 _MODELS = {}
 
