@@ -1,0 +1,7 @@
+"""Every node's tokens of every train step of the window over its length (host
+clock)."""
+from gpubench import readers
+
+
+def read(run):
+    return readers.tokens_per_s(run)
